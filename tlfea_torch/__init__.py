@@ -1,0 +1,29 @@
+"""tlfea_torch — the PyTorch/CUDA port of tlfea for NVIDIA Hopper (H100).
+
+A second package beside `tlfea/` (JAX + Pallas for the TPU), which stays the
+reference. The layout mirrors `tlfea/` module for module, so the counterpart
+of `tlfea/x/y.py` is `tlfea_torch/x/y.py`. Host-side NumPy setup code is
+copied, not imported: importing any `tlfea.*` module pulls in jax
+(`tlfea/__init__.py:28-52`), and this package never imports jax.
+
+The slice ported so far is the flagship implicit step: FEAT10 elements,
+damped St. Venant-Kirchhoff, pinned nodes, backward Euler as an
+augmented-Lagrangian minimisation over velocity, matrix-free Newton-PCG with
+a block-Jacobi preconditioner and the frozen coarse correction. Its element
+work runs in hand-written CUDA kernels (`tlfea_torch/csrc/`, wrapped by
+`tlfea_torch.ops.fem_kernels`), each beside a plain PyTorch twin.
+
+Precision: float32 matrix products and convolutions run in full float32.
+TF32 keeps about three decimal digits — the Hopper form of the bf16-pass
+fault recorded in `tlfea/__init__.py:45-52` (1-3 % errors in F and P).
+"""
+
+import torch as _torch
+
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")
+
+__version__ = "0.1.0"
+
+from tlfea_torch import utils, materials, elements, ops, constraints, solvers, interop  # noqa: E402,F401

@@ -1,0 +1,130 @@
+// St. Venant-Kirchhoff + Kelvin-Voigt material algebra for the FEM element
+// kernels, as per-thread __device__ functions on 3x3 register arrays.
+//
+// The CUDA form of the tile algebra in tlfea/ops/pallas_fem.py:
+// `_svk_stress_rows` (:89, the strain-safe primal stress), `_SVKTile.hv`
+// (:229, the cached-primal directional derivative) and `_precond_fe` (:630,
+// the closed-form diagonal tangent block). The plain PyTorch twins of the
+// same algebra live in tlfea_torch/ops/fem_kernels.py.
+#pragma once
+
+namespace tlfea {
+
+// Total first Piola P and total second Piola S from the displacement
+// gradient Du = F - I and the velocity gradient Fd:
+//   E  = (Du + Du^T + Du^T Du)/2            (strain-safe: no F^T F - I)
+//   Ed = (Fd + Fd^T + Fd^T Du + Du^T Fd)/2
+//   S  = lam tr(E) I + 2 mu E + lam_d tr(Ed) I + 2 eta Ed
+//   P  = (I + Du) S
+template <typename T>
+__device__ __forceinline__ void svk_stress(const T Du[3][3], const T Fd[3][3],
+                                           T lam, T mu, T eta, T lam_d,
+                                           T P[3][3], T S[3][3]) {
+  T Em[3][3], Ed[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      T s = Du[0][i] * Du[0][j] + Du[1][i] * Du[1][j] + Du[2][i] * Du[2][j];
+      Em[i][j] = T(0.5) * (Du[i][j] + Du[j][i] + s);
+      T d = Fd[j][i] + Fd[i][j];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) d += Fd[k][i] * Du[k][j] + Du[k][i] * Fd[k][j];
+      Ed[i][j] = T(0.5) * d;
+    }
+  }
+  const T trE = Em[0][0] + Em[1][1] + Em[2][2];
+  const T trEd = Ed[0][0] + Ed[1][1] + Ed[2][2];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      S[i][j] = T(2) * mu * Em[i][j] + T(2) * eta * Ed[i][j];
+    }
+    S[i][i] += lam * trE + lam_d * trEd;
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      P[i][j] = S[i][j] + Du[i][0] * S[0][j] + Du[i][1] * S[1][j] + Du[i][2] * S[2][j];
+    }
+  }
+}
+
+// Directional derivative of P along the Newton direction p (dx = dt p,
+// dv = p), with G = sum_a p_a (x) gradN_a and the primal (Du, S0, Fd) read
+// from the prep cache:
+//   sym2  = (G + G^T + G^T Du + Du^T G)/2
+//   dS    = dt (lam tr(sym2) I + 2 mu sym2) + lam_d tr(dEd) I + 2 eta dEd,
+//   dEd   = sym2 + dt (Fd^T G + G^T Fd)/2
+//   dP    = dt G S0 + (I + Du) dS
+template <typename T>
+__device__ __forceinline__ void svk_hv(const T G[3][3], const T Du[3][3],
+                                       const T S0[3][3], const T Fd[3][3],
+                                       T dt, T lam, T mu, T eta, T lam_d,
+                                       T dP[3][3]) {
+  T sym2[3][3], dEd[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      T s = G[i][j] + G[j][i];
+      T x = T(0);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        s += G[k][i] * Du[k][j] + Du[k][i] * G[k][j];
+        x += Fd[k][i] * G[k][j] + G[k][i] * Fd[k][j];
+      }
+      sym2[i][j] = T(0.5) * s;
+      dEd[i][j] = sym2[i][j] + (T(0.5) * dt) * x;
+    }
+  }
+  const T tr_sym2 = sym2[0][0] + sym2[1][1] + sym2[2][2];
+  const T tr_dEd = dEd[0][0] + dEd[1][1] + dEd[2][2];
+  T dS[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      dS[i][j] = (T(2) * mu * dt) * sym2[i][j] + (T(2) * eta) * dEd[i][j];
+    }
+    dS[i][i] += (lam * dt) * tr_sym2 + lam_d * tr_dEd;
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      T s = dS[i][j];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) s += dt * G[i][k] * S0[k][j] + Du[i][k] * dS[k][j];
+      dP[i][j] = s;
+    }
+  }
+}
+
+// Upper triangle (SYM6 order: 00 01 02 11 12 22) of the closed-form SVK
+// diagonal tangent block K[d,e] = A[d,J,e,L] h_J h_L of one node with shape
+// gradient h, at deformation gradient F (trE = (|F|^2 - 3)/2, FFT = F F^T).
+template <typename T>
+__device__ __forceinline__ void svk_diag_block(const T F[3][3], const T FFT[3][3],
+                                               T trE, const T h[3], T lam, T mu,
+                                               T K[6]) {
+  T Fh[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) Fh[i] = F[i][0] * h[0] + F[i][1] * h[1] + F[i][2] * h[2];
+  const T hij = h[0] * h[0] + h[1] * h[1] + h[2] * h[2];
+  const T FhFh = Fh[0] * Fh[0] + Fh[1] * Fh[1] + Fh[2] * Fh[2];
+  const T diag = lam * trE * hij + mu * FhFh - mu * hij;
+  const int D[6] = {0, 0, 0, 1, 1, 2};
+  const int Ee[6] = {0, 1, 2, 1, 2, 2};
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    const int d = D[c], e = Ee[c];
+    T k = (lam + mu) * Fh[d] * Fh[e] + mu * hij * FFT[d][e];
+    if (d == e) k += diag;
+    K[c] = k;
+  }
+}
+
+}  // namespace tlfea

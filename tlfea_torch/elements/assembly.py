@@ -1,0 +1,137 @@
+"""Element batch and plain element assembly (port of
+`tlfea/elements/assembly.py`).
+
+Every element family reduces after host-side precomputation to the same
+tables: conn (E, S), grad_N (E, Q, S, 3), dV (E, Q), mass_elem (E, S, S).
+The functions here are the plain PyTorch element algebra; the hot path runs
+the same arithmetic in the CUDA kernels of `tlfea_torch.ops.fem_kernels`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import torch
+
+from tlfea_torch.ops.segment import coef_scatter_add
+
+__all__ = [
+    "ElementBatch",
+    "node_ref",
+    "center_translation",
+    "viscous_piola",
+    "mass_diag",
+    "lumped_mass",
+]
+
+
+@dataclass
+class ElementBatch:
+    """A batch of same-family elements as tensors on one device.
+
+    xe_ref / x_ref are the reference positions per element slot and per node;
+    the solver works in DISPLACEMENT space u = x - x_ref, since in float32
+    absolute coordinates round the tiny increments dt*v away. trans_mask
+    marks the slots whose shape gradients sum to zero (all ten for FEAT10),
+    which makes element-local centring exact (see `center_translation`).
+    """
+
+    conn: torch.Tensor  # (E, S) int64
+    grad_N: torch.Tensor  # (E, Q, S, 3)
+    dV: torch.Tensor  # (E, Q)
+    mass_elem: torch.Tensor  # (E, S, S)
+    xe_ref: torch.Tensor  # (E, S, 3)
+    n_coef: int
+    x_ref: torch.Tensor  # (n_coef, 3)
+    trans_mask: tuple | None = None
+
+    @property
+    def n_elem(self) -> int:
+        return self.conn.shape[0]
+
+    @property
+    def n_shape(self) -> int:
+        return self.conn.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.grad_N.device
+
+    def to(self, device=None, dtype=None) -> "ElementBatch":
+        """Copy onto `device` with floating tables cast to `dtype`."""
+
+        def f(t):
+            return t.to(device=device, dtype=dtype)
+
+        return replace(
+            self, conn=self.conn.to(device=device), grad_N=f(self.grad_N),
+            dV=f(self.dV), mass_elem=f(self.mass_elem), xe_ref=f(self.xe_ref),
+            x_ref=f(self.x_ref),
+        )
+
+
+def node_ref(elems: ElementBatch) -> torch.Tensor:
+    """Node-level reference positions (n_coef, 3)."""
+    return elems.x_ref
+
+
+def center_translation(ae: torch.Tensor, elems: ElementBatch) -> torch.Tensor:
+    """Element-local centring of gathered per-slot values (E, S, k).
+
+    Subtracts the first translation slot's value from every translation
+    slot. Exact, because their shape gradients sum to zero; it removes the
+    rigid-motion common mode, so gradient contractions see element-relative
+    operands and float32 loses no digits to |u| (an eps*E*theta residual
+    floor without it)."""
+    tm = elems.trans_mask
+    if tm is None:
+        return ae
+    r = tm.index(True)
+    mask = torch.tensor(tm, device=ae.device)
+    return ae - torch.where(mask[None, :, None], ae[:, r:r + 1, :],
+                            torch.zeros((), dtype=ae.dtype, device=ae.device))
+
+
+def viscous_piola(F: torch.Tensor, Fdot: torch.Tensor, eta: float,
+                  lam_d: float) -> torch.Tensor:
+    """Kelvin-Voigt viscous first Piola stress P_vis = F S_vis with
+    S_vis = 2 eta Edot + lam_d tr(Edot) I, Edot = (Fdot^T F + F^T Fdot)/2."""
+    FdotT_F = torch.einsum("...ki,...kj->...ij", Fdot, F)
+    Edot = 0.5 * (FdotT_F + FdotT_F.transpose(-1, -2))
+    trEdot = Edot[..., 0, 0] + Edot[..., 1, 1] + Edot[..., 2, 2]
+    eye = torch.eye(3, dtype=F.dtype, device=F.device)
+    S_vis = 2.0 * eta * Edot + (lam_d * trEdot)[..., None, None] * eye
+    return torch.einsum("...ik,...kj->...ij", F, S_vis)
+
+
+def _element_contrib_values(u, v, dv_dt, elems: ElementBatch, material) -> torch.Tensor:
+    """Per-(element, slot) ALM contribution f_int,e + M_e dv/dt, pre-scatter,
+    (E, S, 3). u: node displacements; one gather of the packed [u|v|dv]."""
+    packed = torch.cat([u, v, dv_dt], dim=1)  # (n_coef, 9)
+    pe = packed[elems.conn]  # (E, S, 9)
+    ue = center_translation(pe[..., 0:3], elems)
+    dve = pe[..., 6:9]
+
+    Du = torch.einsum("eai,eqaj->eqij", ue, elems.grad_N)
+    P = material.first_piola_du(Du)
+    if material.damped:
+        ve = center_translation(pe[..., 3:6], elems)
+        Fdot = torch.einsum("eai,eqaj->eqij", ve, elems.grad_N)
+        F = Du + torch.eye(3, dtype=Du.dtype, device=Du.device)
+        P = P + viscous_piola(F, Fdot, material.eta_damp, material.lam_damp)
+
+    fe = torch.einsum("eqij,eqaj,eq->eai", P, elems.grad_N, elems.dV)
+    me = torch.einsum("eab,ebi->eai", elems.mass_elem, dve)
+    return fe + me
+
+
+def mass_diag(elems: ElementBatch) -> torch.Tensor:
+    """Diagonal of the assembled consistent mass matrix -> (n_coef,)."""
+    diag_e = torch.diagonal(elems.mass_elem, dim1=1, dim2=2)  # (E, S)
+    return coef_scatter_add(diag_e[..., None], elems.conn, elems.n_coef)[:, 0]
+
+
+def lumped_mass(elems: ElementBatch) -> torch.Tensor:
+    """Row-sum lumped mass -> (n_coef,)."""
+    rows = elems.mass_elem.sum(dim=2)  # (E, S)
+    return coef_scatter_add(rows[..., None], elems.conn, elems.n_coef)[:, 0]

@@ -1,0 +1,372 @@
+"""FEM element kernels of the Newton-PCG step, with their plain PyTorch twins.
+
+The port of `tlfea/ops/pallas_fem.py` and `tlfea/ops/pallas_banded.py` for
+FEAT10 + SVK. Four CUDA kernels (sources in `tlfea_torch/csrc/`, design
+notes at the top of `fem_kernels.cu`) carry the element work:
+
+    K1 primal_prep  <- pallas_fem._primal_prep_body (:888),
+                       pallas_banded._primal_banded_body (:801)
+    K2 hv           <- pallas_fem._hv_body (:956),
+                       pallas_banded._hv_banded_body (:763)
+    K3 svk_blocks   <- pallas_fem._precond_body (:673),
+                       pallas_banded._blocks_banded_body (:839)
+    K4 node_reduce  <- the scatter half of K1-K3 (pallas_banded
+                       ._window_scatter :689, the flat path's `.at[].add`)
+
+Each wrapper takes the plain twin (`*_plain`, same module) for a tensor on
+the CPU, and launches its kernel for a tensor on a CUDA device, raising if
+the launch fails; it never falls back. Every launch adds one to
+`LAUNCHES[name]`, so a run can show which kernels it went through.
+
+Kernel layouts are element-minor: a table row r is stored as [r * E + e]
+(see `FemOperator`), and per-(element, slot) outputs are (S * C, E). The
+kernels are built on first use with nvcc for sm_90a into `tlfea_torch/_build`
+and bound with ctypes (`build_kernels`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from tlfea_torch.elements.assembly import ElementBatch, mass_diag
+from tlfea_torch.materials.svk import SVK
+from tlfea_torch.ops.segment import coef_scatter_add
+
+__all__ = [
+    "FemOperator", "LAUNCHES", "reset_launch_counts", "build_kernels",
+    "primal_prep", "primal_prep_plain", "hv", "hv_plain",
+    "svk_blocks", "svk_blocks_plain", "node_reduce", "node_reduce_plain",
+    "element_fns", "unpack_sym6", "g_and_hvp",
+]
+
+S_T10, Q_T10, PREP_ROWS = 10, 5, 27
+SYM6 = [(0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)]
+
+LAUNCHES = {"primal_prep": 0, "hv": 0, "svk_blocks": 0, "node_reduce": 0}
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+_BUILD = os.path.join(os.path.dirname(_CSRC), "_build")
+_SOURCES = ("fem_kernels.cu", "svk.cuh")
+_lib = None
+BUILD_INFO: dict = {}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the FEM kernels need the CUDA toolkit")
+
+
+def build_kernels():
+    """Compile `csrc/fem_kernels.cu` for sm_90a into a shared library (once
+    per source content) and load it. Returns the ctypes library; the build
+    seconds and the ptxas report land in BUILD_INFO."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    h = hashlib.sha1()
+    for name in _SOURCES:
+        with open(os.path.join(_CSRC, name), "rb") as fh:
+            h.update(fh.read())
+    os.makedirs(_BUILD, exist_ok=True)
+    so = os.path.join(_BUILD, f"libtlfea_fem_{h.hexdigest()[:12]}.so")
+    t0 = time.perf_counter()
+    if not os.path.exists(so):
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+               "-o", tmp, os.path.join(_CSRC, "fem_kernels.cu")]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, so)  # atomic: another process never loads a partial file
+        BUILD_INFO["ptxas"] = res.stderr
+    BUILD_INFO["seconds"] = time.perf_counter() - t0
+    BUILD_INFO["path"] = so
+    lib = ctypes.CDLL(so)
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    sigs = {
+        "primal_prep": [P] * 7 + [I] + [D] * 4 + [P],
+        "hv": [P] * 7 + [I] + [D] * 5 + [P],
+        "svk_blocks": [P] * 5 + [I] + [D] * 2 + [P],
+        "node_reduce": [P] * 4 + [I] * 3 + [P],
+    }
+    for name, args in sigs.items():
+        for sfx in ("f32", "f64"):
+            fn = getattr(lib, f"tlfea_{name}_{sfx}")
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def _launch(name: str, x: torch.Tensor, *args) -> None:
+    """Launch kernel `name` in x's dtype on the current stream of x's card;
+    args are tensors (passed as device pointers) and numbers."""
+    sfx = {torch.float32: "f32", torch.float64: "f64"}.get(x.dtype)
+    if sfx is None:
+        raise TypeError(f"{name}: kernels take float32 or float64, got {x.dtype}")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: tensor on {x.device}, but the current CUDA device is "
+                         f"{torch.cuda.current_device()} (torch.cuda.set_device)")
+    fn = getattr(build_kernels(), f"tlfea_{name}_{sfx}")
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    err = fn(*conv, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+class FemOperator(torch.nn.Module):
+    """The element tables of one FEAT10 batch in the kernels' layout.
+
+    Buffers: conn (E, S) int64 for the twins; conn_t (S, E) int32, gN_t
+    (Q*S*3, E), dV_t (Q, E), Me_t (S*S, E) element-minor for the kernels;
+    the node -> incidence CSR (inc_ptr, inc) of the node reduce, incidences
+    encoded a * E + e and ordered by node, then slot, then element; and md,
+    the diagonal of the assembled mass matrix.
+    """
+
+    def __init__(self, elems: ElementBatch, material):
+        super().__init__()
+        E, Q, S, _ = elems.grad_N.shape
+        if (Q, S) != (Q_T10, S_T10) or elems.trans_mask != (True,) * S_T10:
+            raise ValueError(f"FEM kernels take FEAT10 batches (Q=5, S=10, every slot a "
+                             f"translation slot), got Q={Q}, S={S}")
+        if elems.n_coef * 6 >= 2**31 or E * S >= 2**31:
+            raise ValueError("mesh too large for the kernels' int32 incidence indices")
+        self.E, self.Q, self.S, self.n = E, Q, S, elems.n_coef
+        self.lam, self.mu = float(material.lam), float(material.mu)
+        self.eta, self.lam_d = float(material.eta_damp), float(material.lam_damp)
+        dev = elems.device
+        conn = elems.conn
+        self.register_buffer("conn", conn)
+        self.register_buffer("conn_t", conn.t().contiguous().to(torch.int32))
+        self.register_buffer("gN_t", elems.grad_N.permute(1, 2, 3, 0).reshape(Q * S * 3, E).contiguous())
+        self.register_buffer("dV_t", elems.dV.t().contiguous())
+        self.register_buffer("Me_t", elems.mass_elem.permute(1, 2, 0).reshape(S * S, E).contiguous())
+        flat = conn.t().reshape(-1).cpu().numpy()  # incidence a * E + e -> node
+        order = np.argsort(flat, kind="stable")
+        ptr = np.zeros(self.n + 1, dtype=np.int64)
+        np.cumsum(np.bincount(flat, minlength=self.n), out=ptr[1:])
+        self.register_buffer("inc", torch.as_tensor(order.astype(np.int32), device=dev))
+        self.register_buffer("inc_ptr", torch.as_tensor(ptr.astype(np.int32), device=dev))
+        # Host-side sum: fixed order, so the mass diagonal is repeatable.
+        self.register_buffer("md", mass_diag(elems.to("cpu")).to(dev))
+
+    def _check(self, name: str, t: torch.Tensor, shape) -> None:
+        if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous {tuple(shape)} tensor, got "
+                             f"{tuple(t.shape)} (contiguous={t.is_contiguous()})")
+        if t.device != self.gN_t.device or t.dtype != self.gN_t.dtype:
+            raise ValueError(f"{name}: tensor is {t.dtype} on {t.device}, tables are "
+                             f"{self.gN_t.dtype} on {self.gN_t.device}")
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name}: no kernel for device {t.device}")
+
+
+# --- plain twins (element-minor layout, same arithmetic as the kernels) ----
+
+
+def _centred_slots(op: FemOperator, x: torch.Tensor) -> torch.Tensor:
+    """Gather node values x (n, k) to (S, k, E), centred on slot 0."""
+    xe = x[op.conn].permute(1, 2, 0)
+    return xe - xe[0:1]
+
+
+def _grad(xc: torch.Tensor, op: FemOperator) -> torch.Tensor:
+    """sum_a x_a (x) gradN_a at every QP: (S, 3, E) -> (Q, E, 3, 3)."""
+    return torch.einsum("aie,qaje->qeij", xc, op.gN_t.view(op.Q, op.S, 3, op.E))
+
+
+def _to_slots(M: torch.Tensor, op: FemOperator, extra: torch.Tensor) -> torch.Tensor:
+    """sum_q M gradN dV + extra, for per-QP 3x3 tensors M (Q, E, 3, 3) and
+    extra (S, 3, E) -> (S, 3, E)."""
+    return torch.einsum("qeij,qaje,qe->aie", M, op.gN_t.view(op.Q, op.S, 3, op.E),
+                        op.dV_t) + extra
+
+
+def _svk_stress(Du, Fd, lam, mu, eta, lam_d):
+    """Total P and S from Du and Fd (see csrc/svk.cuh `svk_stress`)."""
+    eye = torch.eye(3, dtype=Du.dtype, device=Du.device)
+    DuT, FdT = Du.transpose(-1, -2), Fd.transpose(-1, -2)
+    Em = 0.5 * (Du + DuT + DuT @ Du)
+    Ed = 0.5 * (Fd + FdT + FdT @ Du + DuT @ Fd)
+    trE = torch.diagonal(Em, dim1=-2, dim2=-1).sum(-1)
+    trEd = torch.diagonal(Ed, dim1=-2, dim2=-1).sum(-1)
+    Sm = 2.0 * mu * Em + 2.0 * eta * Ed + (lam * trE + lam_d * trEd)[..., None, None] * eye
+    return Sm + Du @ Sm, Sm
+
+
+def primal_prep_plain(op: FemOperator, packed: torch.Tensor):
+    """Twin of K1: packed (n, 9) [u|v|dv/dt] -> (fe (S*3, E), prep (Q*27, E))."""
+    uc = _centred_slots(op, packed[:, 0:3])
+    vc = _centred_slots(op, packed[:, 3:6])
+    dve = packed[:, 6:9][op.conn].permute(1, 2, 0)  # (S, 3, E)
+    Du, Fd = _grad(uc, op), _grad(vc, op)
+    P, Sm = _svk_stress(Du, Fd, op.lam, op.mu, op.eta, op.lam_d)
+    Me = op.Me_t.view(op.S, op.S, op.E)
+    fe = _to_slots(P, op, torch.einsum("abe,bie->aie", Me, dve))
+    prep = torch.cat([Du.reshape(op.Q, op.E, 9), Sm.reshape(op.Q, op.E, 9),
+                      Fd.reshape(op.Q, op.E, 9)], dim=-1)  # (Q, E, 27)
+    return (fe.reshape(op.S * 3, op.E).contiguous(),
+            prep.permute(0, 2, 1).reshape(op.Q * PREP_ROWS, op.E).contiguous())
+
+
+def hv_plain(op: FemOperator, p: torch.Tensor, prep: torch.Tensor, dt: float):
+    """Twin of K2: direction p (n, 3) and the K1 prep cache -> (S*3, E)."""
+    pe = p[op.conn].permute(1, 2, 0)  # (S, 3, E)
+    G = _grad(pe - pe[0:1], op)
+    pr = prep.view(op.Q, PREP_ROWS, op.E).permute(0, 2, 1)  # (Q, E, 27)
+    Du, S0, Fd = (pr[..., 9 * k:9 * k + 9].reshape(op.Q, op.E, 3, 3) for k in range(3))
+    eye = torch.eye(3, dtype=p.dtype, device=p.device)
+    GT, DuT, FdT = G.transpose(-1, -2), Du.transpose(-1, -2), Fd.transpose(-1, -2)
+    sym2 = 0.5 * (G + GT + GT @ Du + DuT @ G)
+    dEd = sym2 + (0.5 * dt) * (FdT @ G + GT @ Fd)
+    tr2 = torch.diagonal(sym2, dim1=-2, dim2=-1).sum(-1)
+    trd = torch.diagonal(dEd, dim1=-2, dim2=-1).sum(-1)
+    dS = (2.0 * op.mu * dt) * sym2 + (2.0 * op.eta) * dEd \
+        + ((op.lam * dt) * tr2 + op.lam_d * trd)[..., None, None] * eye
+    dP = dS + dt * (G @ S0) + Du @ dS
+    Me = op.Me_t.view(op.S, op.S, op.E)
+    fe = _to_slots(dP, op, (1.0 / dt) * torch.einsum("abe,bie->aie", Me, pe))
+    return fe.reshape(op.S * 3, op.E).contiguous()
+
+
+def svk_blocks_plain(op: FemOperator, u: torch.Tensor) -> torch.Tensor:
+    """Twin of K3: displacements u (n, 3) -> SYM6 blocks (S*6, E), through
+    `SVK.tangent_diag_block` (the reference einsum branch)."""
+    eye = torch.eye(3, dtype=u.dtype, device=u.device)
+    F = _grad(_centred_slots(op, u), op) + eye  # (Q, E, 3, 3)
+    h = op.gN_t.view(op.Q, op.S, 3, op.E).permute(0, 1, 3, 2)  # (Q, S, E, 3)
+    Kb = SVK(op.lam, op.mu).tangent_diag_block(F[:, None], h) * op.dV_t[:, None, :, None, None]
+    Kb = Kb.sum(0)  # (S, E, 3, 3)
+    sym = torch.stack([Kb[..., d, e] for d, e in SYM6], dim=1)  # (S, 6, E)
+    return sym.reshape(op.S * 6, op.E).contiguous()
+
+
+def node_reduce_plain(op: FemOperator, vals: torch.Tensor) -> torch.Tensor:
+    """Twin of K4: per-(element, slot) values (S*C, E) -> node sums (n, C)."""
+    C = vals.shape[0] // op.S
+    return coef_scatter_add(vals.view(op.S, C, op.E).permute(2, 0, 1), op.conn, op.n)
+
+
+# --- wrappers --------------------------------------------------------------
+
+
+def primal_prep(op: FemOperator, packed: torch.Tensor):
+    """K1: element ALM contribution f_int + Me dv/dt per (element, slot),
+    (S*3, E), and the per-QP prep cache (Q*27, E) that K2 reads."""
+    op._check("primal_prep", packed, (op.n, 9))
+    if packed.device.type == "cpu":
+        return primal_prep_plain(op, packed)
+    fe = torch.empty((op.S * 3, op.E), dtype=packed.dtype, device=packed.device)
+    prep = torch.empty((op.Q * PREP_ROWS, op.E), dtype=packed.dtype, device=packed.device)
+    _launch("primal_prep", packed, packed, op.conn_t, op.gN_t, op.dV_t, op.Me_t,
+            fe, prep, op.E, op.lam, op.mu, op.eta, op.lam_d)
+    return fe, prep
+
+
+def hv(op: FemOperator, p: torch.Tensor, prep: torch.Tensor, dt: float) -> torch.Tensor:
+    """K2: Hessian-vector product of the element contribution along p,
+    per (element, slot), (S*3, E)."""
+    op._check("hv", p, (op.n, 3))
+    op._check("hv", prep, (op.Q * PREP_ROWS, op.E))
+    if p.device.type == "cpu":
+        return hv_plain(op, p, prep, dt)
+    out = torch.empty((op.S * 3, op.E), dtype=p.dtype, device=p.device)
+    _launch("hv", p, p, op.conn_t, prep, op.gN_t, op.dV_t, op.Me_t, out, op.E,
+            float(dt), op.lam, op.mu, op.eta, op.lam_d)
+    return out
+
+
+def svk_blocks(op: FemOperator, u: torch.Tensor) -> torch.Tensor:
+    """K3: SVK diagonal tangent blocks per (element, slot), SYM6, (S*6, E)."""
+    op._check("svk_blocks", u, (op.n, 3))
+    if u.device.type == "cpu":
+        return svk_blocks_plain(op, u)
+    out = torch.empty((op.S * 6, op.E), dtype=u.dtype, device=u.device)
+    _launch("svk_blocks", u, u, op.conn_t, op.gN_t, op.dV_t, out, op.E,
+            op.lam, op.mu)
+    return out
+
+
+def node_reduce(op: FemOperator, vals: torch.Tensor) -> torch.Tensor:
+    """K4: sum per-(element, slot) values (S*C, E) onto the nodes, (n, C),
+    in a fixed order (bitwise repeatable)."""
+    C = vals.shape[0] // op.S
+    op._check("node_reduce", vals, (op.S * C, op.E))
+    if vals.device.type == "cpu":
+        return node_reduce_plain(op, vals)
+    out = torch.empty((op.n, C), dtype=vals.dtype, device=vals.device)
+    _launch("node_reduce", vals, vals, op.inc_ptr, op.inc, out, op.n, op.E, C)
+    return out
+
+
+_KERNELS = (primal_prep, hv, svk_blocks, node_reduce)
+_PLAIN = (primal_prep_plain, hv_plain, svk_blocks_plain, node_reduce_plain)
+
+
+def element_fns(plain: bool):
+    """(primal_prep, hv, svk_blocks, node_reduce): the kernel wrappers, or
+    the plain twins on any device when `plain` (the on-card reference)."""
+    return _PLAIN if plain else _KERNELS
+
+
+def unpack_sym6(sym: torch.Tensor) -> torch.Tensor:
+    """(n, 6) packed upper triangles (SYM6 order) -> (n, 3, 3)."""
+    return torch.stack(
+        [
+            torch.stack([sym[:, 0], sym[:, 1], sym[:, 2]], dim=-1),
+            torch.stack([sym[:, 1], sym[:, 3], sym[:, 4]], dim=-1),
+            torch.stack([sym[:, 2], sym[:, 4], sym[:, 5]], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def g_and_hvp(v, u_prev, v_prev, f_ext, dt, op: FemOperator, pin_terms=None,
+              plain: bool = False):
+    """ALM gradient g(v) (n, 3) and its Hessian-vector operator p -> H p.
+
+    Port of `pallas_banded.g_and_hvp_banded` (:930) with the dense pin terms
+    of `newton._newton_inner` (:183-198): pin_terms = (pin_aff (n, 3),
+    pin_lin (n, 1)) gives the pin gradient pin_aff + pin_lin * u and the Hv
+    term dt * pin_lin * p, with no scatter of the duals. One K1 + K4 pass
+    per gradient; one K2 + K4 pass per Hv, reading K1's prep cache.
+    u = u_prev + dt * v is formed in displacement space (never x_prev +
+    dt * v, whose float32 rounding stalls Newton on stiff problems).
+    """
+    k1, k2, _, k4 = element_fns(plain)
+    u = u_prev + dt * v
+    packed = torch.cat([u, v, (v - v_prev) / dt], dim=1).contiguous()
+    fe, prep = k1(op, packed)
+    g = k4(op, fe)
+    pin_lin = None
+    if pin_terms is not None:
+        pin_aff, pin_lin = pin_terms
+        g = g + pin_aff + pin_lin * u
+    g = g - f_ext
+
+    def hvp(p):
+        h = k4(op, k2(op, p.contiguous(), prep, dt))
+        if pin_lin is not None:
+            h = h + dt * pin_lin * p
+        return h
+
+    return g, hvp

@@ -1,0 +1,288 @@
+"""Matrix-free Newton-PCG implicit solver (port of `tlfea/solvers/newton.py`).
+
+One backward-Euler step solves the ALM stationarity system
+
+    H dv = -g,   H = M/h + h K_t(u) + C_visc + h^2 rho J^T J,
+
+by preconditioned conjugate gradients with exact Hessian-vector products
+from the FEM kernels (`tlfea_torch.ops.fem_kernels.g_and_hvp`: one K1 + K4
+pass per gradient, one K2 + K4 pass per product). The preconditioner is the
+3x3 block-Jacobi inverse (K3 + K4), optionally plus the frozen two-level
+coarse correction (`tlfea_torch.solvers.coarse`).
+
+The JAX version runs the outer dual loop, the Newton loop and the CG loop
+as nested `lax.while_loop`s on the device. Here they are Python loops; each
+CG iteration reads two scalars (r.r and r.z) to the host for its stopping
+test, and each Newton iteration reads ||g||. The arithmetic and every
+branch follow the JAX code, so in float64 the two take the same number of
+Newton and CG iterations (`tests/test_torch_newton.py`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from tlfea_torch.constraints import FixedCoefs
+from tlfea_torch.elements.assembly import node_ref
+from tlfea_torch.ops.fem_kernels import g_and_hvp
+from tlfea_torch.ops.linalg import inv3x3
+from tlfea_torch.solvers.common import (
+    StepState, System, constraint_values, flat_norm, precond_blocks,
+)
+
+__all__ = ["NewtonParams", "make_step", "make_rollout"]
+
+
+@dataclass(frozen=True)
+class NewtonParams:
+    """Tolerances and iteration caps (`tlfea/solvers/newton.py:38-79`).
+
+    predict: warm start v0 = v + predict * dv from the last step's velocity
+    increment. ls_max: residual-norm backtracking trials, taken only after
+    CG met non-positive curvature or a non-finite step (0 disables).
+    ew_eta_max: upper end of the Eisenstat-Walker CG forcing (0 disables).
+    """
+
+    dt: float = 1e-3
+    rho: float = 1e6
+    inner_atol: float = 1e-7
+    inner_rtol: float = 0.0
+    outer_tol: float = 1e-8
+    max_outer: int = 4
+    max_inner: int = 20
+    cg_rtol: float = 1e-4
+    cg_max_iter: int = 200
+    predict: float = 1.0
+    ls_max: int = 8
+    ew_eta_max: float = 0.5
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.sum(a * b)
+
+
+def _pcg(hvp, precond, b: torch.Tensor, rtol: float, max_iter: int):
+    """Preconditioned CG for H x = b (`newton.py:82-133`).
+
+    Returns (x, n_iters, ||r||, neg_curv). A direction of non-positive
+    curvature takes no step and ends the solve (neg_curv=True); the loop
+    also stops once r.r reaches the dtype's noise floor, since running CG
+    past convergence corrupts the iterate.
+    """
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(r)
+    p = z
+    rz = _dot(r, z)
+    bnorm = float(flat_norm(b))
+    tol = rtol * bnorm
+    eps_floor = 1e-30 if b.dtype == torch.float64 else 1e-18
+    tol2 = max(tol * tol, eps_floor * max(bnorm, 1.0) ** 2)
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    neg = torch.zeros((), dtype=torch.bool, device=b.device)
+    k = 0
+    while k < max_iter:
+        rr_h, rz_h = torch.stack([_dot(r, r), rz]).tolist()
+        if not (rr_h > tol2 and rz_h > 0):
+            break
+        hp = hvp(p)
+        denom = _dot(p, hp)
+        good = denom > 0
+        alpha = torch.where(good, rz / torch.where(good, denom, 1.0), zero)
+        x = x + alpha * p
+        r = r - alpha * hp
+        z = precond(r)
+        rz_new = torch.where(good, _dot(r, z), zero)
+        p = z + (rz_new / rz) * p  # rz > 0 here: the test above holds it
+        rz = rz_new
+        neg = neg | ~good
+        k += 1
+    return x, k, flat_norm(r), bool(neg)
+
+
+def _pin_terms(system: System, lam: torch.Tensor, dt: float, rho: float, dtype):
+    """Dense pin fields (`newton.py:183-198`), built once per inner solve:
+    g gets pin_aff + pin_lin * u and H p gets dt * pin_lin * p, so the dual
+    is never scattered inside the Newton/CG loops."""
+    cons = system.constraints
+    if cons is None:
+        return None
+    if not isinstance(cons, FixedCoefs):
+        raise TypeError(f"unsupported constraints {type(cons).__name__}")
+    x_ref = node_ref(system.elems)
+    n = x_ref.shape[0]
+    zero3 = torch.zeros((n, 3), dtype=dtype, device=x_ref.device)
+    lam_dense = zero3.index_copy(0, cons.idx, lam.to(dtype))
+    tgt_dense = zero3.index_copy(0, cons.idx, (cons.target - x_ref[cons.idx]).to(dtype))
+    pinmask = torch.zeros((n, 1), dtype=dtype, device=x_ref.device)
+    pinmask[cons.idx] = 1.0
+    return dt * (lam_dense - rho * tgt_dense), dt * rho * pinmask
+
+
+def _newton_inner(v0, x_prev, v_prev, lam, f_ext, params: NewtonParams, system: System,
+                  coarse=None, inv_blocks=None, u_prev=None):
+    """Inner Newton loop at fixed duals (`newton.py:135-434`).
+
+    Returns (v, iters, ||g||, cg_total, hist). inv_blocks: inverted
+    block-Jacobi blocks to reuse (see `make_rollout`); staleness changes CG
+    counts only, never the converged solution.
+    """
+    dt, rho = params.dt, params.rho
+    if u_prev is None:
+        u_prev = x_prev - node_ref(system.elems)
+    op = system.fem
+    pin_terms = _pin_terms(system, lam, dt, rho, v0.dtype)
+
+    def linearize_g(v):
+        return g_and_hvp(v, u_prev, v_prev, f_ext, dt, op, pin_terms, plain=system.plain)
+
+    if inv_blocks is None:
+        blocks0 = precond_blocks(v0, x_prev, dt, rho, system, u_prev=u_prev)
+        inv_blocks = inv3x3(blocks0, eps=1e-30)
+
+    def bj_apply(r):
+        return torch.einsum("nij,nj->ni", inv_blocks, r)
+
+    if coarse is not None:
+        def precond(r):
+            return bj_apply(r) + coarse.apply(r)
+    else:
+        precond = bj_apply
+
+    tiny = torch.finfo(v0.dtype).tiny
+    emax = max(params.ew_eta_max, params.cg_rtol)
+    v = v0
+    k = 0
+    norm_g = norm_g0 = norm_g_prev = float("inf")
+    cg_total = 0
+    hist = [float("nan")] * (params.max_inner + 1)
+    while k < params.max_inner:
+        g, hvp = linearize_g(v)
+        norm_g = float(flat_norm(g))
+        if k == 0:
+            norm_g0 = norm_g
+        hist[k] = norm_g
+        conv = norm_g < params.inner_atol or (
+            params.inner_rtol > 0.0 and norm_g <= params.inner_rtol * norm_g0)
+        if conv:
+            break
+        # Eisenstat-Walker forcing, choice 2; the loose end on the first
+        # iteration, which has no history.
+        if k == 0:
+            eta = emax
+        else:
+            ratio = norm_g / max(norm_g_prev, tiny)
+            eta = min(max(0.9 * ratio * ratio, params.cg_rtol), emax)
+        dv, cg_iters, _, neg_curv = _pcg(hvp, precond, -g, eta, params.cg_max_iter)
+        cg_total += cg_iters
+        # Backtrack only when CG met non-positive curvature or produced a
+        # non-finite step: an SPD solve always gives a descent direction.
+        if params.ls_max > 0 and (neg_curv or not torch.isfinite(flat_norm(dv))):
+            v = _backtrack(linearize_g, v, dv, norm_g, params.ls_max)
+        else:
+            v = v + dv
+        norm_g_prev = norm_g
+        k += 1
+    return v, k, norm_g, cg_total, hist
+
+
+def _backtrack(linearize_g, v, dv, gn0: float, ls_max: int):
+    """Residual-norm backtracking (`newton.py:388-419`): t = 1, 1/2, ...;
+    accept the first t with ||g(v + t dv)|| <= (1 - 1e-4 t) ||g(v)||, else
+    the best t seen, which starts at 0 (never a residual-increasing or NaN
+    update)."""
+    t, best_t, best_gn = 1.0, 0.0, gn0
+    for _ in range(ls_max):
+        gn = float(flat_norm(linearize_g(v + t * dv)[0]))
+        if gn < best_gn:  # False for NaN: best stays as is
+            best_t, best_gn = t, gn
+        if gn <= (1.0 - 1e-4 * t) * gn0:
+            break
+        t *= 0.5
+    return v + best_t * dv
+
+
+def _step(system: System, state: StepState, params: NewtonParams, f_ext, coarse=None,
+          inv_blocks=None):
+    """One backward-Euler step (`newton.py:437-512`): the outer ALM dual
+    loop around `_newton_inner`. Returns (new_state, diagnostics)."""
+    x_prev = state.x
+    x_ref = node_ref(system.elems)
+    u_prev = state.u
+    cons = system.constraints
+    v_prev = state.v
+    v = state.v + params.predict * state.dv
+    lam = state.lam
+    norm_c = float("inf")
+    outers = newton_tot = cg_tot = 0
+    hist_all = []
+    ok = False
+    while outers < params.max_outer and (outers == 0 or norm_c >= params.outer_tol):
+        v, n_it, _, cg_it, hist = _newton_inner(
+            v, x_prev, v_prev, lam, f_ext, params, system, coarse, inv_blocks,
+            u_prev=u_prev)
+        hist_all.append(hist)
+        # A budget exit means v is not this step's backward-Euler solution.
+        ok = n_it < params.max_inner
+        v_prev = v
+        if cons is not None:
+            c = constraint_values(cons, x_prev, v, params.dt, system.elems, u_prev=u_prev)
+            lam = lam + params.rho * c  # dual update (newton.py:464-469)
+            norm_c = float(flat_norm(c))
+        else:
+            norm_c = 0.0
+        outers += 1
+        newton_tot += n_it
+        cg_tot += cg_it
+    u = u_prev + params.dt * v  # displacement-scale update: never x_prev + dt v
+    x = (x_ref + u).to(x_prev.dtype)
+    # Feed the next step's warm start only from a converged step: a budget
+    # exit's error would compound through the extrapolation.
+    dv_next = v - state.v if ok else torch.zeros_like(v)
+    nan_row = [float("nan")] * (params.max_inner + 1)
+    hist_all += [nan_row] * (params.max_outer - len(hist_all))
+    diag = {
+        "outer_iters": outers,
+        "newton_iters": newton_tot,
+        "cg_iters": cg_tot,
+        "norm_c": norm_c,
+        "norm_g_history": torch.tensor(hist_all, dtype=torch.float64).reshape(-1),
+    }
+    return StepState(x=x, v=v, lam=lam, u=u, dv=dv_next), diag
+
+
+def make_step(system: System, params: NewtonParams, coarse=None):
+    """step(state, f_ext) -> (state, diag) over a fixed system."""
+    return lambda state, f_ext: _step(system, state, params, f_ext, coarse)
+
+
+def make_rollout(system: System, params: NewtonParams, n_steps: int, coarse=None,
+                 precond_refresh: int = 1):
+    """roll(state, f_ext) -> (state, (newton_iters, cg_iters)) chaining
+    n_steps steps (`newton.py:620-693`); the counts are int lists, one entry
+    per step.
+
+    precond_refresh=K > 1 freezes the inverted block-Jacobi preconditioner
+    for K consecutive steps, rebuilt from the state at every K-th step;
+    K = 1 builds it inside every inner solve at the warm-start iterate.
+    """
+    refresh = max(int(precond_refresh), 1)
+
+    def fresh_inv(st: StepState):
+        return inv3x3(precond_blocks(st.v, st.x, params.dt, params.rho, system,
+                                     u_prev=st.u), eps=1e-30)
+
+    def roll(state: StepState, f_ext):
+        nits, cgits = [], []
+        inv_b = None
+        for k in range(n_steps):
+            if refresh > 1 and k % refresh == 0:
+                inv_b = fresh_inv(state)
+            state, d = _step(system, state, params, f_ext, coarse, inv_blocks=inv_b)
+            nits.append(d["newton_iters"])
+            cgits.append(d["cg_iters"])
+        return state, (nits, cgits)
+
+    return roll
