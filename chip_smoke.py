@@ -6,19 +6,25 @@ toolkit (nvcc):
     python3 chip_smoke.py
 
 It imports nothing of JAX or of the JAX package `tlfea`. Phases, each
-printed on its own line; any failure raises and exits non-zero:
+printed on its own lines with its seconds; any failure raises and exits
+non-zero:
 
 1. setup: the card's name and power limit (nvidia-smi), the precision
-   pins, and the nvcc build of the FEM kernels K1-K4 from
-   `tlfea_torch/csrc/` (seconds, registers and spills per kernel).
-2. kernels: each kernel against its plain PyTorch twin on the card, at the
-   shapes of the 10,584-element flagship mesh, on inputs made from a seed:
-   float64 within 1e-12 relative, float32 within 1e-5; and each timed
-   beside its twin: device time per launch from CUDA events, and the
-   host's time per wrapper call.
-3. beam: the float32 beam sag (box 10x1x1, dt 1e-3, 150 steps) through the
-   kernels, against `tests/fixtures/beam_sag_t10_tip.csv` (the float64 CPU
-   trajectory of the JAX package) within 1e-6 of the displacement scale.
+   pins, and the nvcc build of the FEM kernels from `tlfea_torch/csrc/`
+   (one nvcc per source, all at once; seconds, registers and spills per
+   kernel).
+2. kernels: each kernel of each element family against its plain PyTorch
+   twin on the card, on inputs made from a seed (float64 within 1e-12
+   relative, float32 within 1e-5), at the shapes of the 10,584-element
+   FEAT10 flagship mesh, of the 5,184-element ANCF3443 shell plate and of a
+   64-element ANCF3243 beam; each timed beside its twin (device time per
+   launch from CUDA events, host time per wrapper call), beside its bound
+   (bytes over 3.35 TB/s or flops over 67 TFLOP/s, whichever is larger) and,
+   for the node reduce, beside `Tensor.index_add_`.
+3. beam: the float32 FEAT10 beam sag (box 10x1x1, dt 1e-3, 150 steps)
+   through the kernels, against `tests/fixtures/beam_sag_t10_tip.csv` (the
+   float64 CPU trajectory of the JAX package) within 1e-6 of the
+   displacement scale.
 4. flagship: the `bench.py` "10k" problem (FEAT10 box 42x7x6, damped SVK,
    x=0 face pinned, float32, tolerance 2.5 % of ||f_ext||, frozen coarse
    correction, block-Jacobi refreshed every 8 steps): a warm-up 60-step
@@ -29,6 +35,14 @@ printed on its own line; any failure raises and exits non-zero:
    ([trace] lines). Then 5 steps from rest through the kernels and through
    the plain twins on the card, whose positions must agree within 5e-3 of
    the coordinate scale.
+5. shell: the same for `bench.py`'s `run_ancf_shell` (ANCF3443 plate
+   72x72, 5,184 elements, 21,316 coefficient rows, the x=0 edge clamped,
+   the same solver settings, 40 steps).
+6. shell_theory: the cantilever plate of `tests/test_shell_validation.py`
+   (8 ANCF3443 elements, E 2e10, nu 0) in float64 on the card, 150 steps:
+   tip deflection within 5 % of q L^4 / (8 E I).
+7. ancf_beam: a clamped 64-element ANCF3243 beam under gravity, 20 steps
+   through the kernels (launch counts), then 5 steps kernels against twins.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 `{"ok": true, "device": {...}}`.
@@ -49,53 +63,108 @@ FIXTURE = os.path.join(ROOT, "tests", "fixtures", "beam_sag_t10_tip.csv")
 SEED = 0
 BEAM_STEPS = 150  # the fixture's length
 ROLLOUT = 60  # bench.py's ROLLOUT["10k"]
+SHELL_ROLLOUT = 40  # bench.py run_ancf_shell's rollout
+THEORY_STEPS = 150  # tests/test_shell_validation.py
+ANCF_BEAM_STEPS = 20
 CHECK_STEPS = 5  # kernels against twins, from rest
 TRACE_STEPS = 16  # profiled window
 
-# (kernel, the TPU kernel it replaces)
-KERNELS = [
-    ("primal_prep", "tlfea/ops/pallas_fem.py:888"),
-    ("hv", "tlfea/ops/pallas_fem.py:956"),
-    ("svk_blocks", "tlfea/ops/pallas_fem.py:673"),
-    ("node_reduce", "tlfea/ops/pallas_banded.py:689"),
-]
-KERNEL_SOURCE = "tlfea_torch/csrc/fem_kernels.cu"
+# H100 SXM data sheet, at the full 700 W: HBM bytes/s, float32 flop/s
+# outside the tensor cores.
+HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+
+# kernel -> the TPU kernel it replaces, per family
+REPLACES = {
+    "feat10": {"primal_prep": "tlfea/ops/pallas_fem.py:888", "hv": "tlfea/ops/pallas_fem.py:956",
+               "svk_blocks": "tlfea/ops/pallas_fem.py:673"},
+    "ancf3243": {"primal_prep": "tlfea/ops/pallas_fem.py:888", "hv": "tlfea/ops/pallas_fem.py:956",
+                 "svk_blocks": "tlfea/ops/pallas_fem.py:673"},
+    "ancf3443": {"primal_prep": "tlfea/ops/pallas_fem.py:1018",
+                 "hv": "tlfea/ops/pallas_fem.py:1054",
+                 "svk_blocks": "tlfea/ops/pallas_fem.py:725"},
+}
+NODE_REDUCE_REPLACES = "tlfea/ops/pallas_banded.py:689"
+KERNELS = ("primal_prep", "hv", "svk_blocks", "node_reduce")
 
 
 def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def flagship_problem(device, dtype, dims=(2.0, 0.35, 0.3, 42, 7, 6)):
-    """The bench.py "10k" problem: (system, state, f_ext, params)."""
+def _solver_params(f_ext):
+    """bench.py's converged-rollout settings: tolerance 2.5 % of ||f_ext||."""
+    from tlfea_torch.solvers.newton import NewtonParams
+
+    tol = 2.5e-2 * float(f_ext.norm())
+    return NewtonParams(dt=1e-3, rho=1e7, inner_atol=tol, inner_rtol=0.0, outer_tol=0.0,
+                        max_outer=1, max_inner=6, cg_rtol=1e-3, cg_max_iter=50,
+                        ew_eta_max=0.5)
+
+
+def _pinned_problem(elems_cpu, x0_np, fixed, device, material):
+    """(system, state, f_ext, params) on `device` from a host element batch:
+    gravity through the lumped mass, summed on the host in a fixed order."""
     import torch
 
     from tlfea_torch.constraints import FixedCoefs
-    from tlfea_torch.elements import feat10
     from tlfea_torch.elements.assembly import lumped_mass
-    from tlfea_torch.materials import SVK, lame_from_E_nu
     from tlfea_torch.solvers import StepState, System
-    from tlfea_torch.solvers.newton import NewtonParams
+
+    dtype = elems_cpu.grad_N.dtype
+    f_ext = torch.zeros((len(x0_np), 3), dtype=dtype)
+    f_ext[:, 2] = lumped_mass(elems_cpu) * -9.81
+    x0 = torch.as_tensor(x0_np, dtype=dtype, device=device)
+    system = System(elems=elems_cpu.to(device), material=material,
+                    constraints=FixedCoefs.from_indices(fixed, x0))
+    return system, StepState.rest(system, x0), f_ext.to(device), _solver_params(f_ext)
+
+
+def _svk():
+    from tlfea_torch.materials import SVK, lame_from_E_nu
+
+    lam, mu = lame_from_E_nu(1e7, 0.3)
+    return SVK(lam, mu, 1e3, 1e3)
+
+
+def flagship_problem(device, dtype, dims=(2.0, 0.35, 0.3, 42, 7, 6)):
+    """The bench.py "10k" problem: (system, state, f_ext, params)."""
+    from tlfea_torch.elements import feat10
     from tlfea_torch.utils.reorder import apply_node_order, best_order
     from tlfea_torch.utils.tetmesh import box_t10_mesh
 
     nodes, conn = box_t10_mesh(*dims)
     nodes, conn = apply_node_order(nodes, conn, best_order(nodes, conn))
-    lam, mu = lame_from_E_nu(1e7, 0.3)
-    elems_cpu = feat10.build(nodes, conn, rho=1000.0, dtype=dtype)
-    # Host-side load: a fixed summation order, so every run gets the same f_ext.
-    f_ext = torch.zeros((len(nodes), 3), dtype=dtype)
-    f_ext[:, 2] = lumped_mass(elems_cpu) * -9.81
-    x0 = torch.as_tensor(nodes, dtype=dtype, device=device)
-    system = System(
-        elems=elems_cpu.to(device), material=SVK(lam, mu, 1e3, 1e3),
-        constraints=FixedCoefs.from_indices(np.nonzero(nodes[:, 0] < 1e-12)[0], x0),
-    )
-    tol = 2.5e-2 * float(f_ext.norm())
-    params = NewtonParams(dt=1e-3, rho=1e7, inner_atol=tol, inner_rtol=0.0, outer_tol=0.0,
-                          max_outer=1, max_inner=6, cg_rtol=1e-3, cg_max_iter=50,
-                          ew_eta_max=0.5)
-    return system, StepState.rest(system, x0), f_ext.to(device), params
+    elems_cpu = feat10.build(nodes, conn, rho=1000.0, dtype=dtype, device="cpu")
+    return _pinned_problem(elems_cpu, nodes, np.nonzero(nodes[:, 0] < 1e-12)[0], device, _svk())
+
+
+def _clamp_rows(edge_nodes):
+    """All 4 coefficient rows (position and directors) of the given nodes."""
+    return (4 * np.asarray(edge_nodes)[:, None] + np.arange(4)[None, :]).reshape(-1)
+
+
+def shell_problem(device, dtype, nx=72, ny=72):
+    """bench.py run_ancf_shell: an ANCF3443 plate of nx x ny elements of
+    0.05 x 0.05 x 0.01 m, the x=0 edge clamped (all 4 coefficient rows of
+    its nodes): (system, state, f_ext, params)."""
+    from tlfea_torch.elements import ancf3443
+
+    coefs, conn = ancf3443.shell_grid(nx, ny, L=0.05, W=0.05)
+    elems_cpu = ancf3443.build(coefs, conn, 0.05, 0.05, 0.01, rho=1000.0, dtype=dtype,
+                               device="cpu")
+    edge = np.nonzero(coefs[0::4, 0] < 1e-12)[0]
+    return _pinned_problem(elems_cpu, coefs, _clamp_rows(edge), device, _svk())
+
+
+def ancf_beam_problem(device, dtype, n_elem=64):
+    """A cantilever of n_elem ANCF3243 beams (0.05 m each, 0.01 x 0.01 m
+    section), node 0 clamped: (system, state, f_ext, params)."""
+    from tlfea_torch.elements import ancf3243
+
+    coefs, conn = ancf3243.straight_beam(n_elem, L=0.05, origin=(0.0, 0.0, 0.0))
+    elems_cpu = ancf3243.build(coefs, conn, 0.05, 0.01, 0.01, rho=1000.0, dtype=dtype,
+                               device="cpu")
+    return _pinned_problem(elems_cpu, coefs, _clamp_rows([0]), device, _svk())
 
 
 def _device_ms(fn, n):
@@ -129,15 +198,38 @@ def _device_ms(fn, n):
     raise RuntimeError("the host never got ahead of the device; no device timing")
 
 
-def phase_kernels(device):
-    """Each kernel against its twin at the flagship shapes; returns
-    {name: (f32 max abs err, kernel ms, twin ms)}."""
+def bound_ms(name, op, C=6, itemsize=4):
+    """The least time of one launch on an H100 at 700 W: the larger of the
+    bytes it must move (each input read once, each output written once)
+    over the HBM rate and its floating-point operations (counted from the
+    kernel's arithmetic per quadrature point) over the float32 rate.
+    Returns (ms, "bytes" or "operations")."""
+    E, Q, S, n = op.E, op.Q, op.S, op.n
+    gN, dV, Me, prep = Q * S * 3 * E, Q * E, S * S * E, Q * 27 * E
+    if name == "primal_prep":
+        words = n * 9 + S * E + gN + dV + Me + S * 3 * E + prep
+        flops = E * (Q * (36 * (S - 1) + 310 + 24 * S) + 6 * S * S + 6 * S)
+    elif name == "hv":
+        words = n * 3 + S * E + prep + gN + dV + Me + S * 3 * E
+        flops = E * (Q * (18 * (S - 1) + 440 + 24 * S) + 6 * S * S + 6 * S)
+    elif name == "svk_blocks":
+        words = n * 3 + S * E + gN + dV + S * 6 * E
+        flops = E * (Q * (18 * (S - 1) + 72 + 84 * S) + 3 * S)
+    else:  # node_reduce: vals, the CSR list (ptr, inc), node sums
+        words = S * C * E + (n + 1) + S * E + n * C
+        flops = S * C * E
+    t_bytes, t_ops = words * itemsize / HBM_BPS, flops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_kernels(device, family, system):
+    """Each kernel against its twin at the shapes of `system` (a float64
+    system on the CPU); returns {kernel: record fields} for float32."""
     import torch
 
     from tlfea_torch.ops import fem_kernels as fk
 
-    system, _, _, params = flagship_problem("cpu", torch.float64)
-    n, dt = system.n_coef, params.dt
+    n, dt = system.n_coef, 1e-3
     rng = np.random.default_rng(SEED)
     host = dict(packed=np.concatenate([rng.normal(size=(n, 3)) * 1e-3,
                                        rng.normal(size=(n, 3)) * 1e-2,
@@ -148,11 +240,13 @@ def phase_kernels(device):
     out = {}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         op = fk.FemOperator(system.elems.to(device, dtype), system.material)
+        if op.family != family:
+            raise AssertionError(f"expected the {family} kernels, got {op.family}")
         x = {k: torch.as_tensor(v, dtype=dtype, device=device) for k, v in host.items()}
         _, prep = fk.primal_prep_plain(op, x["packed"])
         args = {"primal_prep": (x["packed"],), "hv": (x["p"], prep, dt),
                 "svk_blocks": (x["u"],), "node_reduce": (x["vals"],)}
-        for name, _ in KERNELS:
+        for name in KERNELS:
             got = getattr(fk, name)(op, *args[name])
             want = getattr(fk, name + "_plain")(op, *args[name])
             torch.cuda.synchronize()
@@ -161,27 +255,43 @@ def phase_kernels(device):
             abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             rel = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
             ok = all(torch.isfinite(g).all() for g in got) and rel <= tol
-            log("kernels", f"{name} {str(dtype)[6:]}: max rel err {rel:.3e} (tol {tol:g}), "
-                f"max abs err {abs_err:.3e}")
+            log("kernels", f"{name}[{family}] {str(dtype)[6:]}: max rel err {rel:.3e} "
+                f"(tol {tol:g}), max abs err {abs_err:.3e}")
             if not ok:
-                raise AssertionError(f"{name} disagrees with its twin in {dtype}: {rel:.3e}")
-            if dtype == torch.float32:
-                def k_call(name=name):
-                    return getattr(fk, name)(op, *args[name])
+                raise AssertionError(f"{name}[{family}] disagrees with its twin in {dtype}: "
+                                     f"{rel:.3e}")
+            if dtype != torch.float32:
+                continue
 
-                def p_call(name=name):
-                    return getattr(fk, name + "_plain")(op, *args[name])
+            def k_call(name=name):
+                return getattr(fk, name)(op, *args[name])
 
-                # In turns on one card: twin, kernel, kernel, twin.
-                p1, ph = _device_ms(p_call, 16)
-                k1, kh = _device_ms(k_call, 256)
-                k2, _ = _device_ms(k_call, 256)
-                p2, _ = _device_ms(p_call, 16)
-                ms, plain_ms = min(k1, k2), min(p1, p2)
-                log("kernels", f"{name} float32 at E={E}: device {ms:.4f} ms per launch, twin "
-                    f"{plain_ms:.4f} ms ({plain_ms / ms:.1f}x); host {kh:.4f} ms per wrapper "
-                    f"call, twin {ph:.4f} ms")
-                out[name] = (abs_err, ms, plain_ms)
+            def p_call(name=name):
+                return getattr(fk, name + "_plain")(op, *args[name])
+
+            # In turns on one card: twin, kernel, kernel, twin.
+            p1, ph = _device_ms(p_call, 16)
+            k1, kh = _device_ms(k_call, 256)
+            k2, _ = _device_ms(k_call, 256)
+            p2, _ = _device_ms(p_call, 16)
+            ms, plain_ms = min(k1, k2), min(p1, p2)
+            b_ms, b_by = bound_ms(name, op)
+            lib_ms = None
+            if name == "node_reduce":
+                # The one PyTorch call that computes the same node sums.
+                vals_l = x["vals"].view(S, 6, E).permute(2, 0, 1).reshape(E * S, 6).contiguous()
+                idx = op.conn.reshape(-1)
+                acc = torch.zeros((n, 6), dtype=dtype, device=device)
+                lib_ms, _ = _device_ms(lambda: acc.index_add_(0, idx, vals_l), 256)
+            log("kernels", f"{name}[{family}] float32 at E={E}: device {ms:.4f} ms per launch "
+                f"(bound {b_ms:.4f} ms by {b_by}, {b_ms / ms:.2f} of it), twin {plain_ms:.4f} "
+                f"ms ({plain_ms / ms:.1f}x); host {kh:.4f} ms per wrapper call, twin {ph:.4f} ms"
+                + ("" if lib_ms is None else f"; index_add_ {lib_ms:.4f} ms"))
+            # max_abs_err is in the output's units (K1's entries reach ~1e6);
+            # the bar is max_rel_err, over the twin's largest entry, vs tol.
+            out[name] = dict(max_abs_err=abs_err, max_rel_err=rel, tol=tol, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib_ms)
     return out
 
 
@@ -200,7 +310,7 @@ def beam_sag(device, dtype):
 
     nodes, conn = box_t10_mesh(1.0, 0.1, 0.1, 10, 1, 1)
     lam, mu = lame_from_E_nu(1e7, 0.3)
-    elems_cpu = feat10.build(nodes, conn, rho=1000.0, dtype=dtype)
+    elems_cpu = feat10.build(nodes, conn, rho=1000.0, dtype=dtype, device="cpu")
     f_ext = torch.zeros((len(nodes), 3), dtype=dtype)
     f_ext[:, 2] = lumped_mass(elems_cpu) * -9.81
     x0 = torch.as_tensor(nodes, dtype=dtype, device=device)
@@ -249,9 +359,12 @@ def trace(roll, state, f_ext, ms_per_step):
         log("trace", f"{t / TRACE_STEPS:.4f} ms/step, {c / TRACE_STEPS:.1f} calls/step: {name[:90]}")
 
 
-def flagship(device, dims=(2.0, 0.35, 0.3, 42, 7, 6)):
-    """The bench.py 10k rollout through the kernels. Returns the launch
-    counts of the timed rollout."""
+def rollout_phase(tag, device, problem, n_steps, traced=True):
+    """A problem's rollout through the kernels: warm-up, then a timed run
+    whose launch counts are returned (each kernel of the family's path must
+    have launched), a traced window, and CHECK_STEPS from rest through the
+    kernels and through the twins, which must agree within 5e-3 of the
+    coordinate scale."""
     import torch
 
     from tlfea_torch.ops import fem_kernels as fk
@@ -259,37 +372,38 @@ def flagship(device, dims=(2.0, 0.35, 0.3, 42, 7, 6)):
     from tlfea_torch.solvers.coarse import build_coarse_precond
 
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    system, state0, f_ext, params = flagship_problem(device, torch.float32, dims)
+    system, state0, f_ext, params = problem
+    family = system.fem.family
     t0 = time.perf_counter()
     coarse = build_coarse_precond(system, state0.x, params.dt, params.rho, max_agg=512)
     sync()
-    log("flagship", f"{system.elems.n_elem} elems, {system.n_coef} nodes, "
+    log(tag, f"{system.elems.n_elem} elems ({family}), {system.n_coef} nodes, "
         f"{int(system.constraints.idx.numel())} pinned; coarse: {coarse.n_agg} aggregates "
         f"x 6 modes, built in {time.perf_counter() - t0:.2f} s")
-    roll = newton.make_rollout(system, params, ROLLOUT, coarse=coarse, precond_refresh=8)
+    roll = newton.make_rollout(system, params, n_steps, coarse=coarse, precond_refresh=8)
     t0 = time.perf_counter()
     s, _ = roll(state0, f_ext)
     sync()
-    log("flagship", f"warm-up rollout ({ROLLOUT} steps): {time.perf_counter() - t0:.2f} s")
+    log(tag, f"warm-up rollout ({n_steps} steps): {time.perf_counter() - t0:.2f} s")
 
     fk.reset_launch_counts()
     t0 = time.perf_counter()
     s, (nit, cgit) = roll(s, f_ext)
     sync()
     wall = time.perf_counter() - t0
-    launches = dict(fk.LAUNCHES)
+    launches = {k: fk.LAUNCHES[f"{k}[{family}]"] for k in KERNELS}
     if not bool(torch.isfinite(s.x).all()) or s.x.shape != state0.x.shape:
-        raise AssertionError("flagship rollout state is not finite")
+        raise AssertionError(f"{tag} rollout state is not finite")
     nit, cgit = np.asarray(nit), np.asarray(cgit)
-    ms = wall / ROLLOUT * 1e3
-    log("flagship", f"timed rollout: {ROLLOUT} steps in {wall:.3f} s = {ms:.3f} ms/step; "
+    ms = wall / n_steps * 1e3
+    log(tag, f"timed rollout: {n_steps} steps in {wall:.3f} s = {ms:.3f} ms/step; "
         f"newton/step median {np.median(nit):g}, cg/step median {np.median(cgit):g}, "
         f"newton_capped_frac {float((nit >= params.max_inner).mean()):.3f}, "
         f"max |u| {float(s.u.abs().max()):.4e}")
-    log("flagship", f"launches in the timed rollout: {launches}")
+    log(tag, f"launches in the timed rollout: {launches}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path was never launched: {launches}")
-    if device.type == "cuda":
+    if traced and device.type == "cuda":
         trace(newton.make_rollout(system, params, TRACE_STEPS, coarse=coarse, precond_refresh=8),
               s, f_ext, ms)
 
@@ -301,18 +415,76 @@ def flagship(device, dims=(2.0, 0.35, 0.3, 42, 7, 6)):
         sx, (nx, cx) = newton.make_rollout(sysx, params, CHECK_STEPS, coarse=coarse,
                                            precond_refresh=8)(state0, f_ext)
         sync()
-        log("flagship", f"{CHECK_STEPS} steps from rest via {'twins' if plain else 'kernels'}: "
+        log(tag, f"{CHECK_STEPS} steps from rest via {'twins' if plain else 'kernels'}: "
             f"{(time.perf_counter() - t0) / CHECK_STEPS * 1e3:.3f} ms/step, newton {nx}, cg {cx}")
         finals[plain] = sx.x
     diff = float((finals[False] - finals[True]).abs().max())
     rel_coord = diff / float(finals[True].abs().max())
     rel_disp = diff / float((finals[True] - state0.x).abs().max())
-    log("flagship", f"kernels vs twins after {CHECK_STEPS} steps: max |dx| {diff:.3e}, "
+    log(tag, f"kernels vs twins after {CHECK_STEPS} steps: max |dx| {diff:.3e}, "
         f"{rel_coord:.3e} of the coordinate scale (bar 5e-3), {rel_disp:.3e} of the "
         f"displacement scale")
     if not rel_coord < 5e-3:
         raise AssertionError(f"kernel path disagrees with the twin path: {rel_coord:.3e}")
     return launches
+
+
+def flagship(device, dims=(2.0, 0.35, 0.3, 42, 7, 6)):
+    """The bench.py 10k rollout through the kernels. Returns the launch
+    counts of the timed rollout."""
+    import torch
+
+    return rollout_phase("flagship", device, flagship_problem(device, torch.float32, dims),
+                         ROLLOUT)
+
+
+def shell(device, nx=72, ny=72):
+    """The bench.py run_ancf_shell rollout through the kernels. Returns the
+    launch counts of the timed rollout."""
+    import torch
+
+    return rollout_phase("shell", device, shell_problem(device, torch.float32, nx, ny),
+                         SHELL_ROLLOUT)
+
+
+def shell_theory(device, steps=THEORY_STEPS):
+    """The float64 cantilever plate of tests/test_shell_validation.py through
+    the kernels: returns (tip deflection / plate theory - 1, tip, theory,
+    seconds, Newton and CG totals)."""
+    import torch
+
+    from tlfea_torch.constraints import FixedCoefs
+    from tlfea_torch.elements import ancf3443
+    from tlfea_torch.elements.assembly import lumped_mass
+    from tlfea_torch.materials import SVK, lame_from_E_nu
+    from tlfea_torch.solvers import StepState, System, newton
+
+    L_el, W, H, n_el, E, rho = 0.25, 1.0, 0.02, 8, 2e10, 1000.0
+    coefs, conn = ancf3443.shell_strip(n_el, L=L_el, W=W)
+    lam, mu = lame_from_E_nu(E, 0.0)
+    elems_cpu = ancf3443.build(coefs, conn, L_el, W, H, rho=rho, device="cpu")
+    f_ext = torch.zeros((len(coefs), 3), dtype=torch.float64)
+    f_ext[:, 2] = lumped_mass(elems_cpu) * -9.81
+    x0 = torch.as_tensor(coefs, device=device)
+    system = System(elems=elems_cpu.to(device), material=SVK(lam, mu, 2e5, 2e5),
+                    constraints=FixedCoefs.from_indices(_clamp_rows([0, 1]), x0))
+    step = newton.make_step(system, newton.NewtonParams(
+        dt=1e-2, rho=1e10, inner_atol=1e-7, inner_rtol=1e-9, max_outer=2, max_inner=12,
+        cg_rtol=1e-5, cg_max_iter=400))
+    state = StepState.rest(system, x0)
+    f_ext = f_ext.to(device)
+    t0 = time.perf_counter()
+    newton_tot = cg_tot = 0
+    for _ in range(steps):
+        state, d = step(state, f_ext)
+        newton_tot += d["newton_iters"]
+        cg_tot += d["cg_iters"]
+    tips = [int(conn[-1][1]), int(conn[-1][2])]
+    tz = float(np.mean([float(state.x[4 * k, 2]) - coefs[4 * k, 2] for k in tips]))
+    secs = time.perf_counter() - t0
+    q = rho * 9.81 * W * H  # load per unit length
+    w_theory = q * (n_el * L_el) ** 4 / (8.0 * E * (W * H**3 / 12.0))
+    return abs(tz + w_theory) / w_theory, tz, -w_theory, secs, newton_tot, cg_tot
 
 
 def main():
@@ -329,6 +501,13 @@ def main():
     from tlfea_torch.ops import fem_kernels as fk
 
     device = torch.device("cuda")
+    t_phase = time.perf_counter()
+
+    def done(phase):
+        nonlocal t_phase
+        log(phase, f"phase took {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -341,27 +520,55 @@ def main():
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise AssertionError("TF32 is on")
     fk.build_kernels()
-    log("setup", f"built {os.path.relpath(fk.BUILD_INFO['path'], ROOT)} in "
-        f"{fk.BUILD_INFO['seconds']:.1f} s (nvcc, sm_90a)")
-    for line in fk.BUILD_INFO.get("ptxas", "").splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
-            log("setup", "ptxas: " + line.split("ptxas info    :")[-1].strip())
+    log("setup", f"built {len(fk.BUILD_INFO['sources'])} libraries in "
+        f"{fk.BUILD_INFO['seconds']:.1f} s (nvcc, sm_90a, in parallel)")
+    for src, info in fk.BUILD_INFO["sources"].items():
+        log("setup", f"{src}: {info['seconds']:.1f} s -> {os.path.relpath(info['path'], ROOT)}")
+        for line in info["ptxas"].splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                log("setup", "ptxas: " + line.split("ptxas info    :")[-1].strip())
+    done("setup")
 
-    timings = phase_kernels(device)
+    timings = {
+        "feat10": phase_kernels(device, "feat10", flagship_problem("cpu", torch.float64)[0]),
+        "ancf3443": phase_kernels(device, "ancf3443", shell_problem("cpu", torch.float64)[0]),
+        "ancf3243": phase_kernels(device, "ancf3243", ancf_beam_problem("cpu", torch.float64)[0]),
+    }
+    done("kernels")
 
     dev, secs = beam_sag(device, torch.float32)
     log("beam", f"float32 beam sag, {BEAM_STEPS} steps in {secs:.2f} s: max tip deviation from the "
         f"float64 fixture {dev:.3e} of the displacement scale (bar 1e-6)")
     if not dev < 1e-6:
         raise AssertionError(f"beam sag deviates {dev:.3e} of the displacement scale")
+    done("beam")
 
-    launches = flagship(device)
+    launches = {"feat10": flagship(device)}
+    done("flagship")
+    launches["ancf3443"] = shell(device)
+    done("shell")
+
+    rel, tz, w, secs, nt, ct = shell_theory(device)
+    log("shell_theory", f"float64 cantilever plate, {THEORY_STEPS} steps in {secs:.2f} s "
+        f"({nt} Newton, {ct} CG iterations): tip {tz:+.6e} m vs plate theory {w:+.6e} m, "
+        f"off by {rel:.3%} (bar 5%)")
+    if not rel < 0.05:
+        raise AssertionError(f"shell tip is {rel:.1%} off plate theory")
+    done("shell_theory")
+
+    launches["ancf3243"] = rollout_phase(
+        "ancf_beam", device, ancf_beam_problem(device, torch.float32), ANCF_BEAM_STEPS,
+        traced=False)
+    done("ancf_beam")
 
     record = {"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": timings[name][0],
-         "ms": timings[name][1], "plain_ms": timings[name][2]}
-        for name, replaces in KERNELS
+        {"name": f"{name}[{family}]", "route": "cuda",
+         "source": "tlfea_torch/csrc/" + (
+             "fem_kernels.cu" if name == "node_reduce"
+             else next(src for fam, src in fk.FAMILIES.values() if fam == family)),
+         "replaces": NODE_REDUCE_REPLACES if name == "node_reduce" else REPLACES[family][name],
+         "launches": launches[family][name], **timings[family][name]}
+        for family in ("feat10", "ancf3443", "ancf3243") for name in KERNELS
     ]}
     print(json.dumps(record))
     print(smi)

@@ -1,11 +1,13 @@
 """The port's CUDA kernels on the card (`cuda` marker; skipped without one).
 
-Each kernel is held against its plain PyTorch twin on the same card inputs
+Each kernel, in each element family's instantiation (FEAT10, ANCF3243,
+ANCF3443), is held against its plain PyTorch twin on the same card inputs
 (float64 within 1e-12 relative, float32 within 1e-5: the same arithmetic in
-another summation order), and a short rollout through the kernels against
-the same rollout through the twins. This file imports neither jax nor the
-JAX package, so it runs where only PyTorch is installed; tests/conftest.py
-imports jax, so on such a machine run it as
+another summation order); float32 results are bitwise repeatable; and short
+rollouts through the kernels match the same rollouts through the twins.
+This file imports neither jax nor the JAX package, so it runs where only
+PyTorch is installed; tests/conftest.py imports jax, so on such a machine
+run it as
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -17,7 +19,7 @@ import pytest
 import torch
 
 from tlfea_torch.constraints import FixedCoefs
-from tlfea_torch.elements import feat10
+from tlfea_torch.elements import ancf3243, ancf3443, feat10
 from tlfea_torch.elements.assembly import lumped_mass
 from tlfea_torch.materials import SVK, lame_from_E_nu
 from tlfea_torch.ops import fem_kernels as fk
@@ -39,7 +41,7 @@ def cuda_dev():
 def _box_system(device, dtype, dims=(1.0, 0.2, 0.2, 3, 1, 1)):
     nodes, conn = box_t10_mesh(*dims)
     lam, mu = lame_from_E_nu(1e7, 0.3)
-    elems = feat10.build(nodes, conn, rho=1000.0, dtype=dtype)
+    elems = feat10.build(nodes, conn, rho=1000.0, dtype=dtype, device="cpu")
     f_ext = torch.zeros((len(nodes), 3), dtype=dtype)
     f_ext[:, 2] = lumped_mass(elems) * -9.81
     x0 = torch.as_tensor(nodes, dtype=dtype, device=device)
@@ -48,16 +50,46 @@ def _box_system(device, dtype, dims=(1.0, 0.2, 0.2, 3, 1, 1)):
     return system, x0, f_ext.to(device)
 
 
+def _ancf_system(device, dtype, family, n=(4, 3)):
+    """A clamped ANCF plate (ANCF3443) or cantilever (ANCF3243) under gravity."""
+    if family == "ancf3443":
+        coefs, conn = ancf3443.shell_grid(*n, L=0.05, W=0.05)
+        elems = ancf3443.build(coefs, conn, 0.05, 0.05, 0.01, rho=1000.0, dtype=dtype,
+                               device="cpu")
+    else:
+        coefs, conn = ancf3243.straight_beam(n[0] * n[1], L=0.1)
+        elems = ancf3243.build(coefs, conn, 0.1, 0.02, 0.02, rho=1000.0, dtype=dtype,
+                               device="cpu")
+    lam, mu = lame_from_E_nu(1e7, 0.3)
+    f_ext = torch.zeros((len(coefs), 3), dtype=dtype)
+    f_ext[:, 2] = lumped_mass(elems) * -9.81
+    x0 = torch.as_tensor(coefs, dtype=dtype, device=device)
+    pos = coefs[0::4, 0]
+    edge = np.nonzero(pos < pos.min() + 1e-12)[0]
+    fixed = (4 * edge[:, None] + np.arange(4)[None, :]).reshape(-1)
+    system = System(elems=elems.to(device), material=SVK(lam, mu, 1e3, 1e3),
+                    constraints=FixedCoefs.from_indices(fixed, x0))
+    return system, x0, f_ext.to(device)
+
+
+def _family_system(device, dtype, family):
+    if family == "feat10":
+        return _box_system(device, dtype)
+    return _ancf_system(device, dtype, family)
+
+
 def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("family", ["feat10", "ancf3243", "ancf3443"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 @pytest.mark.parametrize("kernel", KERNELS)
-def test_kernel_matches_twin_on_card(cuda_dev, kernel, dtype, tol):
-    system, _, _ = _box_system(cuda_dev, dtype)
+def test_kernel_matches_twin_on_card(cuda_dev, kernel, dtype, tol, family):
+    system, _, _ = _family_system(cuda_dev, dtype, family)
     op = system.fem
+    assert op.family == family
     n = system.n_coef
     rng = np.random.default_rng(7)
 
@@ -76,7 +108,8 @@ def test_kernel_matches_twin_on_card(cuda_dev, kernel, dtype, tol):
     got = getattr(fk, kernel)(op, *args)
     want = getattr(fk, kernel + "_plain")(op, *args)
     torch.cuda.synchronize()
-    assert fk.LAUNCHES[kernel] == 1
+    assert fk.LAUNCHES[f"{kernel}[{family}]"] == 1
+    assert sum(fk.LAUNCHES.values()) == 1
     for g, w in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         assert _rel(g, w) < tol
@@ -89,6 +122,46 @@ def test_node_reduce_is_bitwise_repeatable(cuda_dev):
     first = fk.node_reduce(system.fem, vals)
     for _ in range(5):
         assert torch.equal(fk.node_reduce(system.fem, vals), first)
+
+
+@pytest.mark.cuda
+def test_shell_kernels_are_bitwise_repeatable(cuda_dev):
+    """K1-K3 at S=16 sum each element's 48 quadrature points in a fixed order
+    (4 groups of 12, then the groups in turn): no atomics, same bits."""
+    system, _, _ = _ancf_system(cuda_dev, torch.float32, "ancf3443")
+    op = system.fem
+    gen = torch.Generator(device=cuda_dev).manual_seed(3)
+    packed = torch.randn(op.n, 9, device=cuda_dev, generator=gen) * 1e-2
+    p = torch.randn(op.n, 3, device=cuda_dev, generator=gen)
+    first = fk.primal_prep(op, packed)
+    runs = [(fk.primal_prep(op, packed), fk.hv(op, p, first[1], DT), fk.svk_blocks(op, p * 1e-3))
+            for _ in range(4)]
+    for (fe, prep), hv, blocks in runs:
+        assert torch.equal(fe, first[0]) and torch.equal(prep, first[1])
+        assert torch.equal(hv, runs[0][1]) and torch.equal(blocks, runs[0][2])
+    assert torch.equal(fk.node_reduce(op, hv), fk.node_reduce(op, runs[0][1]))
+
+
+@pytest.mark.cuda
+def test_shell_rollout_is_bitwise_repeatable(cuda_dev):
+    """The coarse build sums in sorted-index order and the kernels in fixed
+    orders, so a float32 shell rollout from rest, coarse build included,
+    gives the same bits and the same counts twice."""
+    from tlfea_torch.solvers.coarse import build_coarse_precond
+
+    system, x0, f_ext = _ancf_system(cuda_dev, torch.float32, "ancf3443")
+    params = newton.NewtonParams(dt=DT, rho=1e7, inner_atol=2.5e-2 * float(f_ext.norm()),
+                                 outer_tol=0.0, max_outer=1, max_inner=6, cg_rtol=1e-3,
+                                 cg_max_iter=50)
+    runs = []
+    for _ in range(2):
+        coarse = build_coarse_precond(system, x0, DT, 1e7, target_cluster=8)
+        state, counts = newton.make_rollout(system, params, 3, coarse=coarse, precond_refresh=2)(
+            StepState.rest(system, x0), f_ext)
+        runs.append((coarse.Ainv, state.x, counts))
+    (ainv_a, x_a, counts_a), (ainv_b, x_b, counts_b) = runs
+    assert torch.equal(ainv_a, ainv_b)
+    assert torch.equal(x_a, x_b) and counts_a == counts_b
 
 
 @pytest.mark.cuda
@@ -105,7 +178,32 @@ def test_rollout_through_kernels_matches_twins(cuda_dev):
         fk.reset_launch_counts()
         out[plain] = newton.make_rollout(sysx, params, 4, precond_refresh=2)(
             StepState.rest(sysx, x0), f_ext)
-        assert (min(fk.LAUNCHES.values()) > 0) != plain
+        assert (min(fk.LAUNCHES[f"{k}[feat10]"] for k in KERNELS) > 0) != plain
+    (sk, ck), (sp, cp) = out[False], out[True]
+    assert ck == cp
+    assert float((sk.x - sp.x).abs().max()) < 1e-10 * float((sp.x - x0).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["ancf3243", "ancf3443"])
+def test_ancf_rollout_through_kernels_matches_twins(cuda_dev, family):
+    """Three float64 steps of a clamped ANCF structure with the coarse
+    correction, kernels against twins: same counts, positions within 1e-10
+    of the displacement."""
+    from tlfea_torch.solvers.coarse import build_coarse_precond
+
+    system, x0, f_ext = _ancf_system(cuda_dev, torch.float64, family)
+    params = newton.NewtonParams(dt=DT, rho=1e7, inner_atol=1e-3 * float(f_ext.norm()),
+                                 outer_tol=0.0, max_outer=1, max_inner=6, cg_rtol=1e-3,
+                                 cg_max_iter=50)
+    coarse = build_coarse_precond(system, x0, DT, 1e7, target_cluster=8)
+    out = {}
+    for plain in (False, True):
+        sysx = replace(system, plain=plain)
+        fk.reset_launch_counts()
+        out[plain] = newton.make_rollout(sysx, params, 3, coarse=coarse, precond_refresh=2)(
+            StepState.rest(sysx, x0), f_ext)
+        assert (min(fk.LAUNCHES[f"{k}[{family}]"] for k in KERNELS) > 0) != plain
     (sk, ck), (sp, cp) = out[False], out[True]
     assert ck == cp
     assert float((sk.x - sp.x).abs().max()) < 1e-10 * float((sp.x - x0).abs().max())

@@ -57,7 +57,7 @@ def prob():
     fixed = np.nonzero(nodes[:, 0] < 1e-12)[0]
     jsys = JSystem(elems=j_feat10.build(nodes, conn, rho=1000.0), material=mat,
                    constraints=JFixedCoefs.from_indices(fixed, nodes))
-    tsys, _, _ = from_numpy_system(jsys.elems, mat, jsys.constraints)
+    tsys, _, _ = from_numpy_system(jsys.elems, mat, jsys.constraints, device="cpu")
     n = len(nodes)
     rng = np.random.default_rng(0)
     d = dict(

@@ -65,7 +65,7 @@ def _jax_problem(box, E=1e7, rho_pen=1e7, **kw):
 def prob():
     nodes, jsys, jstate, f_ext, jparams = _jax_problem((1.0, 0.2, 0.2, 4, 1, 1))
     tsys, tstate, tparams = from_numpy_system(jsys.elems, jsys.material, jsys.constraints,
-                                              jstate, jparams)
+                                              jstate, jparams, device="cpu")
     return nodes, (jsys, jstate, jparams), (tsys, tstate, tparams), f_ext
 
 
@@ -118,7 +118,7 @@ def test_interop_round_trip(prob):
     nodes, (jsys, jstate, jparams), _, _ = prob
     for dtype in (torch.float64, torch.float32):
         tsys, tstate, tparams = from_numpy_system(jsys.elems, jsys.material, jsys.constraints,
-                                                  jstate, jparams, dtype=dtype)
+                                                  jstate, jparams, device="cpu", dtype=dtype)
         np_dtype = np.float64 if dtype == torch.float64 else np.float32
         e, je = tsys.elems, jsys.elems
         for name in ("grad_N", "dV", "mass_elem", "xe_ref", "x_ref"):
@@ -139,11 +139,14 @@ def test_interop_round_trip(prob):
         assert (m.lam, m.mu, m.eta_damp, m.lam_damp) == tuple(
             float(getattr(jsys.material, k)) for k in ("lam", "mu", "eta_damp", "lam_damp"))
     with pytest.raises(ValueError, match="max_dv"):
-        from_numpy_system(jsys.elems, jsys.material, params=jparams.replace(max_dv=1.0))
+        from_numpy_system(jsys.elems, jsys.material, params=jparams.replace(max_dv=1.0),
+                          device="cpu")
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, tlfea_torch, tlfea_torch.ops.fem_kernels, tlfea_torch.interop; "
+    code = ("import sys, tlfea_torch, tlfea_torch.ops.fem_kernels, tlfea_torch.interop, "
+            "tlfea_torch.elements.ancf, tlfea_torch.elements.ancf3243, "
+            "tlfea_torch.elements.ancf3443, tlfea_torch.solvers.coarse; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tlfea.'))); "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -167,7 +170,7 @@ def test_beam_sag_trajectory_matches_fixture():
     nodes, conn = tetmesh.box_t10_mesh(1.0, 0.1, 0.1, 10, 1, 1)
     lam, mu = lame_from_E_nu(1e7, 0.3)
     x0 = torch.as_tensor(nodes)
-    system = System(elems=feat10.build(nodes, conn, rho=1000.0),
+    system = System(elems=feat10.build(nodes, conn, rho=1000.0, device="cpu"),
                     material=SVK(lam, mu, 1e3, 1e3),
                     constraints=FixedCoefs.from_indices(np.nonzero(nodes[:, 0] < 1e-12)[0], x0))
     f_ext = torch.zeros_like(x0)

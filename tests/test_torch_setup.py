@@ -1,7 +1,10 @@
 """Host-side setup of the torch port (`tlfea_torch.utils`, `elements.feat10`)
 against the JAX package: the port keeps its own NumPy copies (importing
 `tlfea` pulls in jax), so every table, mesh, permutation and element array
-must be exactly equal to the original's."""
+must be exactly equal to the original's. (The ANCF tables are held in
+`tests/test_torch_ancf.py`.)"""
+
+import inspect
 
 import numpy as np
 import pytest
@@ -35,6 +38,30 @@ def test_quadrature_tables_equal(n):
         _equal(a, b)
     for a, b in zip(t_quad.keast5_tet(), j_quad.keast5_tet()):
         _equal(a, b)
+
+
+@pytest.mark.parametrize("rule", [(3, 2, 2), (4, 4, 3), (7, 7, 3)])
+def test_tensor_product_rule_equal(rule):
+    for a, b in zip(t_quad.tensor_product_rule(*rule), j_quad.tensor_product_rule(*rule)):
+        _equal(a, b)
+
+
+def test_builders_default_to_the_card():
+    """Entry points run on the card unless the caller asks for the CPU."""
+    from tlfea_torch import interop
+    from tlfea_torch.elements import ancf3243, ancf3443
+
+    for fn in (t_feat10.build, ancf3443.build, ancf3243.build, interop.from_numpy_system):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+
+
+def test_builders_raise_without_a_card():
+    """No silent fallback: without a card, the default device fails."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
+    nodes, conn = t_tetmesh.box_t10_mesh(1.0, 0.2, 0.2, 1, 1, 1)
+    with pytest.raises((RuntimeError, AssertionError)):
+        t_feat10.build(nodes, conn, rho=1000.0)
 
 
 @pytest.mark.parametrize("box", BOXES)
@@ -76,7 +103,7 @@ def test_feat10_arrays_equal(box):
         _equal(t_feat10.element_mass(nodes, conn, 1000.0, rule=rule),
                j_feat10.element_mass(nodes, conn, 1000.0, rule=rule))
     for t_dtype, j_dtype in ((torch.float64, np.float64), (torch.float32, np.float32)):
-        te = t_feat10.build(nodes, conn, rho=1000.0, dtype=t_dtype)
+        te = t_feat10.build(nodes, conn, rho=1000.0, dtype=t_dtype, device="cpu")
         je = j_feat10.build(nodes, conn, rho=1000.0, dtype=j_dtype)
         for name in ("grad_N", "dV", "mass_elem", "xe_ref", "x_ref"):
             _equal(getattr(te, name).numpy(), np.asarray(getattr(je, name)))
@@ -87,7 +114,7 @@ def test_feat10_arrays_equal(box):
 def test_feat10_rejects_inverted_elements():
     nodes, conn = t_tetmesh.box_t10_mesh(1.0, 0.2, 0.2, 2, 1, 1)
     with pytest.raises(ValueError, match="non-positive Jacobian"):
-        t_feat10.build(nodes * np.array([1.0, 1.0, -1.0]), conn, rho=1.0)
+        t_feat10.build(nodes * np.array([1.0, 1.0, -1.0]), conn, rho=1.0, device="cpu")
 
 
 def test_precision_pins_hold():

@@ -6,12 +6,14 @@ of `tlfea/x/y.py` is `tlfea_torch/x/y.py`. Host-side NumPy setup code is
 copied, not imported: importing any `tlfea.*` module pulls in jax
 (`tlfea/__init__.py:28-52`), and this package never imports jax.
 
-The slice ported so far is the flagship implicit step: FEAT10 elements,
-damped St. Venant-Kirchhoff, pinned nodes, backward Euler as an
-augmented-Lagrangian minimisation over velocity, matrix-free Newton-PCG with
-a block-Jacobi preconditioner and the frozen coarse correction. Its element
-work runs in hand-written CUDA kernels (`tlfea_torch/csrc/`, wrapped by
-`tlfea_torch.ops.fem_kernels`), each beside a plain PyTorch twin.
+The slices ported so far are the implicit step for FEAT10, ANCF3243 and
+ANCF3443 elements: damped St. Venant-Kirchhoff, pinned coefficients,
+backward Euler as an augmented-Lagrangian minimisation over velocity,
+matrix-free Newton-PCG with a block-Jacobi preconditioner and the frozen
+coarse correction. Its element work runs in hand-written CUDA kernels
+(`tlfea_torch/csrc/`, wrapped by `tlfea_torch.ops.fem_kernels`), each
+beside a plain PyTorch twin. Builders and `interop.from_numpy_system` put
+their tensors on the card unless given device="cpu".
 
 Precision: float32 matrix products and convolutions run in full float32.
 TF32 keeps about three decimal digits — the Hopper form of the bf16-pass

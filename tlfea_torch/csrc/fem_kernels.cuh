@@ -1,0 +1,542 @@
+// Element kernels of the implicit Newton-PCG step (Hopper, sm_90a), templated
+// on the element family: the number of slots S, of stiffness quadrature
+// points Q, and the mask of translation slots.
+//
+// Four kernels replace the Pallas TPU kernels of the Newton-PCG path:
+//
+//   K1 primal_prep  <- tlfea/ops/pallas_fem.py `_primal_prep_body` (:888),
+//                      `_primal_prep_chunked_body` (:1018) and
+//                      pallas_banded.py `_primal_banded_body` (:801)
+//   K2 hv           <- pallas_fem.py `_hv_body` (:956), `_hv_chunked_body`
+//                      (:1054) and pallas_banded.py `_hv_banded_body` (:763)
+//   K3 svk_blocks   <- pallas_fem.py `_precond_body` (:673), the chunked
+//                      `make_precond_blocks` kernel (:725) and
+//                      pallas_banded.py `_blocks_banded_body` (:839)
+//   K4 node_reduce  <- the scatter half of all of the above
+//                      (pallas_banded.py `_window_scatter` :689, and the flat
+//                      path's XLA `.at[].add`)
+//
+// The TPU versions tile the element axis as (8,128) vector registers, gather
+// and scatter through VMEM node windows (banded form), and for heavy elements
+// (the ANCF3443 shell: Q=48, S=16) split the quadrature points into a grid
+// axis of chunks, revisiting the output block across chunks, because the
+// unchunked shape-gradient table overflows VMEM. None of that carries over.
+//
+// Here a block owns a tile of EX = 32 consecutive elements (threadIdx.x) and
+// splits their quadrature points over NG groups (threadIdx.y): thread (x, g)
+// takes the points q = g, g + NG, ... of element e0 + x. So a warp reads 32
+// consecutive words of every element-minor table row (fully coalesced), and
+// the block keeps NG warps of loads in flight even when the mesh has few
+// elements (5,184 shells are 162 tiles). The block first gathers its
+// elements' slot values through `conn` into shared memory (centred, see
+// below). Each thread accumulates its points' contributions in registers
+// when they are few, else directly in its own slice of a shared-memory
+// partial buffer (so the shell's 96 tangent-block sums per thread do not
+// spill), and leaves them in that slice. Then the block sums the NG partials
+// of each (element, slot) in the fixed order g = 0..NG-1, adds the
+// q-independent mass term once, and writes per-(element, slot) values. K4
+// sums those onto the nodes in a fixed order. No atomics anywhere: float32
+// results are bitwise repeatable.
+//
+// What bounds them: K1-K3 stream the element tables once (per element, Q*S*3
+// shape gradients, Q volumes, S*S mass entries, and the Q*27-row prep cache
+// written by K1 and read by K2) at a few hundred flops per quadrature point;
+// bytes, not flops, are the bound. At the shell's 5,184 elements the
+// shape-gradient table alone is 47.8 MB in float32, about the size of the
+// 50 MB L2, so every launch streams it from HBM.
+//
+// Layouts (T = float or double):
+//   packed  (n, 9)       node-major [u | v | dv/dt]
+//   conn_t  (S, E)       int32 node of slot a of element e at [a * E + e]
+//   gN_t    (Q*S*3, E)   shape gradients, row (q*S + a)*3 + j
+//   dV_t    (Q, E)       quadrature volumes
+//   Me_t    (S*S, E)     consistent mass, row a*S + b
+//   prep    (Q*27, E)    per-QP cache: Du (9), S0 (9), Fd (9), row q*27 + r
+//   fe/out  (S*C, E)     per-(element, slot) values, row a*C + c
+//
+// Centring: slot 0 is the element-local reference and must be a translation
+// slot. Translation slots (all ten of FEAT10; every node's position
+// coefficient, a % 4 == 0, for ANCF) enter the gradient contractions as
+// x_a - x_0, which is exact because their shape gradients sum to zero and
+// removes the rigid-motion common mode (without it float32 carries an
+// eps*E*theta residual floor). Gradient slots (ANCF's r_u, r_v, r_w) are
+// used raw. The mass terms use the raw, uncentred values.
+//
+// Every entry point returns cudaGetLastError() after its launch; the Python
+// wrapper raises on a non-zero code.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "svk.cuh"
+
+namespace tlfea {
+
+constexpr int PR = 27;       // prep rows per quadrature point
+constexpr int EX = 32;       // elements per block (threadIdx.x)
+constexpr int THREADS = 128;  // K4 block size
+
+// An element family: S slots, Q stiffness quadrature points, MASK bit a set
+// when slot a is a translation slot, NG quadrature-point groups per element,
+// and up to REG_BYTES of each thread's partial sums kept in registers.
+template <int S_, int Q_, unsigned MASK_, int NG_, int REG_BYTES_ = 240>
+struct Family {
+  static constexpr int S = S_;
+  static constexpr int Q = Q_;
+  static constexpr unsigned MASK = MASK_;
+  static constexpr int NG = NG_;
+  static constexpr int REG_BYTES = REG_BYTES_;
+  static_assert(MASK_ & 1u, "slot 0 must be a translation slot (the centring reference)");
+  static_assert(S_ <= 32 && NG_ >= 1 && NG_ <= Q_, "unsupported family shape");
+};
+
+template <class F>
+__device__ __forceinline__ bool trans_slot(int a) {
+  return ((F::MASK >> a) & 1u) != 0u;
+}
+
+// Shared memory of one block: S*CIN staged slot channels, then NG*S*COUT
+// partial sums, each row EX elements wide.
+template <typename T, class F, int CIN, int COUT>
+constexpr size_t smem_bytes() {
+  return (size_t)(F::S * CIN + F::NG * F::S * COUT) * EX * sizeof(T);
+}
+
+// Gather the tile's slot values into xs[(a*CIN + c) * EX + x], the first
+// NCENT channels of a translation slot centred on slot 0 and everything else
+// raw.
+template <typename T, class F, int CIN, int NCENT>
+__device__ __forceinline__ void stage(const T* __restrict__ src, const int* __restrict__ conn_t,
+                                      int E, int e0, T* xs) {
+  constexpr int S = F::S, NT = EX * F::NG;
+  const size_t sE = (size_t)E;
+  const int tid = threadIdx.y * EX + threadIdx.x;
+  for (int t = tid; t < S * EX; t += NT) {
+    const int a = t / EX, x = t - a * EX, e = e0 + x;
+    if (e >= E) continue;
+    const T* pa = src + (size_t)conn_t[a * sE + e] * CIN;
+    const T* p0 = src + (size_t)conn_t[e] * CIN;
+    const bool tr = trans_slot<F>(a);
+    for (int c = 0; c < CIN; ++c)
+      xs[(a * CIN + c) * EX + x] = (c < NCENT && tr) ? pa[c] - p0[c] : pa[c];
+  }
+}
+
+// One thread's N partial sums over its quadrature points: in registers when
+// they are few (REGS; every index is a constant once the slot loops are
+// unrolled), else in the thread's own slice of the shared partial buffer,
+// mine[r * EX]. flush() leaves them in that slice either way.
+template <typename T, int N, bool REGS>
+struct Partial;
+
+template <typename T, int N>
+struct Partial<T, N, true> {
+  T v[N];
+  T* mine;
+  __device__ __forceinline__ explicit Partial(T* m) : mine(m) {
+#pragma unroll
+    for (int r = 0; r < N; ++r) v[r] = T(0);
+  }
+  __device__ __forceinline__ T& operator[](int r) { return v[r]; }
+  __device__ __forceinline__ void flush() {
+#pragma unroll
+    for (int r = 0; r < N; ++r) mine[r * EX] = v[r];
+  }
+};
+
+template <typename T, int N>
+struct Partial<T, N, false> {
+  T* mine;
+  __device__ __forceinline__ explicit Partial(T* m) : mine(m) {
+    for (int r = 0; r < N; ++r) mine[r * EX] = T(0);
+  }
+  __device__ __forceinline__ T& operator[](int r) { return mine[r * EX]; }
+  __device__ __forceinline__ void flush() {}
+};
+
+template <typename T, class F, int N>
+using PartialFor = Partial<T, N, (N * sizeof(T) <= (size_t)F::REG_BYTES)>;
+
+// K1: f_e = sum_q P(Du, Fd) gradN dV + Me dv/dt, and the per-QP prep cache.
+template <typename T, class F>
+__global__ void __launch_bounds__(EX * F::NG)
+primal_prep_kernel(const T* __restrict__ packed, const int* __restrict__ conn_t,
+                   const T* __restrict__ gN_t, const T* __restrict__ dV_t,
+                   const T* __restrict__ Me_t, T* __restrict__ fe,
+                   T* __restrict__ prep, int E, T lam, T mu, T eta, T lam_d) {
+  constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = EX * NG;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);  // (S*9, EX): centred u | centred v | dv
+  T* part = xs + S * 9 * EX;               // (NG*S*3, EX)
+  const int x = threadIdx.x, g = threadIdx.y;
+  const int e0 = blockIdx.x * EX, e = e0 + x;
+  const size_t sE = (size_t)E;
+  PartialFor<T, F, S * 3> f(part + g * S * 3 * EX + x);
+  stage<T, F, 9, 6>(packed, conn_t, E, e0, xs);
+  __syncthreads();
+
+  if (e < E) {
+    const T* xe = xs + x;
+#pragma unroll 1
+    for (int q = g; q < Q; q += NG) {
+      T Du[3][3], Fd[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) Du[i][j] = Fd[i][j] = T(0);
+#pragma unroll
+      for (int a = 1; a < S; ++a) {  // centred slot 0 is zero
+        T ua[3], va[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          ua[i] = xe[(a * 9 + i) * EX];
+          va[i] = xe[(a * 9 + 3 + i) * EX];
+        }
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const T gv = gN_t[((size_t)(q * S + a) * 3 + j) * sE + e];
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            Du[i][j] += ua[i] * gv;
+            Fd[i][j] += va[i] * gv;
+          }
+        }
+      }
+      T P[3][3], Sm[3][3];
+      svk_stress(Du, Fd, lam, mu, eta, lam_d, P, Sm);
+      T* pq = prep + (size_t)q * PR * sE + e;
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          pq[(i * 3 + j) * sE] = Du[i][j];
+          pq[(9 + i * 3 + j) * sE] = Sm[i][j];
+          pq[(18 + i * 3 + j) * sE] = Fd[i][j];
+        }
+      const T w = dV_t[q * sE + e];
+#pragma unroll
+      for (int a = 0; a < S; ++a) {
+        const T* ga = gN_t + ((size_t)(q * S + a) * 3) * sE + e;
+        const T g0 = ga[0], g1 = ga[sE], g2 = ga[2 * sE];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          f[a * 3 + i] += (P[i][0] * g0 + P[i][1] * g1 + P[i][2] * g2) * w;
+      }
+    }
+  }
+  f.flush();
+  __syncthreads();
+
+  // Fixed-order sum of the NG partials, plus the consistent mass on the
+  // (uncentred) dv/dt channel.
+  for (int t = g * EX + x; t < S * EX; t += NT) {
+    const int a = t / EX, xx = t - a * EX, ee = e0 + xx;
+    if (ee >= E) continue;
+    T f[3] = {T(0), T(0), T(0)};
+    for (int h = 0; h < NG; ++h)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) f[i] += part[((h * S + a) * 3 + i) * EX + xx];
+    T m[3] = {T(0), T(0), T(0)};
+#pragma unroll
+    for (int b = 0; b < S; ++b) {
+      const T me = Me_t[(a * S + b) * sE + ee];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) m[i] += me * xs[(b * 9 + 6 + i) * EX + xx];
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) fe[(a * 3 + i) * sE + ee] = f[i] + m[i];
+  }
+}
+
+// K2: Hv_e = sum_q dP(G) gradN dV + (1/dt) Me p, primal state from prep.
+// Runs once per CG iteration. It re-reads the prep cache instead of
+// recomputing the primal, so one contraction (G) per QP is all the
+// arithmetic left.
+template <typename T, class F>
+__global__ void __launch_bounds__(EX * F::NG)
+hv_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
+          const T* __restrict__ prep, const T* __restrict__ gN_t,
+          const T* __restrict__ dV_t, const T* __restrict__ Me_t,
+          T* __restrict__ out, int E, T dt, T lam, T mu, T eta, T lam_d) {
+  constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = EX * NG;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);  // (S*3, EX): raw direction
+  T* part = xs + S * 3 * EX;               // (NG*S*3, EX)
+  const int x = threadIdx.x, g = threadIdx.y;
+  const int e0 = blockIdx.x * EX, e = e0 + x;
+  const size_t sE = (size_t)E;
+  PartialFor<T, F, S * 3> f(part + g * S * 3 * EX + x);
+  stage<T, F, 3, 0>(p, conn_t, E, e0, xs);
+  __syncthreads();
+
+  if (e < E) {
+    const T* xe = xs + x;
+    const T p0[3] = {xe[0], xe[EX], xe[2 * EX]};
+#pragma unroll 1
+    for (int q = g; q < Q; q += NG) {
+      T G[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) G[i][j] = T(0);
+#pragma unroll
+      for (int a = 1; a < S; ++a) {
+        T pc[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          pc[i] = trans_slot<F>(a) ? xe[(a * 3 + i) * EX] - p0[i] : xe[(a * 3 + i) * EX];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const T gv = gN_t[((size_t)(q * S + a) * 3 + j) * sE + e];
+#pragma unroll
+          for (int i = 0; i < 3; ++i) G[i][j] += pc[i] * gv;
+        }
+      }
+      T Du[3][3], S0[3][3], Fd[3][3];
+      const T* pq = prep + (size_t)q * PR * sE + e;
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          Du[i][j] = pq[(i * 3 + j) * sE];
+          S0[i][j] = pq[(9 + i * 3 + j) * sE];
+          Fd[i][j] = pq[(18 + i * 3 + j) * sE];
+        }
+      T dP[3][3];
+      svk_hv(G, Du, S0, Fd, dt, lam, mu, eta, lam_d, dP);
+      const T w = dV_t[q * sE + e];
+#pragma unroll
+      for (int a = 0; a < S; ++a) {
+        const T* ga = gN_t + ((size_t)(q * S + a) * 3) * sE + e;
+        const T g0 = ga[0], g1 = ga[sE], g2 = ga[2 * sE];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          f[a * 3 + i] += (dP[i][0] * g0 + dP[i][1] * g1 + dP[i][2] * g2) * w;
+      }
+    }
+  }
+  f.flush();
+  __syncthreads();
+
+  const T inv_dt = T(1) / dt;
+  for (int t = g * EX + x; t < S * EX; t += NT) {
+    const int a = t / EX, xx = t - a * EX, ee = e0 + xx;
+    if (ee >= E) continue;
+    T f[3] = {T(0), T(0), T(0)};
+    for (int h = 0; h < NG; ++h)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) f[i] += part[((h * S + a) * 3 + i) * EX + xx];
+    T m[3] = {T(0), T(0), T(0)};
+#pragma unroll
+    for (int b = 0; b < S; ++b) {
+      const T me = Me_t[(a * S + b) * sE + ee];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) m[i] += me * xs[(b * 3 + i) * EX + xx];
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) out[(a * 3 + i) * sE + ee] = f[i] + inv_dt * m[i];
+  }
+}
+
+// K3: per-(element, slot) SVK diagonal tangent blocks, sum_q K(F_q, h_qa) dV_q,
+// packed SYM6 (the caller applies the uniform dt weight). Runs once per
+// preconditioner refresh; SYM6 writes 6 channels instead of 9.
+template <typename T, class F>
+__global__ void __launch_bounds__(EX * F::NG)
+svk_blocks_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
+                  const T* __restrict__ gN_t, const T* __restrict__ dV_t,
+                  T* __restrict__ out, int E, T lam, T mu) {
+  constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = EX * NG;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);  // (S*3, EX): centred u
+  T* part = xs + S * 3 * EX;               // (NG*S*6, EX)
+  const int x = threadIdx.x, g = threadIdx.y;
+  const int e0 = blockIdx.x * EX, e = e0 + x;
+  const size_t sE = (size_t)E;
+  PartialFor<T, F, S * 6> acc(part + g * S * 6 * EX + x);
+  stage<T, F, 3, 3>(u, conn_t, E, e0, xs);
+  __syncthreads();
+
+  if (e < E) {
+    const T* xe = xs + x;
+#pragma unroll 1
+    for (int q = g; q < Q; q += NG) {
+      T F_[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) F_[i][j] = T(0);
+#pragma unroll
+      for (int a = 1; a < S; ++a) {
+        T ua[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) ua[i] = xe[(a * 3 + i) * EX];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const T gv = gN_t[((size_t)(q * S + a) * 3 + j) * sE + e];
+#pragma unroll
+          for (int i = 0; i < 3; ++i) F_[i][j] += ua[i] * gv;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i) F_[i][i] += T(1);
+      T trFtF = T(0), FFT[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          trFtF += F_[i][j] * F_[i][j];
+          FFT[i][j] = F_[i][0] * F_[j][0] + F_[i][1] * F_[j][1] + F_[i][2] * F_[j][2];
+        }
+      }
+      const T trE = T(0.5) * (trFtF - T(3));
+      const T w = dV_t[q * sE + e];
+#pragma unroll
+      for (int a = 0; a < S; ++a) {
+        const T* ga = gN_t + ((size_t)(q * S + a) * 3) * sE + e;
+        const T h[3] = {ga[0], ga[sE], ga[2 * sE]};
+        T K[6];
+        svk_diag_block(F_, FFT, trE, h, lam, mu, K);
+#pragma unroll
+        for (int c = 0; c < 6; ++c) acc[a * 6 + c] += K[c] * w;
+      }
+    }
+  }
+  acc.flush();
+  __syncthreads();
+
+  for (int t = g * EX + x; t < S * 6 * EX; t += NT) {
+    const int r = t / EX, xx = t - r * EX, ee = e0 + xx;
+    if (ee >= E) continue;
+    T sum = T(0);
+    for (int h = 0; h < NG; ++h) sum += part[(h * S * 6 + r) * EX + xx];
+    out[r * sE + ee] = sum;
+  }
+}
+
+// K4: out[node, c] = sum over the node's incidences (a, e), in the fixed
+// order of the host-built CSR list, of vals[(a*C + c) * E + e]. One thread
+// per (node, channel); inc[k] = a * E + e. A fixed order instead of atomics
+// keeps float32 sums bitwise repeatable. Bound by latency: each thread walks
+// its node's dependent, uncoalesced loads (about 20 for an interior FEAT10
+// node, at most 4 for a shell coefficient row).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+node_reduce_kernel(const T* __restrict__ vals, const int* __restrict__ ptr,
+                   const int* __restrict__ inc, T* __restrict__ out, int n,
+                   int E, int C) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n * C) return;
+  const int nd = t / C;
+  const int c = t - nd * C;
+  T acc = T(0);
+  for (int k = ptr[nd]; k < ptr[nd + 1]; ++k) {
+    const int i = inc[k];
+    const int a = i / E;
+    const int e = i - a * E;
+    acc += vals[((size_t)a * C + c) * E + e];
+  }
+  out[t] = acc;
+}
+
+// Internal linkage for the launchers: the once-per-kernel guard of
+// allow_smem below is a function-local static, which g++ would otherwise
+// make one object for the whole process (STB_GNU_UNIQUE). Two libraries
+// that instantiate the same family would then share it, and the second one
+// would launch its own kernel without the shared-memory opt-in.
+namespace {
+
+inline int n_tiles(int E) { return (E + EX - 1) / EX; }
+
+// Opt in to more than 48 KB of dynamic shared memory, once per kernel.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T, class F>
+int launch_primal_prep(const void* packed, const void* conn_t, const void* gN_t,
+                       const void* dV_t, const void* Me_t, void* fe, void* prep,
+                       int E, double lam, double mu, double eta, double lam_d,
+                       void* stream) {
+  constexpr size_t smem = smem_bytes<T, F, 9, 3>();
+  static const cudaError_t attr = allow_smem(primal_prep_kernel<T, F>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  if (E > 0) {
+    primal_prep_kernel<T, F><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
+        (const T*)packed, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t,
+        (const T*)Me_t, (T*)fe, (T*)prep, E, (T)lam, (T)mu, (T)eta, (T)lam_d);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, class F>
+int launch_hv(const void* p, const void* conn_t, const void* prep, const void* gN_t,
+              const void* dV_t, const void* Me_t, void* out, int E, double dt,
+              double lam, double mu, double eta, double lam_d, void* stream) {
+  constexpr size_t smem = smem_bytes<T, F, 3, 3>();
+  static const cudaError_t attr = allow_smem(hv_kernel<T, F>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  if (E > 0) {
+    hv_kernel<T, F><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
+        (const T*)p, (const int*)conn_t, (const T*)prep, (const T*)gN_t,
+        (const T*)dV_t, (const T*)Me_t, (T*)out, E, (T)dt, (T)lam, (T)mu,
+        (T)eta, (T)lam_d);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, class F>
+int launch_svk_blocks(const void* u, const void* conn_t, const void* gN_t,
+                      const void* dV_t, void* out, int E, double lam, double mu,
+                      void* stream) {
+  constexpr size_t smem = smem_bytes<T, F, 3, 6>();
+  static const cudaError_t attr = allow_smem(svk_blocks_kernel<T, F>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  if (E > 0) {
+    svk_blocks_kernel<T, F><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
+        (const T*)u, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t,
+        (T*)out, E, (T)lam, (T)mu);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_node_reduce(const void* vals, const void* ptr, const void* inc,
+                       void* out, int n, int E, int C, void* stream) {
+  if (n > 0) {
+    const long long work = (long long)n * C;
+    node_reduce_kernel<T><<<(int)((work + THREADS - 1) / THREADS), THREADS, 0,
+                            (cudaStream_t)stream>>>(
+        (const T*)vals, (const int*)ptr, (const int*)inc, (T*)out, n, E, C);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+}  // namespace tlfea
+
+// Plain C interface of one family's K1-K3, bound with ctypes
+// (tlfea_torch/ops/fem_kernels.py): tlfea_<kernel>_<NAME>_<SUFFIX>.
+#define TLFEA_FAMILY_ENTRY_POINTS(NAME, FAM, SUFFIX, T)                                 \
+  extern "C" int tlfea_primal_prep_##NAME##_##SUFFIX(                                   \
+      const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
+      const void* Me_t, void* fe, void* prep, int E, double lam, double mu,             \
+      double eta, double lam_d, void* stream) {                                         \
+    return tlfea::launch_primal_prep<T, FAM>(packed, conn_t, gN_t, dV_t, Me_t, fe,      \
+                                             prep, E, lam, mu, eta, lam_d, stream);     \
+  }                                                                                     \
+  extern "C" int tlfea_hv_##NAME##_##SUFFIX(                                            \
+      const void* p, const void* conn_t, const void* prep, const void* gN_t,            \
+      const void* dV_t, const void* Me_t, void* out, int E, double dt, double lam,      \
+      double mu, double eta, double lam_d, void* stream) {                              \
+    return tlfea::launch_hv<T, FAM>(p, conn_t, prep, gN_t, dV_t, Me_t, out, E, dt, lam, \
+                                    mu, eta, lam_d, stream);                            \
+  }                                                                                     \
+  extern "C" int tlfea_svk_blocks_##NAME##_##SUFFIX(                                    \
+      const void* u, const void* conn_t, const void* gN_t, const void* dV_t, void* out, \
+      int E, double lam, double mu, void* stream) {                                     \
+    return tlfea::launch_svk_blocks<T, FAM>(u, conn_t, gN_t, dV_t, out, E, lam, mu,     \
+                                            stream);                                    \
+  }

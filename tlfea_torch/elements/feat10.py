@@ -102,10 +102,12 @@ def build(
     conn: np.ndarray,
     rho: float,
     dtype: torch.dtype = torch.float64,
+    device="cuda",
 ) -> ElementBatch:
-    """The `ElementBatch` of a T10 mesh on the CPU (move it with
-    `ElementBatch.to`), tables in `dtype`, with the SPD (rule="exact")
-    consistent mass."""
+    """The `ElementBatch` of a T10 mesh on `device`, tables in `dtype`, with
+    the SPD (rule="exact") consistent mass. The tables are computed on the
+    host in float64, then cast and moved; pass device="cpu" to keep them
+    there."""
     nodes = np.asarray(nodes, dtype=np.float64)
     conn = np.asarray(conn, dtype=np.int32)
     grad_N, dV, detJ, _ = precompute(nodes, conn)
@@ -114,11 +116,13 @@ def build(
         raise ValueError(f"{n_bad} elements have non-positive Jacobian determinant")
     me = element_mass(nodes, conn, rho)
 
+    device = torch.device(device)
+
     def t(a):
-        return torch.as_tensor(a).to(dtype)
+        return torch.as_tensor(a).to(dtype).to(device)
 
     return ElementBatch(
-        conn=torch.as_tensor(conn.astype(np.int64)),
+        conn=torch.as_tensor(conn.astype(np.int64), device=device),
         grad_N=t(grad_N),
         dV=t(dV),
         mass_elem=t(me),

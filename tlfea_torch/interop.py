@@ -31,10 +31,11 @@ def _scalar(a) -> float:
 
 
 def from_numpy_system(elems, material, constraints=None, state=None, params=None, *,
-                      device="cpu", dtype=torch.float64):
+                      device="cuda", dtype=torch.float64):
     """(System, StepState or None, NewtonParams or None) from the JAX
-    package's objects. Floating arrays are cast to `dtype`, index arrays
-    to int64; NewtonParams fields become Python numbers. Raises on what the
+    package's objects, on `device` (pass device="cpu" to stay on the host).
+    Floating arrays are cast to `dtype`, index arrays to int64;
+    NewtonParams fields become Python numbers. Raises on what the
     port does not carry: a non-zero `max_dv`, or a batch without x_ref."""
 
     def t(a):

@@ -1,27 +1,33 @@
 """FEM element kernels of the Newton-PCG step, with their plain PyTorch twins.
 
 The port of `tlfea/ops/pallas_fem.py` and `tlfea/ops/pallas_banded.py` for
-FEAT10 + SVK. Four CUDA kernels (sources in `tlfea_torch/csrc/`, design
-notes at the top of `fem_kernels.cu`) carry the element work:
+SVK + Kelvin-Voigt. Four CUDA kernels (sources in `tlfea_torch/csrc/`,
+design notes at the top of `fem_kernels.cuh`) carry the element work:
 
     K1 primal_prep  <- pallas_fem._primal_prep_body (:888),
+                       _primal_prep_chunked_body (:1018),
                        pallas_banded._primal_banded_body (:801)
-    K2 hv           <- pallas_fem._hv_body (:956),
+    K2 hv           <- pallas_fem._hv_body (:956), _hv_chunked_body (:1054),
                        pallas_banded._hv_banded_body (:763)
-    K3 svk_blocks   <- pallas_fem._precond_body (:673),
+    K3 svk_blocks   <- pallas_fem._precond_body (:673), the chunked
+                       make_precond_blocks kernel (:725),
                        pallas_banded._blocks_banded_body (:839)
     K4 node_reduce  <- the scatter half of K1-K3 (pallas_banded
                        ._window_scatter :689, the flat path's `.at[].add`)
 
-Each wrapper takes the plain twin (`*_plain`, same module) for a tensor on
-the CPU, and launches its kernel for a tensor on a CUDA device, raising if
-the launch fails; it never falls back. Every launch adds one to
-`LAUNCHES[name]`, so a run can show which kernels it went through.
+K1-K3 are templates instantiated for the element families in `FAMILIES`
+(FEAT10, ANCF3243, ANCF3443), one CUDA source each; `FemOperator` refuses
+any other (Q, S, translation mask). Each wrapper takes the plain twin
+(`*_plain`, same module) for a tensor on the CPU, and launches its kernel
+for a tensor on a CUDA device, raising if the launch fails; it never falls
+back. Every launch adds one to `LAUNCHES["<kernel>[<family>]"]`, so a run
+can show which kernels it went through.
 
 Kernel layouts are element-minor: a table row r is stored as [r * E + e]
 (see `FemOperator`), and per-(element, slot) outputs are (S * C, E). The
 kernels are built on first use with nvcc for sm_90a into `tlfea_torch/_build`
-and bound with ctypes (`build_kernels`).
+(one shared library per source, built in parallel) and bound with ctypes
+(`build_kernels`).
 """
 
 from __future__ import annotations
@@ -41,21 +47,32 @@ from tlfea_torch.materials.svk import SVK
 from tlfea_torch.ops.segment import coef_scatter_add
 
 __all__ = [
-    "FemOperator", "LAUNCHES", "reset_launch_counts", "build_kernels",
+    "FemOperator", "FAMILIES", "LAUNCHES", "reset_launch_counts", "build_kernels",
     "primal_prep", "primal_prep_plain", "hv", "hv_plain",
     "svk_blocks", "svk_blocks_plain", "node_reduce", "node_reduce_plain",
     "element_fns", "unpack_sym6", "g_and_hvp",
 ]
 
-S_T10, Q_T10, PREP_ROWS = 10, 5, 27
+PREP_ROWS = 27
 SYM6 = [(0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)]
 
-LAUNCHES = {"primal_prep": 0, "hv": 0, "svk_blocks": 0, "node_reduce": 0}
+# (Q, S, translation-slot bits) -> (family, CUDA source of its K1-K3). The
+# same table is instantiated in csrc/*.cu.
+FAMILIES = {
+    (5, 10, 0x3FF): ("feat10", "fem_kernels.cu"),
+    (12, 8, 0x11): ("ancf3243", "fem_ancf3243.cu"),
+    (48, 16, 0x1111): ("ancf3443", "fem_ancf3443.cu"),
+}
+KERNEL_NAMES = ("primal_prep", "hv", "svk_blocks", "node_reduce")
+
+LAUNCHES = {f"{k}[{fam}]": 0 for fam, _ in FAMILIES.values() for k in KERNEL_NAMES}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(os.path.dirname(_CSRC), "_build")
-_SOURCES = ("fem_kernels.cu", "svk.cuh")
-_lib = None
+_HEADERS = ("fem_kernels.cuh", "svk.cuh")
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_libs: dict = {}
 BUILD_INFO: dict = {}
 
 
@@ -72,90 +89,131 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the FEM kernels need the CUDA toolkit")
 
 
-def build_kernels():
-    """Compile `csrc/fem_kernels.cu` for sm_90a into a shared library (once
-    per source content) and load it. Returns the ctypes library; the build
-    seconds and the ptxas report land in BUILD_INFO."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    h = hashlib.sha1()
-    for name in _SOURCES:
-        with open(os.path.join(_CSRC, name), "rb") as fh:
-            h.update(fh.read())
-    os.makedirs(_BUILD, exist_ok=True)
-    so = os.path.join(_BUILD, f"libtlfea_fem_{h.hexdigest()[:12]}.so")
-    t0 = time.perf_counter()
-    if not os.path.exists(so):
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", tmp, os.path.join(_CSRC, "fem_kernels.cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, so)  # atomic: another process never loads a partial file
-        BUILD_INFO["ptxas"] = res.stderr
-    BUILD_INFO["seconds"] = time.perf_counter() - t0
-    BUILD_INFO["path"] = so
-    lib = ctypes.CDLL(so)
+def _bind(lib, family: str | None) -> None:
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    sigs = {
-        "primal_prep": [P] * 7 + [I] + [D] * 4 + [P],
-        "hv": [P] * 7 + [I] + [D] * 5 + [P],
-        "svk_blocks": [P] * 5 + [I] + [D] * 2 + [P],
-        "node_reduce": [P] * 4 + [I] * 3 + [P],
-    }
+    if family is None:
+        sigs = {"tlfea_node_reduce_{}": [P] * 4 + [I] * 3 + [P]}
+    else:
+        sigs = {
+            f"tlfea_primal_prep_{family}_{{}}": [P] * 7 + [I] + [D] * 4 + [P],
+            f"tlfea_hv_{family}_{{}}": [P] * 7 + [I] + [D] * 5 + [P],
+            f"tlfea_svk_blocks_{family}_{{}}": [P] * 5 + [I] + [D] * 2 + [P],
+        }
     for name, args in sigs.items():
         for sfx in ("f32", "f64"):
-            fn = getattr(lib, f"tlfea_{name}_{sfx}")
+            fn = getattr(lib, name.format(sfx))
             fn.argtypes = args
             fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
 
 
-def _launch(name: str, x: torch.Tensor, *args) -> None:
-    """Launch kernel `name` in x's dtype on the current stream of x's card;
-    args are tensors (passed as device pointers) and numbers."""
+def _read(name: str) -> bytes:
+    with open(os.path.join(_CSRC, name), "rb") as fh:
+        return fh.read()
+
+
+def build_kernels() -> dict:
+    """Compile the CUDA source of every family in FAMILIES for sm_90a into a
+    shared library (once per source content; all nvcc processes run at
+    once) and load them. Returns {source: ctypes library}; BUILD_INFO gets
+    the wall seconds of the build and, per source, its seconds and ptxas
+    report."""
+    if _libs:
+        return _libs
+    with_family = {src: fam for fam, src in FAMILIES.values()}
+    headers = b"".join(_read(h) for h in _HEADERS)
+    os.makedirs(_BUILD, exist_ok=True)
+    t0 = time.perf_counter()
+    jobs = {}
+    for src in sorted(with_family):
+        digest = hashlib.sha1(_read(src) + headers + " ".join(_NVCC_FLAGS).encode())
+        so = os.path.join(_BUILD, f"lib{src[:-3]}_{digest.hexdigest()[:12]}.so")
+        proc = None
+        if not os.path.exists(so):
+            tmp = f"{so}.{os.getpid()}.tmp"
+            proc = subprocess.Popen([_nvcc(), *_NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, src)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs[src] = (so, proc, time.perf_counter())
+    per_src, failed = {}, []
+    for src, (so, proc, t_start) in jobs.items():  # wait for every nvcc, then report
+        info = {"path": so, "ptxas": "", "seconds": 0.0}
+        if proc is not None:
+            _, err = proc.communicate()
+            info["seconds"] = time.perf_counter() - t_start
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {src} ({proc.returncode}):\n{err}")
+                continue
+            os.replace(f"{so}.{os.getpid()}.tmp", so)  # atomic: never load a partial file
+            info["ptxas"] = err
+        per_src[src] = info
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    BUILD_INFO["seconds"] = time.perf_counter() - t0
+    BUILD_INFO["sources"] = per_src
+    libs = {}
+    for src, info in per_src.items():
+        lib = ctypes.CDLL(info["path"])
+        _bind(lib, with_family[src])
+        if src == "fem_kernels.cu":
+            _bind(lib, None)
+        libs[src] = lib
+    _libs.update(libs)
+    return _libs
+
+
+def _launch(name: str, op: "FemOperator", x: torch.Tensor, *args) -> None:
+    """Launch kernel `name` of op's family in x's dtype on the current stream
+    of x's card; args are tensors (passed as device pointers) and numbers."""
     sfx = {torch.float32: "f32", torch.float64: "f64"}.get(x.dtype)
     if sfx is None:
         raise TypeError(f"{name}: kernels take float32 or float64, got {x.dtype}")
     if x.device.index != torch.cuda.current_device():
         raise ValueError(f"{name}: tensor on {x.device}, but the current CUDA device is "
                          f"{torch.cuda.current_device()} (torch.cuda.set_device)")
-    fn = getattr(build_kernels(), f"tlfea_{name}_{sfx}")
+    libs = build_kernels()
+    if name == "node_reduce":
+        fn = getattr(libs["fem_kernels.cu"], f"tlfea_node_reduce_{sfx}")
+    else:
+        fn = getattr(libs[op.source], f"tlfea_{name}_{op.family}_{sfx}")
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     err = fn(*conv, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{name}[{op.family}] kernel launch failed: CUDA error {err}")
+    LAUNCHES[f"{name}[{op.family}]"] += 1
 
 
 class FemOperator(torch.nn.Module):
-    """The element tables of one FEAT10 batch in the kernels' layout.
+    """The element tables of one batch in the kernels' layout.
 
-    Buffers: conn (E, S) int64 for the twins; conn_t (S, E) int32, gN_t
-    (Q*S*3, E), dV_t (Q, E), Me_t (S*S, E) element-minor for the kernels;
-    the node -> incidence CSR (inc_ptr, inc) of the node reduce, incidences
-    encoded a * E + e and ordered by node, then slot, then element; and md,
-    the diagonal of the assembled mass matrix.
+    The batch's (Q, S, trans_mask) must be one of `FAMILIES`, whose kernels
+    the CUDA library instantiates; anything else raises, on any device.
+    Buffers: conn (E, S) int64 for the twins; tmask (S,) bool, the
+    translation slots; conn_t (S, E) int32, gN_t (Q*S*3, E), dV_t (Q, E),
+    Me_t (S*S, E) element-minor for the kernels; the node -> incidence CSR
+    (inc_ptr, inc) of the node reduce, incidences encoded a * E + e and
+    ordered by node, then slot, then element; and md, the diagonal of the
+    assembled mass matrix.
     """
 
     def __init__(self, elems: ElementBatch, material):
         super().__init__()
         E, Q, S, _ = elems.grad_N.shape
-        if (Q, S) != (Q_T10, S_T10) or elems.trans_mask != (True,) * S_T10:
-            raise ValueError(f"FEM kernels take FEAT10 batches (Q=5, S=10, every slot a "
-                             f"translation slot), got Q={Q}, S={S}")
-        if elems.n_coef * 6 >= 2**31 or E * S >= 2**31:
-            raise ValueError("mesh too large for the kernels' int32 incidence indices")
+        tm = elems.trans_mask
+        bits = None if tm is None else sum(1 << a for a, t in enumerate(tm) if t)
+        if (Q, S, bits) not in FAMILIES:
+            known = ", ".join(f"{fam} (Q={q}, S={s}, mask {b:#x})"
+                              for (q, s, b), (fam, _) in FAMILIES.items())
+            raise ValueError(f"no FEM kernel is instantiated for Q={Q}, S={S}, "
+                             f"trans_mask={tm}; the CUDA library has {known}")
+        if elems.n_coef * 6 >= 2**31 or E * S >= 2**31 or Q * S * 3 * E >= 2**31:
+            raise ValueError("mesh too large for the kernels' int32 indices")
+        self.family, self.source = FAMILIES[(Q, S, bits)]
         self.E, self.Q, self.S, self.n = E, Q, S, elems.n_coef
         self.lam, self.mu = float(material.lam), float(material.mu)
         self.eta, self.lam_d = float(material.eta_damp), float(material.lam_damp)
         dev = elems.device
         conn = elems.conn
         self.register_buffer("conn", conn)
+        self.register_buffer("tmask", torch.tensor(tm, dtype=torch.bool, device=dev))
         self.register_buffer("conn_t", conn.t().contiguous().to(torch.int32))
         self.register_buffer("gN_t", elems.grad_N.permute(1, 2, 3, 0).reshape(Q * S * 3, E).contiguous())
         self.register_buffer("dV_t", elems.dV.t().contiguous())
@@ -183,10 +241,15 @@ class FemOperator(torch.nn.Module):
 # --- plain twins (element-minor layout, same arithmetic as the kernels) ----
 
 
+def _centre(op: FemOperator, xe: torch.Tensor) -> torch.Tensor:
+    """Gathered slot values (S, k, E) with the translation slots centred on
+    slot 0 (`pallas_fem._center`) and the gradient slots raw."""
+    return torch.where(op.tmask[:, None, None], xe - xe[0:1], xe)
+
+
 def _centred_slots(op: FemOperator, x: torch.Tensor) -> torch.Tensor:
-    """Gather node values x (n, k) to (S, k, E), centred on slot 0."""
-    xe = x[op.conn].permute(1, 2, 0)
-    return xe - xe[0:1]
+    """Gather node values x (n, k) to (S, k, E), centred by `_centre`."""
+    return _centre(op, x[op.conn].permute(1, 2, 0))
 
 
 def _grad(xc: torch.Tensor, op: FemOperator) -> torch.Tensor:
@@ -217,7 +280,7 @@ def primal_prep_plain(op: FemOperator, packed: torch.Tensor):
     """Twin of K1: packed (n, 9) [u|v|dv/dt] -> (fe (S*3, E), prep (Q*27, E))."""
     uc = _centred_slots(op, packed[:, 0:3])
     vc = _centred_slots(op, packed[:, 3:6])
-    dve = packed[:, 6:9][op.conn].permute(1, 2, 0)  # (S, 3, E)
+    dve = packed[:, 6:9][op.conn].permute(1, 2, 0)  # (S, 3, E), raw
     Du, Fd = _grad(uc, op), _grad(vc, op)
     P, Sm = _svk_stress(Du, Fd, op.lam, op.mu, op.eta, op.lam_d)
     Me = op.Me_t.view(op.S, op.S, op.E)
@@ -230,8 +293,8 @@ def primal_prep_plain(op: FemOperator, packed: torch.Tensor):
 
 def hv_plain(op: FemOperator, p: torch.Tensor, prep: torch.Tensor, dt: float):
     """Twin of K2: direction p (n, 3) and the K1 prep cache -> (S*3, E)."""
-    pe = p[op.conn].permute(1, 2, 0)  # (S, 3, E)
-    G = _grad(pe - pe[0:1], op)
+    pe = p[op.conn].permute(1, 2, 0)  # (S, 3, E), raw for the mass term
+    G = _grad(_centre(op, pe), op)
     pr = prep.view(op.Q, PREP_ROWS, op.E).permute(0, 2, 1)  # (Q, E, 27)
     Du, S0, Fd = (pr[..., 9 * k:9 * k + 9].reshape(op.Q, op.E, 3, 3) for k in range(3))
     eye = torch.eye(3, dtype=p.dtype, device=p.device)
@@ -277,7 +340,7 @@ def primal_prep(op: FemOperator, packed: torch.Tensor):
         return primal_prep_plain(op, packed)
     fe = torch.empty((op.S * 3, op.E), dtype=packed.dtype, device=packed.device)
     prep = torch.empty((op.Q * PREP_ROWS, op.E), dtype=packed.dtype, device=packed.device)
-    _launch("primal_prep", packed, packed, op.conn_t, op.gN_t, op.dV_t, op.Me_t,
+    _launch("primal_prep", op, packed, packed, op.conn_t, op.gN_t, op.dV_t, op.Me_t,
             fe, prep, op.E, op.lam, op.mu, op.eta, op.lam_d)
     return fe, prep
 
@@ -290,7 +353,7 @@ def hv(op: FemOperator, p: torch.Tensor, prep: torch.Tensor, dt: float) -> torch
     if p.device.type == "cpu":
         return hv_plain(op, p, prep, dt)
     out = torch.empty((op.S * 3, op.E), dtype=p.dtype, device=p.device)
-    _launch("hv", p, p, op.conn_t, prep, op.gN_t, op.dV_t, op.Me_t, out, op.E,
+    _launch("hv", op, p, p, op.conn_t, prep, op.gN_t, op.dV_t, op.Me_t, out, op.E,
             float(dt), op.lam, op.mu, op.eta, op.lam_d)
     return out
 
@@ -301,7 +364,7 @@ def svk_blocks(op: FemOperator, u: torch.Tensor) -> torch.Tensor:
     if u.device.type == "cpu":
         return svk_blocks_plain(op, u)
     out = torch.empty((op.S * 6, op.E), dtype=u.dtype, device=u.device)
-    _launch("svk_blocks", u, u, op.conn_t, op.gN_t, op.dV_t, out, op.E,
+    _launch("svk_blocks", op, u, u, op.conn_t, op.gN_t, op.dV_t, out, op.E,
             op.lam, op.mu)
     return out
 
@@ -314,7 +377,7 @@ def node_reduce(op: FemOperator, vals: torch.Tensor) -> torch.Tensor:
     if vals.device.type == "cpu":
         return node_reduce_plain(op, vals)
     out = torch.empty((op.n, C), dtype=vals.dtype, device=vals.device)
-    _launch("node_reduce", vals, vals, op.inc_ptr, op.inc, out, op.n, op.E, C)
+    _launch("node_reduce", op, vals, vals, op.inc_ptr, op.inc, out, op.n, op.E, C)
     return out
 
 

@@ -26,7 +26,8 @@ import torch
 __all__ = ["CoarsePrecond", "build_aggregates", "build_coarse_precond"]
 
 K_MODES = 6  # rigid modes per aggregate
-_CHUNK = 4096  # elements per assembly pass: bounds the (chunk, S, S, 6, 6) temporaries
+_CHUNK = 4096  # most elements per assembly pass (the JAX dense mode's chunk)
+_CHUNK_BYTES = 1 << 30  # about what one pass's temporaries may take
 
 
 def _viscous_factor(material, dt: float) -> float:
@@ -143,15 +144,22 @@ def build_coarse_precond(system, x0: torch.Tensor, dt: float, rho: float,
     vf = _viscous_factor(mat, dt)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     Ac = torch.zeros((na * na, k, k), dtype=dtype, device=dev)
-    S = elems.n_shape
-    for s0 in range(0, elems.n_elem, _CHUNK):
-        conn = elems.conn[s0:s0 + _CHUNK]
-        gN = elems.grad_N[s0:s0 + _CHUNK]
+    S, Q = elems.n_shape, elems.dV.shape[1]
+    # Per element, a pass holds the (Q, S, S) pair tables of _svk_pair_blocks
+    # (hij, FhFh and their weighted products) and the (S, S, 3, 3) and
+    # (S, S, 6, 6) blocks: size the chunk so that they stay near 1 GB (the
+    # 48-point shell takes about a thousand elements a pass in float64).
+    per_elem = (4 * Q * S * S + 4 * S * S * 9 + 2 * S * S * k * k) * x0.element_size()
+    chunk = max(1, min(_CHUNK, _CHUNK_BYTES // per_elem))
+    for s0 in range(0, elems.n_elem, chunk):
+        sl = slice(s0, s0 + chunk)
+        conn = elems.conn[sl]
+        gN = elems.grad_N[sl]
         # Displacement-based F, as the JAX assembly computes it.
-        Du = torch.einsum("eai,eqaj->eqij", x0[conn] - elems.xe_ref[s0:s0 + _CHUNK], gN)
+        Du = torch.einsum("eai,eqaj->eqij", x0[conn] - elems.xe_ref[sl], gN)
         F = Du + eye3
-        Kb = _svk_pair_blocks(F, gN, elems.dV[s0:s0 + _CHUNK], mat.lam, mat.mu, dt) * vf
-        Hb = Kb + (elems.mass_elem[s0:s0 + _CHUNK] / dt)[..., None, None] * eye3
+        Kb = _svk_pair_blocks(F, gN, elems.dV[sl], mat.lam, mat.mu, dt) * vf
+        Hb = Kb + (elems.mass_elem[sl] / dt)[..., None, None] * eye3
         Phi = _phi(u0[conn])  # (e, S, 3, k)
         Ac6 = torch.einsum("eadf,eabdc,ebcg->eabfg", Phi, Hb, Phi)
         ca = agg[conn]
@@ -166,7 +174,10 @@ def build_coarse_precond(system, x0: torch.Tensor, dt: float, rho: float,
         d = cons.jtj_diag(n, dtype)[:, None].expand(n, 3)
         Phi_n = _phi(u0)
         pen = torch.einsum("ndf,nd,ndg->nfg", Phi_n, (dt * dt * rho) * d, Phi_n)
-        pen_a = torch.zeros((na, k, k), dtype=dtype, device=dev).index_add_(0, agg, pen)
+        # index_put_ with accumulate sums in sorted-index order on the card
+        # (index_add_ would use atomics): the same bits on every run.
+        pen_a = torch.zeros((na, k, k), dtype=dtype, device=dev).index_put_(
+            (agg,), pen, accumulate=True)
         ar = torch.arange(na, device=dev)
         Ac[ar, ar] += pen_a
 

@@ -1,22 +1,39 @@
-"""Quadrature rules for the FEAT10 element (host-side NumPy).
+"""Quadrature rules for the element families (host-side NumPy).
 
-A copy of the rules of `tlfea/utils/quadrature.py` that FEAT10 needs:
-`gauss_legendre_1d` (:28), `tet_duffy_rule` (:55) and `keast5_tet` (:87).
-Copied rather than imported, because importing `tlfea` pulls in jax;
-`tests/test_torch_setup.py` holds every table equal to the original.
+A copy of the rules of `tlfea/utils/quadrature.py` that FEAT10 and the ANCF
+elements need: `gauss_legendre_1d` (:28), `tensor_product_rule` (:34),
+`tet_duffy_rule` (:55) and `keast5_tet` (:87). Copied rather than imported,
+because importing `tlfea` pulls in jax; `tests/test_torch_setup.py` holds
+every table equal to the original.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["gauss_legendre_1d", "tet_duffy_rule", "keast5_tet"]
+__all__ = ["gauss_legendre_1d", "tensor_product_rule", "tet_duffy_rule", "keast5_tet"]
 
 
 def gauss_legendre_1d(n: int) -> tuple[np.ndarray, np.ndarray]:
     """n-point Gauss-Legendre rule on [-1, 1] -> (points, weights), float64."""
     x, w = np.polynomial.legendre.leggauss(n)
     return x.astype(np.float64), w.astype(np.float64)
+
+
+def tensor_product_rule(n_xi: int, n_eta: int, n_zeta: int):
+    """Tensor-product Gauss rule on [-1,1]^3 -> (points (N, 3), weights
+    (N,)), xi-major iteration order (outer loop over xi, inner over zeta)."""
+    xs, wx = gauss_legendre_1d(n_xi)
+    ys, wy = gauss_legendre_1d(n_eta)
+    zs, wz = gauss_legendre_1d(n_zeta)
+    pts = []
+    wts = []
+    for i in range(n_xi):
+        for j in range(n_eta):
+            for k in range(n_zeta):
+                pts.append((xs[i], ys[j], zs[k]))
+                wts.append(wx[i] * wy[j] * wz[k])
+    return np.asarray(pts, dtype=np.float64), np.asarray(wts, dtype=np.float64)
 
 
 def tet_duffy_rule(n: int) -> tuple[np.ndarray, np.ndarray]:
