@@ -35,13 +35,26 @@ non-zero:
    ([trace] lines). Then 5 steps from rest through the kernels and through
    the plain twins on the card, whose positions must agree within 5e-3 of
    the coordinate scale.
-5. shell: the same for `bench.py`'s `run_ancf_shell` (ANCF3443 plate
+5. resident: the `bench.py` "1k" problem (FEAT10 box 12x4x3, 864
+   elements, the same material and solver settings, no coarse
+   correction, 250 steps) through the persistent Newton-PCG kernel: the
+   rollout as in 4, with one kernel launch per inner solve, K1/K2 never
+   launched and K3/K4 only at the preconditioner refreshes; one float64
+   inner solve from the 10th step's state, kernel against its plain
+   version (the same Newton count, CG within 2, positions within 1e-10
+   relative); the same in float32, the rollout's dtype (CG within 2, v
+   within 1e-3 of the solve's update), and bitwise repeatability; the
+   device time per launch beside its bound (`resident_bound_ms`: inputs
+   read once, the launch's operations) and the plain version's time; then
+   the same inner solve and rollout through the composed K1-K4 path (the
+   gate patched off) for comparison.
+6. shell: the same as 4 for `bench.py`'s `run_ancf_shell` (ANCF3443 plate
    72x72, 5,184 elements, 21,316 coefficient rows, the x=0 edge clamped,
    the same solver settings, 40 steps).
-6. shell_theory: the cantilever plate of `tests/test_shell_validation.py`
+7. shell_theory: the cantilever plate of `tests/test_shell_validation.py`
    (8 ANCF3443 elements, E 2e10, nu 0) in float64 on the card, 150 steps:
    tip deflection within 5 % of q L^4 / (8 E I).
-7. ancf_beam: a clamped 64-element ANCF3243 beam under gravity, 20 steps
+8. ancf_beam: a clamped 64-element ANCF3243 beam under gravity, 20 steps
    through the kernels (launch counts), then 5 steps kernels against twins.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
@@ -66,7 +79,17 @@ ROLLOUT = 60  # bench.py's ROLLOUT["10k"]
 SHELL_ROLLOUT = 40  # bench.py run_ancf_shell's rollout
 THEORY_STEPS = 150  # tests/test_shell_validation.py
 ANCF_BEAM_STEPS = 20
+RESIDENT_ROLLOUT = 250  # bench.py's ROLLOUT["1k"]
+RESIDENT_DIMS = (1.0, 0.25, 0.25, 12, 4, 3)  # bench.py's CONFIGS["1k"]: 864 elements
+JAX_1K = (2, 22)  # median Newton / CG per step the JAX package recorded at 1k (BENCH_r04.json)
 CHECK_STEPS = 5  # kernels against twins, from rest
+# float32 resident kernel against its plain version at the 1k problem's 10th
+# step: the largest |v| difference over the inner solve's update max |v - v0|.
+# Rounding alone moves v by about 2e-5 of the update there (the plain version
+# with v0 or the block inverses perturbed by 1e-7..1e-5 relative keeps the
+# counts, Newton 2 / CG 22, and moves v by 1.1e-5..2.2e-5); a kernel that
+# computes a wrong gradient or product moves it by order 1.
+F32_RESIDENT_TOL = 1e-3
 TRACE_STEPS = 16  # profiled window
 
 # H100 SXM data sheet, at the full 700 W: HBM bytes/s, float32 flop/s
@@ -198,28 +221,36 @@ def _device_ms(fn, n):
     raise RuntimeError("the host never got ahead of the device; no device timing")
 
 
-def bound_ms(name, op, C=6, itemsize=4):
-    """The least time of one launch on an H100 at 700 W: the larger of the
-    bytes it must move (each input read once, each output written once)
-    over the HBM rate and its floating-point operations (counted from the
-    kernel's arithmetic per quadrature point) over the float32 rate.
-    Returns (ms, "bytes" or "operations")."""
+def _pass_work(name, op, C=6):
+    """(words moved, floating-point operations) of one launch of a K1-K4
+    kernel: each input read once, each output written once; the operations
+    counted from the kernel's arithmetic per quadrature point."""
     E, Q, S, n = op.E, op.Q, op.S, op.n
     gN, dV, Me, prep = Q * S * 3 * E, Q * E, S * S * E, Q * 27 * E
     if name == "primal_prep":
-        words = n * 9 + S * E + gN + dV + Me + S * 3 * E + prep
-        flops = E * (Q * (36 * (S - 1) + 310 + 24 * S) + 6 * S * S + 6 * S)
-    elif name == "hv":
-        words = n * 3 + S * E + prep + gN + dV + Me + S * 3 * E
-        flops = E * (Q * (18 * (S - 1) + 440 + 24 * S) + 6 * S * S + 6 * S)
-    elif name == "svk_blocks":
-        words = n * 3 + S * E + gN + dV + S * 6 * E
-        flops = E * (Q * (18 * (S - 1) + 72 + 84 * S) + 3 * S)
-    else:  # node_reduce: vals, the CSR list (ptr, inc), node sums
-        words = S * C * E + (n + 1) + S * E + n * C
-        flops = S * C * E
+        return (n * 9 + S * E + gN + dV + Me + S * 3 * E + prep,
+                E * (Q * (36 * (S - 1) + 310 + 24 * S) + 6 * S * S + 6 * S))
+    if name == "hv":
+        return (n * 3 + S * E + prep + gN + dV + Me + S * 3 * E,
+                E * (Q * (18 * (S - 1) + 440 + 24 * S) + 6 * S * S + 6 * S))
+    if name == "svk_blocks":
+        return (n * 3 + S * E + gN + dV + S * 6 * E,
+                E * (Q * (18 * (S - 1) + 72 + 84 * S) + 3 * S))
+    # node_reduce: vals, the CSR list (ptr, inc), node sums
+    return S * C * E + (n + 1) + S * E + n * C, S * C * E
+
+
+def _bound(words, flops, itemsize):
+    """(ms, "bytes" or "operations"): the larger of words over the HBM rate
+    and flops over the float32 rate, on an H100 at 700 W."""
     t_bytes, t_ops = words * itemsize / HBM_BPS, flops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bound_ms(name, op, C=6, itemsize=4):
+    """The least time of one launch of a K1-K4 kernel (`_pass_work`).
+    Returns (ms, "bytes" or "operations")."""
+    return _bound(*_pass_work(name, op, C), itemsize)
 
 
 def phase_kernels(device, family, system):
@@ -359,15 +390,18 @@ def trace(roll, state, f_ext, ms_per_step):
         log("trace", f"{t / TRACE_STEPS:.4f} ms/step, {c / TRACE_STEPS:.1f} calls/step: {name[:90]}")
 
 
-def rollout_phase(tag, device, problem, n_steps, traced=True):
+def rollout_phase(tag, device, problem, n_steps, traced=True, coarse=True):
     """A problem's rollout through the kernels: warm-up, then a timed run
-    whose launch counts are returned (each kernel of the family's path must
-    have launched), a traced window, and CHECK_STEPS from rest through the
-    kernels and through the twins, which must agree within 5e-3 of the
-    coordinate scale."""
+    whose launch counts are returned (each kernel of the path must have
+    launched: K1-K4, or the persistent kernel with K3 and K4 where the
+    resident gate holds), a traced window, and CHECK_STEPS from rest through
+    the kernels and through the twins, which must agree within 5e-3 of the
+    coordinate scale. coarse=False runs without the coarse correction.
+    Returns {"launches", "ms" (per step), "newton", "cg" (per-step lists)}."""
     import torch
 
     from tlfea_torch.ops import fem_kernels as fk
+    from tlfea_torch.ops import resident
     from tlfea_torch.solvers import newton
     from tlfea_torch.solvers.coarse import build_coarse_precond
 
@@ -375,12 +409,18 @@ def rollout_phase(tag, device, problem, n_steps, traced=True):
     system, state0, f_ext, params = problem
     family = system.fem.family
     t0 = time.perf_counter()
-    coarse = build_coarse_precond(system, state0.x, params.dt, params.rho, max_agg=512)
-    sync()
+    co, desc = None, "no coarse correction"
+    if coarse:
+        co = build_coarse_precond(system, state0.x, params.dt, params.rho, max_agg=512)
+        sync()
+        desc = (f"coarse: {co.n_agg} aggregates x 6 modes, built in "
+                f"{time.perf_counter() - t0:.2f} s")
+    on_resident = resident.eligible(system, co)
+    path = ("newton_resident", "svk_blocks", "node_reduce") if on_resident else KERNELS
     log(tag, f"{system.elems.n_elem} elems ({family}), {system.n_coef} nodes, "
-        f"{int(system.constraints.idx.numel())} pinned; coarse: {coarse.n_agg} aggregates "
-        f"x 6 modes, built in {time.perf_counter() - t0:.2f} s")
-    roll = newton.make_rollout(system, params, n_steps, coarse=coarse, precond_refresh=8)
+        f"{int(system.constraints.idx.numel())} pinned; {desc}; inner solves "
+        f"{'in the persistent kernel' if on_resident else 'composed of K1-K4'}")
+    roll = newton.make_rollout(system, params, n_steps, coarse=co, precond_refresh=8)
     t0 = time.perf_counter()
     s, _ = roll(state0, f_ext)
     sync()
@@ -391,7 +431,8 @@ def rollout_phase(tag, device, problem, n_steps, traced=True):
     s, (nit, cgit) = roll(s, f_ext)
     sync()
     wall = time.perf_counter() - t0
-    launches = {k: fk.LAUNCHES[f"{k}[{family}]"] for k in KERNELS}
+    names = KERNELS + (("newton_resident",) if family in fk.RESIDENT_SOURCES else ())
+    launches = {k: fk.LAUNCHES[f"{k}[{family}]"] for k in names}
     if not bool(torch.isfinite(s.x).all()) or s.x.shape != state0.x.shape:
         raise AssertionError(f"{tag} rollout state is not finite")
     nit, cgit = np.asarray(nit), np.asarray(cgit)
@@ -401,10 +442,10 @@ def rollout_phase(tag, device, problem, n_steps, traced=True):
         f"newton_capped_frac {float((nit >= params.max_inner).mean()):.3f}, "
         f"max |u| {float(s.u.abs().max()):.4e}")
     log(tag, f"launches in the timed rollout: {launches}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in path) <= 0:
         raise AssertionError(f"a kernel of the path was never launched: {launches}")
     if traced and device.type == "cuda":
-        trace(newton.make_rollout(system, params, TRACE_STEPS, coarse=coarse, precond_refresh=8),
+        trace(newton.make_rollout(system, params, TRACE_STEPS, coarse=co, precond_refresh=8),
               s, f_ext, ms)
 
     # The same steps from rest, through the kernels and through the twins.
@@ -412,7 +453,7 @@ def rollout_phase(tag, device, problem, n_steps, traced=True):
     for plain in (False, True):
         sysx = replace(system, plain=plain)
         t0 = time.perf_counter()
-        sx, (nx, cx) = newton.make_rollout(sysx, params, CHECK_STEPS, coarse=coarse,
+        sx, (nx, cx) = newton.make_rollout(sysx, params, CHECK_STEPS, coarse=co,
                                            precond_refresh=8)(state0, f_ext)
         sync()
         log(tag, f"{CHECK_STEPS} steps from rest via {'twins' if plain else 'kernels'}: "
@@ -426,7 +467,7 @@ def rollout_phase(tag, device, problem, n_steps, traced=True):
         f"displacement scale")
     if not rel_coord < 5e-3:
         raise AssertionError(f"kernel path disagrees with the twin path: {rel_coord:.3e}")
-    return launches
+    return {"launches": launches, "ms": ms, "newton": nit, "cg": cgit}
 
 
 def flagship(device, dims=(2.0, 0.35, 0.3, 42, 7, 6)):
@@ -435,7 +476,7 @@ def flagship(device, dims=(2.0, 0.35, 0.3, 42, 7, 6)):
     import torch
 
     return rollout_phase("flagship", device, flagship_problem(device, torch.float32, dims),
-                         ROLLOUT)
+                         ROLLOUT)["launches"]
 
 
 def shell(device, nx=72, ny=72):
@@ -444,7 +485,147 @@ def shell(device, nx=72, ny=72):
     import torch
 
     return rollout_phase("shell", device, shell_problem(device, torch.float32, nx, ny),
-                         SHELL_ROLLOUT)
+                         SHELL_ROLLOUT)["launches"]
+
+
+def resident_bound_ms(op, st, itemsize=4):
+    """The least time of one persistent-kernel launch, as `_bound`: its
+    inputs read once (the five (n, 3) node fields, pin_lin, the inverted
+    blocks, the element tables and the CSR list) and v written once,
+    against the operations of this launch's st["grad_evals"] gradients (K1
+    + K4 and the pin terms, 9 a node) and st["hv_evals"] Hv products (K2 +
+    K4 and a CG iteration's node work: the block-Jacobi product 15, three
+    dots and three axpys 6 each, the pin term of Hp 9, so 60 a node).
+    Returns (ms, "bytes" or "operations", per_pass_ms): per_pass_ms is the
+    sum of the byte-or-operation bounds of those passes launched one by one
+    (each reading its tables from HBM anew), a diagnostic and not the
+    kernel's bound: the kernel's working set stays in L2."""
+    E, Q, S, n = op.E, op.Q, op.S, op.n
+    words = 5 * n * 3 + n + 9 * n + S * E + Q * S * 3 * E + Q * E + S * S * E + (n + 1) \
+        + S * E + n * 3
+    (_, k1), (_, k2), (_, k4) = (_pass_work(k, op, C) for k, C in
+                                 (("primal_prep", 6), ("hv", 6), ("node_reduce", 3)))
+    ops = st["grad_evals"] * (k1 + k4 + 9 * n) + st["hv_evals"] * (k2 + k4 + 60 * n)
+    per_pass = (st["grad_evals"] * (bound_ms("primal_prep", op)[0]
+                                    + bound_ms("node_reduce", op, C=3)[0])
+                + st["hv_evals"] * (bound_ms("hv", op)[0] + bound_ms("node_reduce", op, C=3)[0]))
+    return (*_bound(words, ops, itemsize), per_pass)
+
+
+def _wall_ms(fn, reps=3):
+    """Best host-clock ms of fn() over reps calls, each ended by a
+    synchronise (for calls that synchronise themselves)."""
+    import torch
+
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def resident_phase(device, n_steps=RESIDENT_ROLLOUT):
+    """bench.py's "1k" rollout through the persistent Newton-PCG kernel, its
+    checks and times, and the same rollout through the composed K1-K4 path
+    for comparison. Returns (the kernel's JSON record fields, its launches
+    in the timed rollout)."""
+    import torch
+
+    from tlfea_torch.ops import resident
+    from tlfea_torch.solvers import newton
+
+    tag = "resident"
+    problem = flagship_problem(device, torch.float32, RESIDENT_DIMS)
+    system, state0, f_ext, params = problem
+    if not resident.eligible(system, None) or params.max_outer != 1:
+        raise AssertionError("the 1k problem must pass the resident gate, one inner solve a step")
+    out = rollout_phase(tag, device, problem, n_steps, coarse=False)
+    refreshes = -(-n_steps // 8)
+    want = {"primal_prep": 0, "hv": 0, "svk_blocks": refreshes, "node_reduce": refreshes,
+            "newton_resident": n_steps}
+    if out["launches"] != want:
+        raise AssertionError(f"launches {out['launches']}, expected {want}")
+    log(tag, f"launches as expected: one persistent kernel per inner solve, K1/K2 never, "
+        f"K3/K4 at the {refreshes} preconditioner refreshes; median Newton "
+        f"{np.median(out['newton']):g} / CG {np.median(out['cg']):g} per step beside the JAX "
+        f"package's recorded {JAX_1K[0]} / {JAX_1K[1]} (BENCH_r04.json)")
+
+    # float64, one inner solve from the 10th step's state: kernel vs plain.
+    p64 = flagship_problem(device, torch.float64, RESIDENT_DIMS)
+    st64, _ = newton.make_rollout(p64[0], p64[3], 10, precond_refresh=8)(p64[1], p64[2])
+    args = newton.inner_solve_args(p64[0], st64, p64[2], p64[3])
+    v_k, stats = resident.launch(*args)
+    sk = resident.read_stats(stats)
+    v_p, it_p, _, cg_p, _ = resident.newton_inner_resident_plain(*args)
+    x_ref, u, dt = p64[0].elems.x_ref, args[1], p64[3].dt
+    x_k, x_p = x_ref + u + dt * v_k, x_ref + u + dt * v_p
+    err64 = float((x_k - x_p).abs().max())
+    rel64 = err64 / float(x_p.abs().max())
+    log(tag, f"float64 inner solve at step 10, kernel vs plain: Newton {sk['iters']} vs {it_p}, "
+        f"CG {sk['cg_total']} vs {cg_p} (bar +-2), positions max abs err {err64:.3e}, "
+        f"{rel64:.3e} relative (bar 1e-10)")
+    if sk["iters"] != it_p or abs(sk["cg_total"] - cg_p) > 2 or not rel64 < 1e-10:
+        raise AssertionError("the resident kernel disagrees with its plain version in float64")
+
+    # float32, the main path's dtype, at the 10th step's state: kernel vs
+    # plain, repeatability, then times.
+    st32, _ = newton.make_rollout(system, params, 10, precond_refresh=8)(state0, f_ext)
+    args = newton.inner_solve_args(system, st32, f_ext, params)
+    v1, s1 = resident.launch(*args)
+    v2, _ = resident.launch(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(v1, v2):
+        raise AssertionError("the float32 resident kernel is not bitwise repeatable")
+    st = resident.read_stats(s1)
+    v_p, it_p, _, cg_p, _ = resident.newton_inner_resident_plain(*args)
+    err32 = float((v1 - v_p).abs().max())
+    rel32 = err32 / float((v_p - args[0]).abs().max())
+    log(tag, f"float32 inner solve at step 10, kernel vs plain: Newton {st['iters']} vs {it_p}, "
+        f"CG {st['cg_total']} vs {cg_p} (bar +-2), v max abs err {err32:.3e} = {rel32:.3e} of "
+        f"the solve's update max |v - v0| (bar {F32_RESIDENT_TOL:g}), "
+        f"{err32 / float(v_p.abs().max()):.3e} of max |v|")
+    if st["iters"] != it_p or abs(st["cg_total"] - cg_p) > 2 or not rel32 < F32_RESIDENT_TOL:
+        raise AssertionError("the resident kernel disagrees with its plain version in float32")
+    ms, host_ms = _device_ms(lambda: resident.launch(*args), 64)
+    b_ms, b_by, pass_ms = resident_bound_ms(system.fem, st)
+    plain_ms = _wall_ms(lambda: resident.newton_inner_resident_plain(*args))
+    res_wall = _wall_ms(lambda: resident.newton_inner_resident(*args))
+    log(tag, f"float32 inner solve at step 10: bitwise repeatable; Newton {st['iters']}, CG "
+        f"{st['cg_total']} ({st['grad_evals']} gradients, {st['hv_evals']} Hv products, "
+        f"{st['barriers']} grid barriers, grid {st['grid']} blocks); device {ms:.4f} ms per "
+        f"launch (bound {b_ms:.5f} ms by {b_by}, {b_ms / ms:.4f} of it; the same passes "
+        f"launched one by one, each reading HBM: {pass_ms:.4f} ms); host {host_ms:.4f} ms "
+        f"per launch call")
+
+    # The same inner solve and rollout through the composed K1-K4 path: the
+    # gate patched off, as the JAX package's resident test does.
+    orig = resident.eligible
+    resident.eligible = lambda *a, **k: False
+    try:
+        v0, u_prev, v_prev = args[:3]
+
+        def composed():
+            return newton._newton_inner(v0, st32.x, v_prev, st32.lam, f_ext, params, system,
+                                        inv_blocks=args[6], u_prev=u_prev)
+
+        comp = composed()
+        comp_wall = _wall_ms(composed)
+        comp_out = rollout_phase("composed_1k", device, problem, n_steps, coarse=False)
+    finally:
+        resident.eligible = orig
+    log(tag, f"wall ms per inner solve: resident {res_wall:.3f} (stats read included), plain "
+        f"version {plain_ms:.3f}, composed K1-K4 path {comp_wall:.3f} (Newton {comp[1]}, CG "
+        f"{comp[3]})")
+    log(tag, f"1k rollout ms/step: resident {out['ms']:.3f}, composed K1-K4 {comp_out['ms']:.3f} "
+        f"({comp_out['ms'] / out['ms']:.1f}x)")
+    record = dict(max_abs_err=err32, max_rel_err=rel32, tol=F32_RESIDENT_TOL,
+                  max_abs_err_f64=err64, max_rel_err_f64=rel64, tol_f64=1e-10, ms=ms,
+                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                  per_pass_bound_ms=pass_ms, barriers=st["barriers"], grid=st["grid"])
+    return record, out["launches"]["newton_resident"]
 
 
 def shell_theory(device, steps=THEORY_STEPS):
@@ -545,6 +726,8 @@ def main():
 
     launches = {"feat10": flagship(device)}
     done("flagship")
+    res_record, res_launches = resident_phase(device)
+    done("resident")
     launches["ancf3443"] = shell(device)
     done("shell")
 
@@ -558,7 +741,7 @@ def main():
 
     launches["ancf3243"] = rollout_phase(
         "ancf_beam", device, ancf_beam_problem(device, torch.float32), ANCF_BEAM_STEPS,
-        traced=False)
+        traced=False)["launches"]
     done("ancf_beam")
 
     record = {"kernels": [
@@ -570,6 +753,10 @@ def main():
          "launches": launches[family][name], **timings[family][name]}
         for family in ("feat10", "ancf3443", "ancf3243") for name in KERNELS
     ]}
+    record["kernels"].append({
+        "name": "newton_resident[feat10]", "route": "cuda",
+        "source": "tlfea_torch/csrc/" + fk.RESIDENT_SOURCES["feat10"],
+        "replaces": "tlfea/ops/pallas_resident.py:64", "launches": res_launches, **res_record})
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

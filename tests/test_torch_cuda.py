@@ -4,7 +4,11 @@ Each kernel, in each element family's instantiation (FEAT10, ANCF3243,
 ANCF3443), is held against its plain PyTorch twin on the same card inputs
 (float64 within 1e-12 relative, float32 within 1e-5: the same arithmetic in
 another summation order); float32 results are bitwise repeatable; and short
-rollouts through the kernels match the same rollouts through the twins.
+rollouts through the kernels match the same rollouts through the twins. The
+persistent Newton-PCG kernel is held against its plain version with the
+JAX package's bars for the resident solve (`tests/test_pallas_banded.py`,
+`test_resident_inner_matches_newton_inner`): the same Newton count, CG
+within 2, positions within 1e-10 relative.
 This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed; tests/conftest.py imports jax, so on such a machine
 run it as
@@ -23,6 +27,7 @@ from tlfea_torch.elements import ancf3243, ancf3443, feat10
 from tlfea_torch.elements.assembly import lumped_mass
 from tlfea_torch.materials import SVK, lame_from_E_nu
 from tlfea_torch.ops import fem_kernels as fk
+from tlfea_torch.ops import resident
 from tlfea_torch.solvers import StepState, System, newton
 from tlfea_torch.utils.tetmesh import box_t10_mesh
 
@@ -165,20 +170,27 @@ def test_shell_rollout_is_bitwise_repeatable(cuda_dev):
 
 
 @pytest.mark.cuda
-def test_rollout_through_kernels_matches_twins(cuda_dev):
+@pytest.mark.parametrize("path", ["resident", "composed"])
+def test_rollout_through_kernels_matches_twins(cuda_dev, monkeypatch, path):
     """Four float64 steps of a small cantilever, kernels against twins:
-    same Newton and CG counts, positions within 1e-10 of the displacement."""
+    same Newton and CG counts, positions within 1e-10 of the displacement.
+    The mesh is small enough for the resident kernel; "composed" turns its
+    gate off, so that K1-K4 carry the Newton-PCG loop."""
     system, x0, f_ext = _box_system(cuda_dev, torch.float64, dims=(1.0, 0.2, 0.2, 6, 1, 1))
     fs = float(f_ext.norm())
     params = newton.NewtonParams(dt=DT, rho=1e7, inner_atol=1e-3 * fs, outer_tol=1e-9,
                                  max_outer=2, max_inner=6, cg_rtol=1e-3, cg_max_iter=50)
+    if path == "composed":
+        monkeypatch.setattr(resident, "eligible", lambda *a, **k: False)
+    kernels = KERNELS if path == "composed" else ["newton_resident", "svk_blocks", "node_reduce"]
     out = {}
     for plain in (False, True):
         sysx = replace(system, plain=plain)
         fk.reset_launch_counts()
         out[plain] = newton.make_rollout(sysx, params, 4, precond_refresh=2)(
             StepState.rest(sysx, x0), f_ext)
-        assert (min(fk.LAUNCHES[f"{k}[feat10]"] for k in KERNELS) > 0) != plain
+        assert (min(fk.LAUNCHES[f"{k}[feat10]"] for k in kernels) > 0) != plain
+        assert sum(fk.LAUNCHES.values()) == 0 or not plain
     (sk, ck), (sp, cp) = out[False], out[True]
     assert ck == cp
     assert float((sk.x - sp.x).abs().max()) < 1e-10 * float((sp.x - x0).abs().max())
@@ -207,3 +219,85 @@ def test_ancf_rollout_through_kernels_matches_twins(cuda_dev, family):
     (sk, ck), (sp, cp) = out[False], out[True]
     assert ck == cp
     assert float((sk.x - sp.x).abs().max()) < 1e-10 * float((sp.x - x0).abs().max())
+
+
+def _resident_case(device, dtype, start):
+    """A 192-element pinned box (the JAX resident test's mesh) and one
+    inner solve's inputs: after three steps from rest ("stepped"), or at
+    rest with the box compressed to 0.6 of its length along x, where SVK's
+    tangent is indefinite and the Newton loop backtracks ("compressed")."""
+    system, x0, f_ext = _box_system(device, dtype, dims=(1.0, 0.3, 0.3, 8, 2, 2))
+    params = newton.NewtonParams(dt=DT, rho=1e6, inner_atol=1e-6, outer_tol=0.0, max_outer=1,
+                                 max_inner=4, cg_rtol=1e-3, cg_max_iter=40)
+    state = StepState.rest(system, x0)
+    if start == "stepped":
+        state, _ = newton.make_rollout(system, params, 3, precond_refresh=2)(state, f_ext)
+    else:
+        x = x0.clone()
+        x[:, 0] *= 0.6
+        state = replace(state, x=x, u=x - x0)
+    return system, params, newton.inner_solve_args(system, state, f_ext, params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", ["stepped", "compressed"])
+def test_resident_kernel_matches_plain(cuda_dev, start):
+    system, params, args = _resident_case(cuda_dev, torch.float64, start)
+    fk.reset_launch_counts()
+    v, stats = resident.launch(*args)
+    st = resident.read_stats(stats)
+    assert fk.LAUNCHES["newton_resident[feat10]"] == 1 and sum(fk.LAUNCHES.values()) == 1
+    want = resident.newton_inner_resident_plain(*args)
+    assert sum(fk.LAUNCHES.values()) == 1  # the plain version launches nothing
+    assert st["iters"] == want[1] and abs(st["cg_total"] - want[3]) <= 2
+    x_ref = system.elems.x_ref
+    u_prev = args[1]
+    x_k, x_p = x_ref + u_prev + DT * v, x_ref + u_prev + DT * want[0]
+    assert _rel(x_k, x_p) < 1e-10
+    np.testing.assert_allclose(st["hist"][:st["iters"] + 1], want[4][:want[1] + 1], rtol=1e-8)
+    # Trial gradients beyond one per Newton iteration (plus the converged
+    # one, when the loop converged) show the backtracking branch.
+    backtracked = st["grad_evals"] > st["iters"] + (st["iters"] < params.max_inner)
+    assert backtracked == (start == "compressed")
+    assert st["hv_evals"] == st["cg_total"] and st["grid"] == 6
+
+
+@pytest.mark.cuda
+def test_resident_kernel_matches_plain_float32(cuda_dev):
+    """The float32 instantiation, the rollouts' dtype: the same Newton count,
+    CG within 2, v within 1e-3 of the solve's update max |v - v0| (perturbing
+    v0 or the block inverses by 1e-7..1e-5 relative moves the plain
+    version's v by about 1e-6 of it here)."""
+    _, _, args = _resident_case(cuda_dev, torch.float32, "stepped")
+    v, stats = resident.launch(*args)
+    st = resident.read_stats(stats)
+    want = resident.newton_inner_resident_plain(*args)
+    assert st["iters"] == want[1] and abs(st["cg_total"] - want[3]) <= 2
+    assert float((v - want[0]).abs().max()) < 1e-3 * float((want[0] - args[0]).abs().max())
+
+
+@pytest.mark.cuda
+def test_resident_kernel_is_bitwise_repeatable(cuda_dev):
+    _, _, args = _resident_case(cuda_dev, torch.float32, "stepped")
+    first, s1 = resident.launch(*args)
+    for _ in range(3):
+        v, s = resident.launch(*args)
+        assert torch.equal(v, first)
+        assert torch.equal(s.nan_to_num(-1.0), s1.nan_to_num(-1.0))
+
+
+@pytest.mark.cuda
+def test_resident_rollout_launches_once_per_inner_solve(cuda_dev):
+    """Five steps with two dual updates each: one launch per inner solve, no
+    K1 or K2 launch, and K3 + K4 only at the preconditioner refreshes."""
+    system, x0, f_ext = _box_system(cuda_dev, torch.float32, dims=(1.0, 0.3, 0.3, 8, 2, 2))
+    params = newton.NewtonParams(dt=DT, rho=1e6, inner_atol=1e-3 * float(f_ext.norm()),
+                                 outer_tol=0.0, max_outer=2, max_inner=6, cg_rtol=1e-3,
+                                 cg_max_iter=50)
+    fk.reset_launch_counts()
+    state, (nit, _) = newton.make_rollout(system, params, 5, precond_refresh=2)(
+        StepState.rest(system, x0), f_ext)
+    assert bool(torch.isfinite(state.x).all()) and sum(nit) > 0
+    got = {k: fk.LAUNCHES[f"{k}[feat10]"] for k in KERNELS + ["newton_resident"]}
+    assert got == {"primal_prep": 0, "hv": 0, "svk_blocks": 3, "node_reduce": 3,
+                   "newton_resident": 10}

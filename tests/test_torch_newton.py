@@ -146,7 +146,8 @@ def test_interop_round_trip(prob):
 def test_import_leaves_jax_out():
     code = ("import sys, tlfea_torch, tlfea_torch.ops.fem_kernels, tlfea_torch.interop, "
             "tlfea_torch.elements.ancf, tlfea_torch.elements.ancf3243, "
-            "tlfea_torch.elements.ancf3443, tlfea_torch.solvers.coarse; "
+            "tlfea_torch.elements.ancf3443, tlfea_torch.solvers.coarse, "
+            "tlfea_torch.ops.resident; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tlfea.'))); "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -62,6 +62,13 @@
 // eps*E*theta residual floor). Gradient slots (ANCF's r_u, r_v, r_w) are
 // used raw. The mass terms use the raw, uncentred values.
 //
+// The per-tile bodies of K1 and K2 (`primal_prep_tile`, `hv_tile`) and K4's
+// per-(node, channel) sum (`node_sum`) are __device__ functions, so that the
+// persistent Newton-PCG kernel (resident.cuh) runs the same code in
+// grid-stride loops. Their pointers to data that the persistent kernel
+// writes during its run carry no __restrict__: a load through such a pointer
+// must not go through the non-coherent read-only cache.
+//
 // Every entry point returns cudaGetLastError() after its launch; the Python
 // wrapper raises on a non-zero code.
 #pragma once
@@ -106,7 +113,7 @@ constexpr size_t smem_bytes() {
 // NCENT channels of a translation slot centred on slot 0 and everything else
 // raw.
 template <typename T, class F, int CIN, int NCENT>
-__device__ __forceinline__ void stage(const T* __restrict__ src, const int* __restrict__ conn_t,
+__device__ __forceinline__ void stage(const T* src, const int* __restrict__ conn_t,
                                       int E, int e0, T* xs) {
   constexpr int S = F::S, NT = EX * F::NG;
   const size_t sE = (size_t)E;
@@ -157,19 +164,21 @@ struct Partial<T, N, false> {
 template <typename T, class F, int N>
 using PartialFor = Partial<T, N, (N * sizeof(T) <= (size_t)F::REG_BYTES)>;
 
-// K1: f_e = sum_q P(Du, Fd) gradN dV + Me dv/dt, and the per-QP prep cache.
+// K1 on the tile of elements e0 .. e0 + EX - 1: f_e = sum_q P(Du, Fd) gradN
+// dV + Me dv/dt, and the per-QP prep cache. smem holds smem_bytes<T, F, 9,
+// 3>(); the caller separates two tiles that share it by __syncthreads().
 template <typename T, class F>
-__global__ void __launch_bounds__(EX * F::NG)
-primal_prep_kernel(const T* __restrict__ packed, const int* __restrict__ conn_t,
-                   const T* __restrict__ gN_t, const T* __restrict__ dV_t,
-                   const T* __restrict__ Me_t, T* __restrict__ fe,
-                   T* __restrict__ prep, int E, T lam, T mu, T eta, T lam_d) {
+__device__ __forceinline__ void primal_prep_tile(const T* packed, const int* __restrict__ conn_t,
+                                                 const T* __restrict__ gN_t,
+                                                 const T* __restrict__ dV_t,
+                                                 const T* __restrict__ Me_t, T* fe, T* prep,
+                                                 int E, int e0, T lam, T mu, T eta, T lam_d,
+                                                 T* smem) {
   constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = EX * NG;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);  // (S*9, EX): centred u | centred v | dv
-  T* part = xs + S * 9 * EX;               // (NG*S*3, EX)
+  T* xs = smem;               // (S*9, EX): centred u | centred v | dv
+  T* part = xs + S * 9 * EX;  // (NG*S*3, EX)
   const int x = threadIdx.x, g = threadIdx.y;
-  const int e0 = blockIdx.x * EX, e = e0 + x;
+  const int e = e0 + x;
   const size_t sE = (size_t)E;
   PartialFor<T, F, S * 3> f(part + g * S * 3 * EX + x);
   stage<T, F, 9, 6>(packed, conn_t, E, e0, xs);
@@ -248,22 +257,32 @@ primal_prep_kernel(const T* __restrict__ packed, const int* __restrict__ conn_t,
   }
 }
 
-// K2: Hv_e = sum_q dP(G) gradN dV + (1/dt) Me p, primal state from prep.
-// Runs once per CG iteration. It re-reads the prep cache instead of
-// recomputing the primal, so one contraction (G) per QP is all the
-// arithmetic left.
 template <typename T, class F>
 __global__ void __launch_bounds__(EX * F::NG)
-hv_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
-          const T* __restrict__ prep, const T* __restrict__ gN_t,
-          const T* __restrict__ dV_t, const T* __restrict__ Me_t,
-          T* __restrict__ out, int E, T dt, T lam, T mu, T eta, T lam_d) {
-  constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = EX * NG;
+primal_prep_kernel(const T* __restrict__ packed, const int* __restrict__ conn_t,
+                   const T* __restrict__ gN_t, const T* __restrict__ dV_t,
+                   const T* __restrict__ Me_t, T* __restrict__ fe,
+                   T* __restrict__ prep, int E, T lam, T mu, T eta, T lam_d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);  // (S*3, EX): raw direction
-  T* part = xs + S * 3 * EX;               // (NG*S*3, EX)
+  primal_prep_tile<T, F>(packed, conn_t, gN_t, dV_t, Me_t, fe, prep, E, blockIdx.x * EX, lam,
+                         mu, eta, lam_d, reinterpret_cast<T*>(smem_raw));
+}
+
+// K2 on one tile: Hv_e = sum_q dP(G) gradN dV + (1/dt) Me p, primal state
+// from prep. Runs once per CG iteration. It re-reads the prep cache instead
+// of recomputing the primal, so one contraction (G) per QP is all the
+// arithmetic left. smem holds smem_bytes<T, F, 3, 3>().
+template <typename T, class F>
+__device__ __forceinline__ void hv_tile(const T* p, const int* __restrict__ conn_t,
+                                        const T* prep, const T* __restrict__ gN_t,
+                                        const T* __restrict__ dV_t, const T* __restrict__ Me_t,
+                                        T* out, int E, int e0, T dt, T lam, T mu, T eta,
+                                        T lam_d, T* smem) {
+  constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = EX * NG;
+  T* xs = smem;               // (S*3, EX): raw direction
+  T* part = xs + S * 3 * EX;  // (NG*S*3, EX)
   const int x = threadIdx.x, g = threadIdx.y;
-  const int e0 = blockIdx.x * EX, e = e0 + x;
+  const int e = e0 + x;
   const size_t sE = (size_t)E;
   PartialFor<T, F, S * 3> f(part + g * S * 3 * EX + x);
   stage<T, F, 3, 0>(p, conn_t, E, e0, xs);
@@ -336,6 +355,17 @@ hv_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
 #pragma unroll
     for (int i = 0; i < 3; ++i) out[(a * 3 + i) * sE + ee] = f[i] + inv_dt * m[i];
   }
+}
+
+template <typename T, class F>
+__global__ void __launch_bounds__(EX * F::NG)
+hv_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
+          const T* __restrict__ prep, const T* __restrict__ gN_t,
+          const T* __restrict__ dV_t, const T* __restrict__ Me_t,
+          T* __restrict__ out, int E, T dt, T lam, T mu, T eta, T lam_d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  hv_tile<T, F>(p, conn_t, prep, gN_t, dV_t, Me_t, out, E, blockIdx.x * EX, dt, lam, mu, eta,
+                lam_d, reinterpret_cast<T*>(smem_raw));
 }
 
 // K3: per-(element, slot) SVK diagonal tangent blocks, sum_q K(F_q, h_qa) dV_q,
@@ -414,12 +444,28 @@ svk_blocks_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
   }
 }
 
-// K4: out[node, c] = sum over the node's incidences (a, e), in the fixed
-// order of the host-built CSR list, of vals[(a*C + c) * E + e]. One thread
-// per (node, channel); inc[k] = a * E + e. A fixed order instead of atomics
-// keeps float32 sums bitwise repeatable. Bound by latency: each thread walks
-// its node's dependent, uncoalesced loads (about 20 for an interior FEAT10
-// node, at most 4 for a shell coefficient row).
+// K4's sum for one (node nd, channel c): over the node's incidences (a, e),
+// in the fixed order of the host-built CSR list, of vals[(a*C + c) * E + e];
+// inc[k] = a * E + e.
+template <typename T>
+__device__ __forceinline__ T node_sum(const T* vals, const int* __restrict__ ptr,
+                                      const int* __restrict__ inc, int nd, int c, int E,
+                                      int C) {
+  T acc = T(0);
+  for (int k = ptr[nd]; k < ptr[nd + 1]; ++k) {
+    const int i = inc[k];
+    const int a = i / E;
+    const int e = i - a * E;
+    acc += vals[((size_t)a * C + c) * E + e];
+  }
+  return acc;
+}
+
+// K4: out[node, c] = node_sum(node, c). One thread per (node, channel). A
+// fixed order instead of atomics keeps float32 sums bitwise repeatable.
+// Bound by latency: each thread walks its node's dependent, uncoalesced
+// loads (about 20 for an interior FEAT10 node, at most 4 for a shell
+// coefficient row).
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 node_reduce_kernel(const T* __restrict__ vals, const int* __restrict__ ptr,
@@ -428,15 +474,7 @@ node_reduce_kernel(const T* __restrict__ vals, const int* __restrict__ ptr,
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n * C) return;
   const int nd = t / C;
-  const int c = t - nd * C;
-  T acc = T(0);
-  for (int k = ptr[nd]; k < ptr[nd + 1]; ++k) {
-    const int i = inc[k];
-    const int a = i / E;
-    const int e = i - a * E;
-    acc += vals[((size_t)a * C + c) * E + e];
-  }
-  out[t] = acc;
+  out[t] = node_sum(vals, ptr, inc, nd, t - nd * C, E, C);
 }
 
 // Internal linkage for the launchers: the once-per-kernel guard of

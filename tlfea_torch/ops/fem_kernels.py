@@ -15,6 +15,11 @@ design notes at the top of `fem_kernels.cuh`) carry the element work:
     K4 node_reduce  <- the scatter half of K1-K3 (pallas_banded
                        ._window_scatter :689, the flat path's `.at[].add`)
 
+A fifth kernel, the persistent Newton-PCG solve of `tlfea_torch.ops.resident`
+(csrc/resident.cuh, sources in `RESIDENT_SOURCES`), runs the K1/K2 tile code
+and K4's node sums inside one cooperative launch; it is built and launched
+through this module too.
+
 K1-K3 are templates instantiated for the element families in `FAMILIES`
 (FEAT10, ANCF3243, ANCF3443), one CUDA source each; `FemOperator` refuses
 any other (Q, S, translation mask). Each wrapper takes the plain twin
@@ -47,7 +52,8 @@ from tlfea_torch.materials.svk import SVK
 from tlfea_torch.ops.segment import coef_scatter_add
 
 __all__ = [
-    "FemOperator", "FAMILIES", "LAUNCHES", "reset_launch_counts", "build_kernels",
+    "FemOperator", "FAMILIES", "RESIDENT_SOURCES", "LAUNCHES", "reset_launch_counts",
+    "build_kernels",
     "primal_prep", "primal_prep_plain", "hv", "hv_plain",
     "svk_blocks", "svk_blocks_plain", "node_reduce", "node_reduce_plain",
     "element_fns", "unpack_sym6", "g_and_hvp",
@@ -64,12 +70,16 @@ FAMILIES = {
     (48, 16, 0x1111): ("ancf3443", "fem_ancf3443.cu"),
 }
 KERNEL_NAMES = ("primal_prep", "hv", "svk_blocks", "node_reduce")
+# family -> CUDA source of its persistent Newton-PCG kernel (csrc/resident.cuh,
+# wrapped in tlfea_torch/ops/resident.py).
+RESIDENT_SOURCES = {"feat10": "fem_resident.cu"}
 
 LAUNCHES = {f"{k}[{fam}]": 0 for fam, _ in FAMILIES.values() for k in KERNEL_NAMES}
+LAUNCHES.update({f"newton_resident[{fam}]": 0 for fam in RESIDENT_SOURCES})
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(os.path.dirname(_CSRC), "_build")
-_HEADERS = ("fem_kernels.cuh", "svk.cuh")
+_HEADERS = ("fem_kernels.cuh", "svk.cuh", "resident.cuh")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _libs: dict = {}
@@ -89,10 +99,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the FEM kernels need the CUDA toolkit")
 
 
-def _bind(lib, family: str | None) -> None:
+def _bind(lib, family: str | None, resident: bool = False) -> None:
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     if family is None:
         sigs = {"tlfea_node_reduce_{}": [P] * 4 + [I] * 3 + [P]}
+    elif resident:
+        sigs = {f"tlfea_newton_resident_{family}_{{}}": [P] * 17 + [I] * 2 + [D] * 9 + [I] * 3
+                + [P]}
     else:
         sigs = {
             f"tlfea_primal_prep_{family}_{{}}": [P] * 7 + [I] + [D] * 4 + [P],
@@ -112,14 +125,15 @@ def _read(name: str) -> bytes:
 
 
 def build_kernels() -> dict:
-    """Compile the CUDA source of every family in FAMILIES for sm_90a into a
-    shared library (once per source content; all nvcc processes run at
-    once) and load them. Returns {source: ctypes library}; BUILD_INFO gets
-    the wall seconds of the build and, per source, its seconds and ptxas
-    report."""
+    """Compile the CUDA source of every family in FAMILIES and of every
+    persistent kernel in RESIDENT_SOURCES for sm_90a into a shared library
+    (once per source content; all nvcc processes run at once) and load
+    them. Returns {source: ctypes library}; BUILD_INFO gets the wall seconds
+    of the build and, per source, its seconds and ptxas report."""
     if _libs:
         return _libs
     with_family = {src: fam for fam, src in FAMILIES.values()}
+    with_family.update({src: fam for fam, src in RESIDENT_SOURCES.items()})
     headers = b"".join(_read(h) for h in _HEADERS)
     os.makedirs(_BUILD, exist_ok=True)
     t0 = time.perf_counter()
@@ -152,7 +166,7 @@ def build_kernels() -> dict:
     libs = {}
     for src, info in per_src.items():
         lib = ctypes.CDLL(info["path"])
-        _bind(lib, with_family[src])
+        _bind(lib, with_family[src], resident=src in RESIDENT_SOURCES.values())
         if src == "fem_kernels.cu":
             _bind(lib, None)
         libs[src] = lib
@@ -172,6 +186,8 @@ def _launch(name: str, op: "FemOperator", x: torch.Tensor, *args) -> None:
     libs = build_kernels()
     if name == "node_reduce":
         fn = getattr(libs["fem_kernels.cu"], f"tlfea_node_reduce_{sfx}")
+    elif name == "newton_resident":
+        fn = getattr(libs[RESIDENT_SOURCES[op.family]], f"tlfea_{name}_{op.family}_{sfx}")
     else:
         fn = getattr(libs[op.source], f"tlfea_{name}_{op.family}_{sfx}")
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]

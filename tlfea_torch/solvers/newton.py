@@ -8,7 +8,9 @@ by preconditioned conjugate gradients with exact Hessian-vector products
 from the FEM kernels (`tlfea_torch.ops.fem_kernels.g_and_hvp`: one K1 + K4
 pass per gradient, one K2 + K4 pass per product). The preconditioner is the
 3x3 block-Jacobi inverse (K3 + K4), optionally plus the frozen two-level
-coarse correction (`tlfea_torch.solvers.coarse`).
+coarse correction (`tlfea_torch.solvers.coarse`). A mesh of at most 1,024
+elements without the coarse correction runs each inner solve in one
+persistent kernel instead (`tlfea_torch.ops.resident`).
 
 The JAX version runs the outer dual loop, the Newton loop and the CG loop
 as nested `lax.while_loop`s on the device. Here they are Python loops; each
@@ -26,13 +28,14 @@ import torch
 
 from tlfea_torch.constraints import FixedCoefs
 from tlfea_torch.elements.assembly import node_ref
+from tlfea_torch.ops import resident
 from tlfea_torch.ops.fem_kernels import g_and_hvp
 from tlfea_torch.ops.linalg import inv3x3
 from tlfea_torch.solvers.common import (
     StepState, System, constraint_values, flat_norm, precond_blocks,
 )
 
-__all__ = ["NewtonParams", "make_step", "make_rollout"]
+__all__ = ["NewtonParams", "make_step", "make_rollout", "inner_solve_args"]
 
 
 @dataclass(frozen=True)
@@ -127,29 +130,57 @@ def _newton_inner(v0, x_prev, v_prev, lam, f_ext, params: NewtonParams, system: 
 
     Returns (v, iters, ||g||, cg_total, hist). inv_blocks: inverted
     block-Jacobi blocks to reuse (see `make_rollout`); staleness changes CG
-    counts only, never the converged solution.
+    counts only, never the converged solution. A mesh that passes
+    `resident.eligible` runs the whole loop in one kernel launch
+    (`tlfea_torch.ops.resident`, the port of `pallas_resident`).
     """
+    args = _inner_args(v0, x_prev, v_prev, lam, f_ext, params, system, inv_blocks, u_prev)
+    if resident.eligible(system, coarse):
+        return resident.newton_inner_resident(*args)
+    return _composed_inner(*args, coarse, plain=system.plain)
+
+
+def _inner_args(v0, x_prev, v_prev, lam, f_ext, params: NewtonParams, system: System,
+                inv_blocks=None, u_prev=None):
+    """The arguments of one inner solve, (v0, u_prev, v_prev, f_ext, params,
+    system, inv_blocks, pin_terms), in the order `_composed_inner` and
+    `resident.newton_inner_resident` take them: the dense pin fields, and
+    the block-Jacobi inverse at v0 unless one is passed."""
     dt, rho = params.dt, params.rho
     if u_prev is None:
         u_prev = x_prev - node_ref(system.elems)
-    op = system.fem
     pin_terms = _pin_terms(system, lam, dt, rho, v0.dtype)
-
-    def linearize_g(v):
-        return g_and_hvp(v, u_prev, v_prev, f_ext, dt, op, pin_terms, plain=system.plain)
-
     if inv_blocks is None:
         blocks0 = precond_blocks(v0, x_prev, dt, rho, system, u_prev=u_prev)
         inv_blocks = inv3x3(blocks0, eps=1e-30)
+    return v0, u_prev, v_prev, f_ext, params, system, inv_blocks, pin_terms
 
-    def bj_apply(r):
-        return torch.einsum("nij,nj->ni", inv_blocks, r)
 
-    if coarse is not None:
-        def precond(r):
-            return bj_apply(r) + coarse.apply(r)
-    else:
-        precond = bj_apply
+def inner_solve_args(system: System, state: StepState, f_ext, params: NewtonParams):
+    """The arguments of a step's first inner solve from `state` (warm start
+    v + predict * dv, the state's duals, a fresh block-Jacobi inverse), as
+    `_step` hands them to `_newton_inner`: for calling
+    `resident.newton_inner_resident`, its kernel or its plain version on
+    one inner solve."""
+    v0 = state.v + params.predict * state.dv
+    return _inner_args(v0, state.x, state.v, state.lam, f_ext, params, system,
+                       u_prev=state.u)
+
+
+def _composed_inner(v0, u_prev, v_prev, f_ext, params: NewtonParams, system: System,
+                    inv_blocks, pin_terms, coarse=None, plain=False):
+    """The Newton iterations of `_newton_inner` (`newton.py:325-434`) as one
+    kernel launch per gradient and per Hv product (the element twins when
+    `plain`), with block-Jacobi (plus `coarse`) preconditioning. Returns
+    (v, iters, ||g||, cg_total, hist)."""
+
+    def linearize_g(v):
+        return g_and_hvp(v, u_prev, v_prev, f_ext, params.dt, system.fem, pin_terms,
+                         plain=plain)
+
+    def precond(r):
+        z = torch.einsum("nij,nj->ni", inv_blocks, r)
+        return z if coarse is None else z + coarse.apply(r)
 
     tiny = torch.finfo(v0.dtype).tiny
     emax = max(params.ew_eta_max, params.cg_rtol)
