@@ -20,7 +20,9 @@ non-zero:
    64-element ANCF3243 beam; each timed beside its twin (device time per
    launch from CUDA events, host time per wrapper call), beside its bound
    (bytes over 3.35 TB/s or flops over 67 TFLOP/s, whichever is larger) and,
-   for the node reduce, beside `Tensor.index_add_`.
+   for the node reduce, beside `Tensor.index_add_`. K5 `contrib` must equal
+   K1's fe bit for bit in float32, and K5t `contrib_tangent` + K4 along the
+   Newton chain (dt p, p, p/dt) must match K2 + K4 along p.
 3. beam: the float32 FEAT10 beam sag (box 10x1x1, dt 1e-3, 150 steps)
    through the kernels, against `tests/fixtures/beam_sag_t10_tip.csv` (the
    float64 CPU trajectory of the JAX package) within 1e-6 of the
@@ -56,6 +58,20 @@ non-zero:
    tip deflection within 5 % of q L^4 / (8 E I).
 8. ancf_beam: a clamped 64-element ANCF3243 beam under gravity, 20 steps
    through the kernels (launch counts), then 5 steps kernels against twins.
+9. adamw, nesterov, vbd: the first-order solvers on the 10k flagship with
+   `examples/_common.make_solver`'s parameter sets (rho 1e7): a warm step,
+   then timed steps (ms/step, ms per inner iteration or sweep, outer and
+   inner counts, launches: K5 and K4 only, plus K3 for VBD's blocks); a
+   torch.profiler window of a capped step of 200 inner iterations (device
+   busy share); one capped step from rest through the kernels and through
+   the twins (equal counts, positions within 5e-3 of the coordinate scale).
+10. jvp: torch.func.jvp of grad_L at the AdamW state along 8 directions,
+   through K5t + K4, against the Newton path's K2 + K4 product.
+11. first_order_vs_newton: `tests/test_solvers.py:86-130` at the flagship
+   size: AdamW and Nesterov (30,000 iterations a step, two steps) within
+   10 % of the deformation from Newton's positions.
+12. first_order_ancf: one capped AdamW step and the jvp on the shell plate
+   and the ANCF3243 beam (K5, K5t in those families).
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 `{"ok": true, "device": {...}}`.
@@ -107,7 +123,16 @@ REPLACES = {
                  "svk_blocks": "tlfea/ops/pallas_fem.py:725"},
 }
 NODE_REDUCE_REPLACES = "tlfea/ops/pallas_banded.py:689"
-KERNELS = ("primal_prep", "hv", "svk_blocks", "node_reduce")
+KERNELS = ("primal_prep", "hv", "svk_blocks", "node_reduce")  # the Newton path
+# K5 and K5t, the port of pallas_fem._body (primal `pallas_call` :812 built at
+# :519, custom-JVP tangent :830), in every family.
+FIRST_ORDER = ("contrib", "contrib_tangent")
+BODY_REPLACES = {"contrib": "tlfea/ops/pallas_fem.py:519",
+                 "contrib_tangent": "tlfea/ops/pallas_fem.py:830"}
+FIRST_ORDER_STEPS = {"adamw": 2, "nesterov": 2, "vbd": 2}  # timed steps after a warm one
+TRACE_ITERS = 200  # inner iterations (VBD: gradients) in a first-order [trace] window
+CHECK_INNER = 500  # the capped step of kernels against twins (VBD: 20 sweeps)
+JVP_DIRECTIONS = 8
 
 
 def log(phase, msg):
@@ -222,7 +247,7 @@ def _device_ms(fn, n):
 
 
 def _pass_work(name, op, C=6):
-    """(words moved, floating-point operations) of one launch of a K1-K4
+    """(words moved, floating-point operations) of one launch of a K1-K5t
     kernel: each input read once, each output written once; the operations
     counted from the kernel's arithmetic per quadrature point."""
     E, Q, S, n = op.E, op.Q, op.S, op.n
@@ -236,6 +261,16 @@ def _pass_work(name, op, C=6):
     if name == "svk_blocks":
         return (n * 3 + S * E + gN + dV + S * 6 * E,
                 E * (Q * (18 * (S - 1) + 72 + 84 * S) + 3 * S))
+    if name == "contrib":  # K1 without the prep cache
+        return (n * 9 + S * E + gN + dV + Me + S * 3 * E,
+                E * (Q * (36 * (S - 1) + 310 + 24 * S) + 6 * S * S + 6 * S))
+    if name == "contrib_tangent":
+        # the tangent's 9 node channels and the primal's u | v (its dv/dt
+        # does not enter); per QP four contractions, and
+        # svk_stress_tangent: the primal S (256), dE (126), dEd (234), dS
+        # (43) and dP (108), about 770
+        return (n * 9 + n * 6 + S * E + gN + dV + Me + S * 3 * E,
+                E * (Q * (72 * (S - 1) + 770 + 24 * S) + 6 * S * S + 6 * S))
     # node_reduce: vals, the CSR list (ptr, inc), node sums
     return S * C * E + (n + 1) + S * E + n * C, S * C * E
 
@@ -248,14 +283,16 @@ def _bound(words, flops, itemsize):
 
 
 def bound_ms(name, op, C=6, itemsize=4):
-    """The least time of one launch of a K1-K4 kernel (`_pass_work`).
+    """The least time of one launch of a K1-K5t kernel (`_pass_work`).
     Returns (ms, "bytes" or "operations")."""
     return _bound(*_pass_work(name, op, C), itemsize)
 
 
 def phase_kernels(device, family, system):
     """Each kernel against its twin at the shapes of `system` (a float64
-    system on the CPU); returns {kernel: record fields} for float32."""
+    system on the CPU); K5 against K1's fe (bitwise) and K5t + K4 along the
+    Newton chain (dt p, p, p/dt) against K2 + K4 along p. Returns {kernel:
+    record fields} for float32."""
     import torch
 
     from tlfea_torch.ops import fem_kernels as fk
@@ -265,7 +302,8 @@ def phase_kernels(device, family, system):
     host = dict(packed=np.concatenate([rng.normal(size=(n, 3)) * 1e-3,
                                        rng.normal(size=(n, 3)) * 1e-2,
                                        rng.normal(size=(n, 3))], axis=1),
-                p=rng.normal(size=(n, 3)), u=rng.normal(size=(n, 3)) * 1e-3)
+                p=rng.normal(size=(n, 3)), u=rng.normal(size=(n, 3)) * 1e-3,
+                dpacked=rng.normal(size=(n, 9)))
     E, S = system.elems.n_elem, system.elems.n_shape
     host["vals"] = rng.normal(size=(S * 6, E))
     out = {}
@@ -276,8 +314,10 @@ def phase_kernels(device, family, system):
         x = {k: torch.as_tensor(v, dtype=dtype, device=device) for k, v in host.items()}
         _, prep = fk.primal_prep_plain(op, x["packed"])
         args = {"primal_prep": (x["packed"],), "hv": (x["p"], prep, dt),
-                "svk_blocks": (x["u"],), "node_reduce": (x["vals"],)}
-        for name in KERNELS:
+                "svk_blocks": (x["u"],), "node_reduce": (x["vals"],),
+                "contrib": (x["packed"],), "contrib_tangent": (x["packed"], x["dpacked"])}
+        extra = _body_checks(op, x, dt, tol, family)
+        for name in KERNELS + FIRST_ORDER:
             got = getattr(fk, name)(op, *args[name])
             want = getattr(fk, name + "_plain")(op, *args[name])
             torch.cuda.synchronize()
@@ -323,7 +363,36 @@ def phase_kernels(device, family, system):
             out[name] = dict(max_abs_err=abs_err, max_rel_err=rel, tol=tol, ms=ms,
                              plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by, library_ms=lib_ms)
+            if name in extra:
+                out[name].update(extra[name])
     return out
+
+
+def _body_checks(op, x, dt, tol, family):
+    """K5 against K1's fe (bitwise; the same tile code with the prep writes
+    compiled out) and K5t + K4 along (dt p, p, p/dt) against K2 + K4 along
+    p (the same derivative; relative error within tol). Returns the
+    figures for the JSON record."""
+    import torch
+
+    from tlfea_torch.ops import fem_kernels as fk
+
+    fe1, prep = fk.primal_prep(op, x["packed"])
+    fe5 = fk.contrib(op, x["packed"])
+    p = x["p"]
+    chain = torch.cat([dt * p, p, p / dt], dim=1).contiguous()
+    h5 = fk.node_reduce(op, fk.contrib_tangent(op, x["packed"], chain))
+    h2 = fk.node_reduce(op, fk.hv(op, p, prep, dt))
+    torch.cuda.synchronize()
+    same = bool(torch.equal(fe5, fe1))
+    rel = float((h5 - h2).abs().max() / h2.abs().max())
+    dt_name = str(x["p"].dtype)[6:]
+    log("kernels", f"contrib[{family}] {dt_name}: equal to primal_prep's fe bit for bit: {same}"
+        f" (max |diff| {float((fe5 - fe1).abs().max()):.3e}); contrib_tangent + node_reduce "
+        f"along (dt p, p, p/dt) vs hv + node_reduce along p: max rel err {rel:.3e} (tol {tol:g})")
+    if (x["p"].dtype == torch.float32 and not same) or not rel <= tol:
+        raise AssertionError(f"{family}: K5 differs from K1's fe ({same}) or K5t from K2 ({rel:.3e})")
+    return {"contrib": {"k1_bitwise": same}, "contrib_tangent": {"vs_k2_rel_err": rel}}
 
 
 def beam_sag(device, dtype):
@@ -365,29 +434,42 @@ def beam_sag(device, dtype):
     return float(np.abs(rows - ref).max() / scale), secs
 
 
-def trace(roll, state, f_ext, ms_per_step):
-    """Where the time goes: a torch.profiler window over TRACE_STEPS of the
-    rollout; device busy time per step against the untraced ms/step, and
-    the device operations that take the most of it."""
+def _device_profile(fn):
+    """fn() under torch.profiler, synchronised: {device operation name:
+    (device ms, calls)}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)  # the profiler's note on event cycles
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            roll(state, f_ext)
+            fn()
             torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             t, c = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
-    busy = sum(t for t, _ in by_name.values()) / TRACE_STEPS
-    ops = sum(c for _, c in by_name.values()) / TRACE_STEPS
-    log("trace", f"device busy {busy:.3f} ms/step = {busy / ms_per_step:.3f} of the untraced "
-        f"{ms_per_step:.3f} ms/step; {ops:.0f} device operations per step")
+    return by_name
+
+
+def _log_profile(tag, by_name, per, unit, wall_ms):
+    """Device busy time per `unit` (by_name summed over `per` units) against
+    the untraced wall ms per unit, and the largest device operations."""
+    busy = sum(t for t, _ in by_name.values()) / per
+    ops = sum(c for _, c in by_name.values()) / per
+    log(tag, f"device busy {busy:.4f} ms/{unit} = {busy / wall_ms:.3f} of the untraced "
+        f"{wall_ms:.4f} ms/{unit}; {ops:.1f} device operations per {unit}")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        log("trace", f"{t / TRACE_STEPS:.4f} ms/step, {c / TRACE_STEPS:.1f} calls/step: {name[:90]}")
+        log(tag, f"{t / per:.4f} ms/{unit}, {c / per:.2f} calls/{unit}: {name[:90]}")
+
+
+def trace(roll, state, f_ext, ms_per_step):
+    """Where the time goes: a torch.profiler window over TRACE_STEPS of the
+    rollout; device busy time per step against the untraced ms/step, and
+    the device operations that take the most of it."""
+    _log_profile("trace", _device_profile(lambda: roll(state, f_ext)), TRACE_STEPS, "step",
+                 ms_per_step)
 
 
 def rollout_phase(tag, device, problem, n_steps, traced=True, coarse=True):
@@ -668,6 +750,253 @@ def shell_theory(device, steps=THEORY_STEPS):
     return abs(tz + w_theory) / w_theory, tz, -w_theory, secs, newton_tot, cg_tot
 
 
+def first_order_params(name, dt=1e-3, rho=1e7):
+    """`examples/_common.make_solver`'s parameter sets (:89-108) as the
+    port's dataclasses, at the flagship's dt and ALM rho. One change: VBD
+    refreshes the gradient after every colour (color_group_size 1, the
+    reference CUDA solver's sweep), because make_solver's default groups of
+    4 colours diverge on the flagship within the first step (`vbd.py:37-38`
+    warns that staler group residuals diverge at omega = 1). The [vbd]
+    phase checks that they do; `tests/test_torch_first_order.py` holds the
+    port's group-4 sweeps to the JAX package's on a smaller box of the
+    flagship's cells, where both diverge alike."""
+    from tlfea_torch.solvers import adamw, nesterov, vbd
+
+    if name == "adamw":
+        return adamw.AdamWParams(dt=dt, rho=rho, lr=1e-3, inner_tol=1e-8, inner_rtol=1e-8,
+                                 outer_tol=1e-8, max_outer=3, max_inner=20000,
+                                 convergence_check_interval=50)
+    if name == "nesterov":
+        return nesterov.NesterovParams(dt=dt, rho=rho, alpha=1e-7, inner_tol=1e-9,
+                                       outer_tol=1e-8, max_outer=3, max_inner=20000)
+    return vbd.VBDParams(dt=dt, rho=rho, omega=1.0, inner_tol=1e-7, outer_tol=1e-8,
+                         max_outer=3, max_sweeps=200, convergence_check_interval=8,
+                         color_group_size=1)
+
+
+def _capped(name, params, n, structures=None):
+    """params with one outer pass of n inner iterations; VBD's n counts
+    gradients, each sweep taking one per colour group plus one
+    at its checks."""
+    if name == "vbd":
+        per_sweep = len(structures.groups) + 1.0 / params.convergence_check_interval
+        return replace(params, max_outer=1, max_sweeps=max(1, round(n / per_sweep)))
+    return replace(params, max_outer=1, max_inner=n)
+
+
+def first_order_phase(name, device, problem, n_steps):
+    """A first-order solver on the flagship through K5 + K4: a warm step, then
+    n_steps timed ones (their launches: K5 and K4, and for VBD K3 for its
+    blocks; K1, K2 and K5t never); a torch.profiler window of a capped step
+    of TRACE_ITERS inner iterations; and one capped step from rest through
+    the kernels and through the twins (equal counts, positions within 5e-3
+    of the coordinate scale). Returns {"launches", "state"}: the timed
+    steps' launches and the state after them."""
+    import torch
+
+    from tlfea_torch.ops import fem_kernels as fk
+    from tlfea_torch.solvers import adamw, nesterov, vbd
+
+    system, state0, f_ext, _ = problem
+    params = first_order_params(name)
+    module = {"adamw": adamw, "nesterov": nesterov, "vbd": vbd}[name]
+    inner_key, unit = ("sweeps", "sweep") if name == "vbd" else ("inner_iters", "iteration")
+    structures = None
+    if name == "vbd":
+        t0 = time.perf_counter()
+        structures = vbd.prepare(system, group_size=params.color_group_size)
+        log(name, f"colouring: {structures.n_colors} colours in {len(structures.groups)} "
+            f"groups, built in {time.perf_counter() - t0:.2f} s")
+        s4 = replace(params, max_outer=1, color_group_size=4)
+        st4, d4 = vbd.make_step(system, s4, vbd.prepare(system, 4))(state0, f_ext)
+        v4 = float(st4.v.abs().max())  # NaN once diverged
+        log(name, f"make_solver's colour groups of 4, one outer pass from rest: {d4['sweeps']} "
+            f"sweeps, max |v| {v4:.4e} (g dt = 9.81e-3)")
+        if v4 <= 2 * 9.81 * params.dt:
+            raise AssertionError("colour groups of 4 no longer diverge on the flagship: "
+                                 "run [vbd] at make_solver's group size")
+
+    def make(sysx, prm):
+        if name == "vbd":
+            return vbd.make_step(sysx, prm, structures)
+        return module.make_step(sysx, prm)
+
+    log(name, f"{params}")
+    step = make(system, params)
+    t0 = time.perf_counter()
+    s, d = step(state0, f_ext)
+    torch.cuda.synchronize()
+    log(name, f"warm step: {time.perf_counter() - t0:.2f} s, outer {d['outer_iters']}, "
+        f"{inner_key} {d[inner_key]}, ||c|| {d['norm_c']:.3e}")
+
+    fk.reset_launch_counts()
+    outers, inners = [], []
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        s, d = step(s, f_ext)
+        outers.append(d["outer_iters"])
+        inners.append(d[inner_key])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fk.LAUNCHES[f"{k}[feat10]"] for k in KERNELS + FIRST_ORDER}
+    if not bool(torch.isfinite(s.x).all()) or s.x.shape != state0.x.shape:
+        raise AssertionError(f"{name}: the state is not finite")
+    ms, per_inner = wall / n_steps * 1e3, wall / sum(inners) * 1e3
+    log(name, f"timed: {n_steps} steps in {wall:.3f} s = {ms:.3f} ms/step, {per_inner:.5f} "
+        f"ms/{unit}; outer per step {outers}, {inner_key} per step {inners}; ||c|| "
+        f"{d['norm_c']:.3e}, max |u| {float(s.u.abs().max()):.4e}")
+    log(name, f"launches in the timed steps: {launches}")
+    need = ("contrib", "node_reduce") + (("svk_blocks",) if name == "vbd" else ())
+    never = ("primal_prep", "hv", "contrib_tangent") + (() if name == "vbd" else ("svk_blocks",))
+    if min(launches[k] for k in need) <= 0 or any(launches[k] for k in never):
+        raise AssertionError(f"{name}: launches {launches}: expected {need} > 0, {never} = 0")
+
+    capped = _capped(name, params, TRACE_ITERS, structures)
+    cstep = make(system, capped)
+    cstep(s, f_ext)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, dc = cstep(s, f_ext)
+    torch.cuda.synchronize()
+    wall_c = (time.perf_counter() - t0) * 1e3
+    fk.reset_launch_counts()
+    by_name = _device_profile(lambda: cstep(s, f_ext))
+    grads = fk.LAUNCHES["contrib[feat10]"]
+    log("trace", f"{name}: a capped step of {dc[inner_key]} {unit}s, {grads} gradients: "
+        f"{wall_c:.3f} ms untraced")
+    _log_profile("trace", by_name, grads, "gradient", wall_c / grads)
+
+    check = _capped(name, params, CHECK_INNER, structures)
+    finals = {}
+    for plain in (False, True):
+        sysx = replace(system, plain=plain)
+        t0 = time.perf_counter()
+        sx, dx = make(sysx, check)(state0, f_ext)
+        torch.cuda.synchronize()
+        log(name, f"one capped step from rest via {'twins' if plain else 'kernels'}: "
+            f"{time.perf_counter() - t0:.3f} s, outer {dx['outer_iters']}, {inner_key} "
+            f"{dx[inner_key]}")
+        finals[plain] = (sx.x, dx[inner_key])
+    diff = float((finals[False][0] - finals[True][0]).abs().max())
+    rel_coord = diff / float(finals[True][0].abs().max())
+    rel_disp = diff / float((finals[True][0] - state0.x).abs().max())
+    log(name, f"kernels vs twins: {inner_key} {finals[False][1]} vs {finals[True][1]}, max |dx| "
+        f"{diff:.3e} = {rel_coord:.3e} of the coordinate scale (bar 5e-3), {rel_disp:.3e} of "
+        f"the displacement scale")
+    if finals[False][1] != finals[True][1] or not rel_coord < 5e-3:
+        raise AssertionError(f"{name}: the kernel path disagrees with the twin path")
+    return {"launches": launches, "state": s}
+
+
+def jvp_phase(tag, device, problem, state, n_dirs=JVP_DIRECTIONS):
+    """torch.func.jvp of grad_L at `state` along n_dirs random directions: K5
+    + K4 for the gradient, K5t + K4 for its derivative. Each against the
+    Newton path's Hessian product (K2 + K4, `g_and_hvp`), relative error
+    within 1e-5 (float32). Returns the launches of the jvp run."""
+    import torch
+
+    from tlfea_torch.ops import fem_kernels as fk
+    from tlfea_torch.solvers.common import _pin_terms, grad_L
+
+    system, _, f_ext, _ = problem
+    family = system.fem.family
+    dt, rho = 1e-3, 1e7
+
+    def g_of(v):
+        return grad_L(v, state.x, state.v, state.lam, f_ext, dt, rho, system, u_prev=state.u)
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    dirs = [torch.randn(state.v.shape, generator=gen, device=device, dtype=state.v.dtype)
+            for _ in range(n_dirs)]
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    tangents = [torch.func.jvp(g_of, (state.v,), (p,))[1] for p in dirs]
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n_dirs
+    launches = {k: fk.LAUNCHES[f"{k}[{family}]"] for k in KERNELS + FIRST_ORDER}
+    pins = _pin_terms(system, state.lam, dt, rho, state.v.dtype)
+    _, hvp = fk.g_and_hvp(state.v, state.u, state.v, f_ext, dt, system.fem, pins)
+    rel = max(float((t - h).abs().max() / h.abs().max())
+              for t, h in zip(tangents, (hvp(p) for p in dirs)))
+    log(tag, f"torch.func.jvp(grad_L) along {n_dirs} directions: {wall:.3f} ms each; against "
+        f"g_and_hvp's K2 product: max rel err {rel:.3e} (tol 1e-5); launches {launches}")
+    if launches["contrib_tangent"] != n_dirs or launches["hv"] or not rel <= 1e-5:
+        raise AssertionError(f"{tag}: the jvp did not run through K5t or disagrees with K2")
+    return launches
+
+
+def first_order_ancf(device):
+    """The ANCF families through the first-order path: on the bench.py
+    shell plate and the 64-element ANCF3243 beam, one AdamW step of
+    make_solver's parameters capped at TRACE_ITERS iterations (K5 + K4),
+    then the jvp of its gradient (K5t + K4). Returns {family: launches}."""
+    import torch
+
+    from tlfea_torch.ops import fem_kernels as fk
+    from tlfea_torch.solvers import adamw
+
+    out = {}
+    for family, problem in (("ancf3443", shell_problem(device, torch.float32)),
+                            ("ancf3243", ancf_beam_problem(device, torch.float32))):
+        system, state0, f_ext, _ = problem
+        params = _capped("adamw", first_order_params("adamw"), TRACE_ITERS)
+        fk.reset_launch_counts()
+        t0 = time.perf_counter()
+        s, d = adamw.make_step(system, params)(state0, f_ext)
+        torch.cuda.synchronize()
+        launches = {k: fk.LAUNCHES[f"{k}[{family}]"] for k in KERNELS + FIRST_ORDER}
+        log("first_order_ancf", f"{family}: {system.elems.n_elem} elements, one AdamW step of "
+            f"{d['inner_iters']} iterations in {time.perf_counter() - t0:.3f} s, max |u| "
+            f"{float(s.u.abs().max()):.3e}; launches {launches}")
+        if not bool(torch.isfinite(s.x).all()) or min(launches[k] for k in
+                                                       ("contrib", "node_reduce")) <= 0:
+            raise AssertionError(f"{family}: the first-order step did not run through K5 + K4")
+        jl = jvp_phase("first_order_ancf", device, problem, s, n_dirs=2)
+        out[family] = {k: launches[k] + jl[k] for k in launches}
+    return out
+
+
+def first_order_vs_newton(device):
+    """`tests/test_solvers.py:86-130` at the flagship size: the penalty
+    subproblem (one outer pass, lam = 0, dt 2e-3, rho 1e6, two steps) has
+    one minimiser, so AdamW (lr 1e-3, 30,000 iterations) and Nesterov
+    (alpha 1e-5, 30,000) must land within 10 % of the deformation from
+    Newton's. Returns the two deviations."""
+    import torch
+
+    from tlfea_torch.solvers import adamw, nesterov, newton
+
+    system, state0, f_ext, _ = flagship_problem(device, torch.float32)
+    dt, rho = 2e-3, 1e6
+    runs = {
+        "newton": newton.make_step(system, newton.NewtonParams(
+            dt=dt, rho=rho, inner_atol=1e-11, max_outer=1, max_inner=25)),
+        "adamw": adamw.make_step(system, adamw.AdamWParams(
+            dt=dt, rho=rho, lr=1e-3, inner_tol=1e-12, inner_rtol=0.0, max_outer=1,
+            max_inner=30000, convergence_check_interval=100)),
+        "nesterov": nesterov.make_step(system, nesterov.NesterovParams(
+            dt=dt, rho=rho, alpha=1e-5, inner_tol=1e-12, max_outer=1, max_inner=30000)),
+    }
+    x = {}
+    for name, step in runs.items():
+        s, counts = state0, []
+        t0 = time.perf_counter()
+        for _ in range(2):
+            s, d = step(s, f_ext)
+            counts.append({k: v for k, v in d.items() if k.endswith("iters")})
+        torch.cuda.synchronize()
+        x[name] = s.x
+        log("first_order_vs_newton", f"{name}: two steps in {time.perf_counter() - t0:.2f} s, "
+            f"{counts}")
+    scale = float((x["newton"] - state0.x).abs().max())
+    devs = {k: float((x[k] - x["newton"]).abs().max()) / scale for k in ("adamw", "nesterov")}
+    log("first_order_vs_newton", f"deformation scale {scale:.4e} m; deviation from Newton's "
+        f"positions: AdamW {devs['adamw']:.4e}, Nesterov {devs['nesterov']:.4e} of it (bar 0.10)")
+    if not max(devs.values()) < 0.10:
+        raise AssertionError(f"a first-order solver is off Newton's minimiser: {devs}")
+    return devs
+
+
 def main():
     import torch
 
@@ -744,20 +1073,46 @@ def main():
         traced=False)["launches"]
     done("ancf_beam")
 
-    record = {"kernels": [
-        {"name": f"{name}[{family}]", "route": "cuda",
-         "source": "tlfea_torch/csrc/" + (
-             "fem_kernels.cu" if name == "node_reduce"
-             else next(src for fam, src in fk.FAMILIES.values() if fam == family)),
-         "replaces": NODE_REDUCE_REPLACES if name == "node_reduce" else REPLACES[family][name],
-         "launches": launches[family][name], **timings[family][name]}
-        for family in ("feat10", "ancf3443", "ancf3243") for name in KERNELS
-    ]}
-    record["kernels"].append({
-        "name": "newton_resident[feat10]", "route": "cuda",
-        "source": "tlfea_torch/csrc/" + fk.RESIDENT_SOURCES["feat10"],
-        "replaces": "tlfea/ops/pallas_resident.py:64", "launches": res_launches, **res_record})
-    print(json.dumps(record))
+    # The first-order path: K5 + K4 for every gradient, K5t + K4 for its jvp.
+    problem = flagship_problem(device, torch.float32)
+    first = {}
+    for name in ("adamw", "nesterov", "vbd"):
+        first[name] = first_order_phase(name, device, problem, FIRST_ORDER_STEPS[name])
+        done(name)
+    jvp_launches = jvp_phase("jvp", device, problem, first["adamw"]["state"])
+    done("jvp")
+    first_order_vs_newton(device)
+    done("first_order_vs_newton")
+    ancf_first = first_order_ancf(device)
+    done("first_order_ancf")
+    launches["feat10"]["contrib"] = sum(r["launches"]["contrib"] for r in first.values())
+    launches["feat10"]["contrib_tangent"] = jvp_launches["contrib_tangent"]
+    for family, fl in ancf_first.items():
+        launches[family].update({k: fl[k] for k in FIRST_ORDER})
+
+    def src(family, name):
+        return "tlfea_torch/csrc/" + ("fem_kernels.cu" if name == "node_reduce" else next(
+            s for fam, s in fk.FAMILIES.values() if fam == family))
+
+    def replaces(family, name):
+        return BODY_REPLACES.get(name) or (NODE_REDUCE_REPLACES if name == "node_reduce"
+                                           else REPLACES[family][name])
+
+    entries = [(f"{name}[{family}]", src(family, name), replaces(family, name),
+                launches[family][name], timings[family][name])
+               for family in ("feat10", "ancf3443", "ancf3243") for name in KERNELS + FIRST_ORDER]
+    entries.append(("newton_resident[feat10]", "tlfea_torch/csrc/" + fk.RESIDENT_SOURCES["feat10"],
+                    "tlfea/ops/pallas_resident.py:64", res_launches, res_record))
+    # The contract's keys and max_rel_err (the bar), and the resident
+    # kernel's float64 errors, barriers and per-pass bound; numbers to four
+    # digits.
+    keys = ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err_f64", "max_rel_err_f64", "per_pass_bound_ms", "barriers")
+    print(json.dumps({"kernels": [
+        {"name": n, "route": "cuda", "source": sr, "replaces": rp, "launches": la,
+         **{k: (float(f"{r[k]:.4g}") if isinstance(r[k], float) else r[k])
+            for k in keys if k in r}}
+        for n, sr, rp, la, r in entries]}, separators=(",", ":")))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

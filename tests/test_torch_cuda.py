@@ -301,3 +301,129 @@ def test_resident_rollout_launches_once_per_inner_solve(cuda_dev):
     got = {k: fk.LAUNCHES[f"{k}[feat10]"] for k in KERNELS + ["newton_resident"]}
     assert got == {"primal_prep": 0, "hv": 0, "svk_blocks": 3, "node_reduce": 3,
                    "newton_resident": 10}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["feat10", "ancf3243", "ancf3443"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("kernel", ["contrib", "contrib_tangent"])
+def test_contrib_kernels_match_twins_on_card(cuda_dev, kernel, dtype, tol, family):
+    """K5 and K5t (the port of pallas_fem._body, primal and tangent) against
+    their plain twins, one launch each."""
+    system, _, _ = _family_system(cuda_dev, dtype, family)
+    op = system.fem
+    gen = torch.Generator(device=cuda_dev).manual_seed(11)
+    packed = torch.randn(op.n, 9, device=cuda_dev, dtype=dtype, generator=gen)
+    packed[:, :3] *= 1e-3
+    args = (packed,) if kernel == "contrib" else (
+        packed, torch.randn(op.n, 9, device=cuda_dev, dtype=dtype, generator=gen))
+    fk.reset_launch_counts()
+    got = getattr(fk, kernel)(op, *args)
+    want = getattr(fk, kernel + "_plain")(op, *args)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES[f"{kernel}[{family}]"] == 1 and sum(fk.LAUNCHES.values()) == 1
+    assert _rel(got, want) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["feat10", "ancf3243", "ancf3443"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_contrib_is_k1_and_its_tangent_is_k2(cuda_dev, dtype, tol, family):
+    """K5 is K1's tile code with the prep writes compiled out: the same fe,
+    bit for bit. K5t + K4 along the Newton chain (dt p, p, p/dt) is the
+    Hessian product K2 + K4 along p."""
+    system, _, _ = _family_system(cuda_dev, dtype, family)
+    op = system.fem
+    gen = torch.Generator(device=cuda_dev).manual_seed(12)
+    packed = torch.randn(op.n, 9, device=cuda_dev, dtype=dtype, generator=gen)
+    packed[:, :3] *= 1e-3
+    p = torch.randn(op.n, 3, device=cuda_dev, dtype=dtype, generator=gen)
+    fe, prep = fk.primal_prep(op, packed)
+    assert torch.equal(fk.contrib(op, packed), fe)
+    chain = torch.cat([DT * p, p, p / DT], dim=1).contiguous()
+    h5 = fk.node_reduce(op, fk.contrib_tangent(op, packed, chain))
+    h2 = fk.node_reduce(op, fk.hv(op, p, prep, DT))
+    assert _rel(h5, h2) < tol
+
+
+def _flagship_box(device, dtype):
+    """The 10k flagship problem: FEAT10 box 42 x 7 x 6 in best_order."""
+    from tlfea_torch.utils.reorder import apply_node_order, best_order
+
+    nodes, conn = box_t10_mesh(2.0, 0.35, 0.3, 42, 7, 6)
+    nodes, conn = apply_node_order(nodes, conn, best_order(nodes, conn))
+    lam, mu = lame_from_E_nu(1e7, 0.3)
+    elems = feat10.build(nodes, conn, rho=1000.0, dtype=dtype, device="cpu")
+    f_ext = torch.zeros((len(nodes), 3), dtype=dtype)
+    f_ext[:, 2] = lumped_mass(elems) * -9.81
+    x0 = torch.as_tensor(nodes, dtype=dtype, device=device)
+    system = System(elems=elems.to(device), material=SVK(lam, mu, 1e3, 1e3),
+                    constraints=FixedCoefs.from_indices(np.nonzero(nodes[:, 0] < 1e-12)[0], x0))
+    return system, x0, f_ext.to(device)
+
+
+@pytest.mark.cuda
+def test_adamw_flagship_step_is_bitwise_repeatable(cuda_dev):
+    """K5 and K4 sum in fixed orders and the pins are dense fields, so a
+    float32 AdamW step at the flagship size (two outer passes of 300
+    iterations) gives the same bits twice, through K5 + K4 only."""
+    from tlfea_torch.solvers import adamw
+
+    system, x0, f_ext = _flagship_box(cuda_dev, torch.float32)
+    params = adamw.AdamWParams(dt=DT, rho=1e7, lr=1e-3, inner_tol=1e-8, inner_rtol=1e-8,
+                               max_outer=2, max_inner=300, convergence_check_interval=50)
+    runs = []
+    for _ in range(2):
+        fk.reset_launch_counts()
+        state, diag = adamw.make_step(system, params)(StepState.rest(system, x0), f_ext)
+        runs.append((state.x, state.lam, diag["inner_iters"]))
+    assert fk.LAUNCHES["contrib[feat10]"] == runs[1][2] > 0
+    assert fk.LAUNCHES["primal_prep[feat10]"] == fk.LAUNCHES["hv[feat10]"] == 0
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    assert runs[0][2] == runs[1][2]
+
+
+@pytest.mark.cuda
+def test_grad_L_jvp_runs_through_k5t(cuda_dev):
+    """torch.func.jvp(grad_L) on the card launches K5 and K5t (each with K4)
+    and equals the Newton path's product; torch.func.linearize, which would
+    record a launch's output as a constant, raises."""
+    from tlfea_torch.solvers.common import _pin_terms, grad_L
+
+    system, x0, f_ext = _box_system(cuda_dev, torch.float64)
+    state = StepState.rest(system, x0)
+    gen = torch.Generator(device=cuda_dev).manual_seed(13)
+    v, p = (torch.randn(x0.shape, device=cuda_dev, dtype=torch.float64, generator=gen)
+            for _ in range(2))
+
+    def g_of(v):
+        return grad_L(v, state.x, state.v, state.lam, f_ext, DT, 1e7, system, u_prev=state.u)
+
+    fk.reset_launch_counts()
+    g, dg = torch.func.jvp(g_of, (v,), (p,))
+    assert {k: fk.LAUNCHES[f"{k}[feat10]"] for k in ("contrib", "contrib_tangent",
+                                                     "node_reduce")} == {
+        "contrib": 1, "contrib_tangent": 1, "node_reduce": 2}
+    pins = _pin_terms(system, state.lam, DT, 1e7, torch.float64)
+    g2, hvp = fk.g_and_hvp(v, state.u, state.v, f_ext, DT, system.fem, pins)
+    assert _rel(g, g2) < 1e-12 and _rel(dg, hvp(p)) < 1e-12
+    with pytest.raises(RuntimeError, match="cannot be traced"):
+        torch.func.linearize(g_of, v)
+
+
+@pytest.mark.cuda
+def test_grad_L_raises_without_the_library(cuda_dev, monkeypatch):
+    """On a CUDA tensor grad_L launches K5 or raises: no plain fallback."""
+    from tlfea_torch.solvers.common import grad_L
+
+    system, x0, f_ext = _box_system(cuda_dev, torch.float32)
+    state = StepState.rest(system, x0)
+
+    def missing():
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the FEM kernels need the CUDA toolkit")
+
+    monkeypatch.setattr(fk, "build_kernels", missing)
+    fk.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        grad_L(state.v, state.x, state.v, state.lam, f_ext, DT, 1e7, system, u_prev=state.u)
+    assert sum(fk.LAUNCHES.values()) == 0

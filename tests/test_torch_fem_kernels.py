@@ -10,7 +10,13 @@ kernels are held to:
   algebra, and the assembled gradient against `grad_L`;
 - K2 hv: against the tangent of `jax.linearize(grad_L)`;
 - K3 svk_blocks: against `precond_blocks`' einsum branch;
-- K4 node_reduce: against `.at[].add`.
+- K4 node_reduce: against `.at[].add`;
+- K5 contrib and K5t contrib_tangent (the port of `pallas_fem._body`,
+  primal and tangent): against `_element_contrib_values` and its `jax.jvp`
+  along independent tangents of u, v and dv/dt, for all three element
+  families, the reference `tests/test_pallas_fem.py` holds `_body` to. The
+  Pallas kernel itself in interpret mode takes about two minutes on a
+  one-cell box here, so the XLA path is the reference.
 
 Tolerance 1e-12 relative: the same float64 arithmetic in another summation
 order. The CUDA kernels themselves are held against these twins on the
@@ -24,6 +30,8 @@ import pytest
 import torch
 
 from tlfea.constraints import FixedCoefs as JFixedCoefs
+from tlfea.elements import ancf3243 as j_ancf3243
+from tlfea.elements import ancf3443 as j_ancf3443
 from tlfea.elements import feat10 as j_feat10
 from tlfea.elements.assembly import _element_contrib_values, center_translation
 from tlfea.materials import SVK as JSVK
@@ -182,6 +190,10 @@ def test_wrappers_run_the_twins_on_cpu_without_launching(prob):
     u = _t(d["u_prev"])
     assert torch.equal(fk.svk_blocks(op, u), fk.svk_blocks_plain(op, u))
     assert torch.equal(fk.node_reduce(op, fe), fk.node_reduce_plain(op, fe))
+    assert torch.equal(fk.contrib(op, _t(packed)), fk.contrib_plain(op, _t(packed)))
+    dp = _t(packed[::-1].copy())
+    assert torch.equal(fk.contrib_tangent(op, _t(packed), dp),
+                       fk.contrib_tangent_plain(op, _t(packed), dp))
     assert all(v == 0 for v in fk.LAUNCHES.values())
 
 
@@ -253,3 +265,89 @@ def test_element_algebra_and_helpers_match_jax(prob):
                 _jax_grad_L(jsys, nodes, d)(jnp.asarray(d["v"]))) < RTOL
     assert suggest_rho(te, tm, DT) == pytest.approx(j_suggest_rho(je, jm, DT), rel=1e-14)
     assert float(flat_norm(_t(x))) == pytest.approx(float(np.linalg.norm(x)), rel=1e-14)
+
+
+def _family_case(family):
+    """(JAX element batch, JAX material, port system) of a small mesh of the
+    family, damped SVK, float64 on the CPU."""
+    lam, mu = lame_from_E_nu(1e7, 0.3)
+    mat = JSVK(lam=jnp.asarray(lam), mu=jnp.asarray(mu),
+               eta_damp=jnp.asarray(1e3), lam_damp=jnp.asarray(2e3))
+    if family == "feat10":
+        nodes, conn = box_t10_mesh(1.0, 0.2, 0.2, 3, 1, 1)
+        elems = j_feat10.build(nodes, conn, rho=1000.0)
+    elif family == "ancf3243":
+        coefs, conn = j_ancf3243.straight_beam(4, L=0.5)
+        elems = j_ancf3243.build(coefs, conn, 0.5, 0.05, 0.05, rho=1000.0)
+    else:
+        coefs, conn = j_ancf3443.shell_grid(3, 2, L=0.05, W=0.05)
+        elems = j_ancf3443.build(coefs, conn, 0.05, 0.05, 0.01, rho=1000.0)
+    tsys, _, _ = from_numpy_system(elems, mat, device="cpu")
+    assert tsys.fem.family == family
+    return elems, mat, tsys
+
+
+@pytest.mark.parametrize("family", ["feat10", "ancf3243", "ancf3443"])
+def test_contrib_twins_match_jax(family):
+    """K5's twin against `_element_contrib_values`, and K5t's twin against
+    its `jax.jvp` along independent tangents (du, dv, d(dv/dt))."""
+    elems, mat, tsys = _family_case(family)
+    op = tsys.fem
+    rng = np.random.default_rng(21)
+    n = op.n
+    prim = [rng.normal(size=(n, 3)) * s for s in (1e-2, 0.1, 10.0)]  # u, v, dv/dt
+    tang = [rng.normal(size=(n, 3)) for _ in range(3)]
+    ref, dref = jax.jvp(lambda u, v, a: _element_contrib_values(u, v, a, elems, mat),
+                        tuple(map(jnp.asarray, prim)), tuple(map(jnp.asarray, tang)))
+
+    def slots(x):
+        return np.transpose(np.asarray(x), (1, 2, 0)).reshape(op.S * 3, op.E)
+
+    packed, dpacked = _t(np.concatenate(prim, axis=1)), _t(np.concatenate(tang, axis=1))
+    assert _rel(fk.contrib_plain(op, packed).numpy(), slots(ref)) < RTOL
+    assert _rel(fk.contrib_tangent_plain(op, packed, dpacked).numpy(), slots(dref)) < RTOL
+
+
+def test_contrib_twins_agree_with_k1_and_k2(prob):
+    """K5's twin is K1's fe to the bit; K5t's twin along the Newton chain
+    (dt p, p, p/dt) is K2's product."""
+    _, tsys, _, d = prob
+    op = tsys.fem
+    _, packed = _packed(d)
+    fe, prep = fk.primal_prep_plain(op, _t(packed))
+    assert torch.equal(fk.contrib_plain(op, _t(packed)), fe)
+    p = d["p"]
+    chain = _t(np.concatenate([DT * p, p, p / DT], axis=1))
+    assert _rel(fk.contrib_tangent_plain(op, _t(packed), chain).numpy(),
+                fk.hv_plain(op, _t(p), prep, DT).numpy()) < RTOL
+
+
+def test_element_contrib_gives_the_wrappers_plain_tensors(prob, monkeypatch):
+    """Under torch.func.jvp the Function hands its wrappers ordinary tensors
+    (whose data_ptr a kernel launch reads), the primal to K5 and the tangent
+    to K5t, and returns K4 of each."""
+    _, tsys, _, d = prob
+    op = tsys.fem
+    seen = []
+
+    def spy(name):
+        plain = getattr(fk, name + "_plain")
+
+        def fn(op_, *tensors):
+            seen.append(name)
+            for t in tensors:
+                t.data_ptr()  # raises on a functorch wrapper
+                assert t.is_contiguous()
+            return plain(op_, *tensors)
+        return fn
+
+    for name in ("contrib", "contrib_tangent", "node_reduce"):
+        monkeypatch.setitem(fk._KERNELS, name, spy(name))
+    _, packed = _packed(d)
+    dpacked = _t(np.random.default_rng(4).normal(size=packed.shape))
+    out, tan = torch.func.jvp(lambda x: fk.ElementContrib.apply(op, x, False),
+                              (_t(packed),), (dpacked.t().contiguous().t(),))
+    assert seen == ["contrib", "node_reduce", "contrib_tangent", "node_reduce"]
+    assert torch.equal(out, fk.node_reduce_plain(op, fk.contrib_plain(op, _t(packed))))
+    assert torch.equal(tan, fk.node_reduce_plain(
+        op, fk.contrib_tangent_plain(op, _t(packed), dpacked)))

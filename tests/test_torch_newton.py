@@ -147,7 +147,8 @@ def test_import_leaves_jax_out():
     code = ("import sys, tlfea_torch, tlfea_torch.ops.fem_kernels, tlfea_torch.interop, "
             "tlfea_torch.elements.ancf, tlfea_torch.elements.ancf3243, "
             "tlfea_torch.elements.ancf3443, tlfea_torch.solvers.coarse, "
-            "tlfea_torch.ops.resident; "
+            "tlfea_torch.ops.resident, tlfea_torch.solvers.adamw, tlfea_torch.solvers.nesterov, "
+            "tlfea_torch.solvers.vbd, tlfea_torch.utils.coloring; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tlfea.'))); "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -2,7 +2,8 @@
 // on the element family: the number of slots S, of stiffness quadrature
 // points Q, and the mask of translation slots.
 //
-// Four kernels replace the Pallas TPU kernels of the Newton-PCG path:
+// Six kernels replace the Pallas TPU kernels of the Newton-PCG path and of the
+// first-order solvers' gradients:
 //
 //   K1 primal_prep  <- tlfea/ops/pallas_fem.py `_primal_prep_body` (:888),
 //                      `_primal_prep_chunked_body` (:1018) and
@@ -15,6 +16,11 @@
 //   K4 node_reduce  <- the scatter half of all of the above
 //                      (pallas_banded.py `_window_scatter` :689, and the flat
 //                      path's XLA `.at[].add`)
+//   K5 contrib      <- pallas_fem.py `_body` (:519) with tangent=False: K1's
+//                      f_e without the prep cache (the same tile code)
+//   K5t contrib_tangent <- `_body` with tangent=True (the custom-JVP tangent
+//                      of `make_element_contrib`, :830): the directional
+//                      derivative of K5 along [du | dv | d(dv/dt)]
 //
 // The TPU versions tile the element axis as (8,128) vector registers, gather
 // and scatter through VMEM node windows (banded form), and for heavy elements
@@ -52,6 +58,7 @@
 //   dV_t    (Q, E)       quadrature volumes
 //   Me_t    (S*S, E)     consistent mass, row a*S + b
 //   prep    (Q*27, E)    per-QP cache: Du (9), S0 (9), Fd (9), row q*27 + r
+//   dpacked (n, 9)       K5t's tangent [du | dv | d(dv/dt)], node-major
 //   fe/out  (S*C, E)     per-(element, slot) values, row a*C + c
 //
 // Centring: slot 0 is the element-local reference and must be a translation
@@ -109,10 +116,10 @@ constexpr size_t smem_bytes() {
   return (size_t)(F::S * CIN + F::NG * F::S * COUT) * EX * sizeof(T);
 }
 
-// Gather the tile's slot values into xs[(a*CIN + c) * EX + x], the first
-// NCENT channels of a translation slot centred on slot 0 and everything else
-// raw.
-template <typename T, class F, int CIN, int NCENT>
+// Gather the first CIN channels of the tile's slot values (rows of STRIDE
+// channels in src) into xs[(a*CIN + c) * EX + x], the first NCENT channels
+// of a translation slot centred on slot 0 and everything else raw.
+template <typename T, class F, int CIN, int NCENT, int STRIDE = CIN>
 __device__ __forceinline__ void stage(const T* src, const int* __restrict__ conn_t,
                                       int E, int e0, T* xs) {
   constexpr int S = F::S, NT = EX * F::NG;
@@ -121,8 +128,8 @@ __device__ __forceinline__ void stage(const T* src, const int* __restrict__ conn
   for (int t = tid; t < S * EX; t += NT) {
     const int a = t / EX, x = t - a * EX, e = e0 + x;
     if (e >= E) continue;
-    const T* pa = src + (size_t)conn_t[a * sE + e] * CIN;
-    const T* p0 = src + (size_t)conn_t[e] * CIN;
+    const T* pa = src + (size_t)conn_t[a * sE + e] * STRIDE;
+    const T* p0 = src + (size_t)conn_t[e] * STRIDE;
     const bool tr = trans_slot<F>(a);
     for (int c = 0; c < CIN; ++c)
       xs[(a * CIN + c) * EX + x] = (c < NCENT && tr) ? pa[c] - p0[c] : pa[c];
@@ -167,7 +174,9 @@ using PartialFor = Partial<T, N, (N * sizeof(T) <= (size_t)F::REG_BYTES)>;
 // K1 on the tile of elements e0 .. e0 + EX - 1: f_e = sum_q P(Du, Fd) gradN
 // dV + Me dv/dt, and the per-QP prep cache. smem holds smem_bytes<T, F, 9,
 // 3>(); the caller separates two tiles that share it by __syncthreads().
-template <typename T, class F>
+// PREP = false compiles the prep writes out (K5: `prep` is not touched), and
+// leaves f_e's arithmetic as it is, so K5's f_e equals K1's bit for bit.
+template <typename T, class F, bool PREP = true>
 __device__ __forceinline__ void primal_prep_tile(const T* packed, const int* __restrict__ conn_t,
                                                  const T* __restrict__ gN_t,
                                                  const T* __restrict__ dV_t,
@@ -213,15 +222,17 @@ __device__ __forceinline__ void primal_prep_tile(const T* packed, const int* __r
       }
       T P[3][3], Sm[3][3];
       svk_stress(Du, Fd, lam, mu, eta, lam_d, P, Sm);
-      T* pq = prep + (size_t)q * PR * sE + e;
+      if constexpr (PREP) {
+        T* pq = prep + (size_t)q * PR * sE + e;
 #pragma unroll
-      for (int i = 0; i < 3; ++i)
+        for (int i = 0; i < 3; ++i)
 #pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          pq[(i * 3 + j) * sE] = Du[i][j];
-          pq[(9 + i * 3 + j) * sE] = Sm[i][j];
-          pq[(18 + i * 3 + j) * sE] = Fd[i][j];
-        }
+          for (int j = 0; j < 3; ++j) {
+            pq[(i * 3 + j) * sE] = Du[i][j];
+            pq[(9 + i * 3 + j) * sE] = Sm[i][j];
+            pq[(18 + i * 3 + j) * sE] = Fd[i][j];
+          }
+      }
       const T w = dV_t[q * sE + e];
 #pragma unroll
       for (int a = 0; a < S; ++a) {
@@ -266,6 +277,114 @@ primal_prep_kernel(const T* __restrict__ packed, const int* __restrict__ conn_t,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   primal_prep_tile<T, F>(packed, conn_t, gN_t, dV_t, Me_t, fe, prep, E, blockIdx.x * EX, lam,
                          mu, eta, lam_d, reinterpret_cast<T*>(smem_raw));
+}
+
+// K5: K1's f_e without the prep cache, the port of `_body` with tangent=False
+// (pallas_fem.py:519, `pallas_call` :812), the element half of every ALM
+// gradient of the first-order solvers.
+template <typename T, class F>
+__global__ void __launch_bounds__(EX * F::NG)
+contrib_kernel(const T* __restrict__ packed, const int* __restrict__ conn_t,
+               const T* __restrict__ gN_t, const T* __restrict__ dV_t,
+               const T* __restrict__ Me_t, T* __restrict__ fe, int E, T lam, T mu, T eta,
+               T lam_d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  primal_prep_tile<T, F, false>(packed, conn_t, gN_t, dV_t, Me_t, fe, nullptr, E,
+                                blockIdx.x * EX, lam, mu, eta, lam_d,
+                                reinterpret_cast<T*>(smem_raw));
+}
+
+// sum over the non-reference slots a of x_a (x) gradN_qa, x_a staged in
+// xs[(a*W + c0 + i) * EX] (the element's column, W channels a slot).
+template <typename T, class F, int C0, int W>
+__device__ __forceinline__ void contract(const T* xe, const T* __restrict__ gN_t, int q,
+                                         size_t sE, int e, T M[3][3]) {
+  constexpr int S = F::S;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) M[i][j] = T(0);
+#pragma unroll
+  for (int a = 1; a < S; ++a) {  // centred slot 0 is zero
+    T xa[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) xa[i] = xe[(a * W + C0 + i) * EX];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const T gv = gN_t[((size_t)(q * S + a) * 3 + j) * sE + e];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) M[i][j] += xa[i] * gv;
+    }
+  }
+}
+
+// K5t: `_body` with tangent=True (the custom-JVP tangent, pallas_fem.py:830):
+// out_e = sum_q dP gradN dV + Me d(dv/dt), dP the exact derivative of P at
+// the primal (Du, Fd) of `packed` along (dF, dFd) of `dpacked`
+// [du | dv | d(dv/dt)]. The tangent's 9 channels and the primal's u | v
+// (its dv/dt does not enter) are staged, translation slots centred and the
+// d(dv/dt) channels raw; the primal is recomputed per quadrature point.
+// smem holds smem_bytes<T, F, 15, 3>().
+template <typename T, class F>
+__global__ void __launch_bounds__(EX * F::NG)
+contrib_tangent_kernel(const T* __restrict__ packed, const T* __restrict__ dpacked,
+                       const int* __restrict__ conn_t, const T* __restrict__ gN_t,
+                       const T* __restrict__ dV_t, const T* __restrict__ Me_t,
+                       T* __restrict__ out, int E, T lam, T mu, T eta, T lam_d) {
+  constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = EX * NG;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xt = reinterpret_cast<T*>(smem_raw);  // (S*9, EX): tangent du | dv | d(dv/dt)
+  T* xp = xt + S * 9 * EX;                 // (S*6, EX): primal u | v
+  T* part = xp + S * 6 * EX;               // (NG*S*3, EX)
+  const int x = threadIdx.x, g = threadIdx.y;
+  const int e0 = blockIdx.x * EX, e = e0 + x;
+  const size_t sE = (size_t)E;
+  PartialFor<T, F, S * 3> f(part + g * S * 3 * EX + x);
+  stage<T, F, 9, 6>(dpacked, conn_t, E, e0, xt);
+  stage<T, F, 6, 6, 9>(packed, conn_t, E, e0, xp);
+  __syncthreads();
+
+  if (e < E) {
+#pragma unroll 1
+    for (int q = g; q < Q; q += NG) {
+      T dF[3][3], dFd[3][3], Du[3][3], Fd[3][3];
+      contract<T, F, 0, 9>(xt + x, gN_t, q, sE, e, dF);
+      contract<T, F, 3, 9>(xt + x, gN_t, q, sE, e, dFd);
+      contract<T, F, 0, 6>(xp + x, gN_t, q, sE, e, Du);
+      contract<T, F, 3, 6>(xp + x, gN_t, q, sE, e, Fd);
+      T dP[3][3];
+      svk_stress_tangent(Du, dF, Fd, dFd, lam, mu, eta, lam_d, dP);
+      const T w = dV_t[q * sE + e];
+#pragma unroll
+      for (int a = 0; a < S; ++a) {
+        const T* ga = gN_t + ((size_t)(q * S + a) * 3) * sE + e;
+        const T g0 = ga[0], g1 = ga[sE], g2 = ga[2 * sE];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          f[a * 3 + i] += (dP[i][0] * g0 + dP[i][1] * g1 + dP[i][2] * g2) * w;
+      }
+    }
+  }
+  f.flush();
+  __syncthreads();
+
+  for (int t = g * EX + x; t < S * EX; t += NT) {
+    const int a = t / EX, xx = t - a * EX, ee = e0 + xx;
+    if (ee >= E) continue;
+    T s[3] = {T(0), T(0), T(0)};
+    for (int h = 0; h < NG; ++h)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) s[i] += part[((h * S + a) * 3 + i) * EX + xx];
+    T m[3] = {T(0), T(0), T(0)};
+#pragma unroll
+    for (int b = 0; b < S; ++b) {
+      const T me = Me_t[(a * S + b) * sE + ee];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) m[i] += me * xt[(b * 9 + 6 + i) * EX + xx];
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) out[(a * 3 + i) * sE + ee] = s[i] + m[i];
+  }
 }
 
 // K2 on one tile: Hv_e = sum_q dP(G) gradN dV + (1/dt) Me p, primal state
@@ -509,6 +628,37 @@ int launch_primal_prep(const void* packed, const void* conn_t, const void* gN_t,
 }
 
 template <typename T, class F>
+int launch_contrib(const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,
+                   const void* Me_t, void* fe, int E, double lam, double mu, double eta,
+                   double lam_d, void* stream) {
+  constexpr size_t smem = smem_bytes<T, F, 9, 3>();
+  static const cudaError_t attr = allow_smem(contrib_kernel<T, F>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  if (E > 0) {
+    contrib_kernel<T, F><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
+        (const T*)packed, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t,
+        (const T*)Me_t, (T*)fe, E, (T)lam, (T)mu, (T)eta, (T)lam_d);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, class F>
+int launch_contrib_tangent(const void* packed, const void* dpacked, const void* conn_t,
+                           const void* gN_t, const void* dV_t, const void* Me_t, void* out,
+                           int E, double lam, double mu, double eta, double lam_d,
+                           void* stream) {
+  constexpr size_t smem = smem_bytes<T, F, 15, 3>();
+  static const cudaError_t attr = allow_smem(contrib_tangent_kernel<T, F>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  if (E > 0) {
+    contrib_tangent_kernel<T, F><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
+        (const T*)packed, (const T*)dpacked, (const int*)conn_t, (const T*)gN_t,
+        (const T*)dV_t, (const T*)Me_t, (T*)out, E, (T)lam, (T)mu, (T)eta, (T)lam_d);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, class F>
 int launch_hv(const void* p, const void* conn_t, const void* prep, const void* gN_t,
               const void* dV_t, const void* Me_t, void* out, int E, double dt,
               double lam, double mu, double eta, double lam_d, void* stream) {
@@ -555,7 +705,7 @@ int launch_node_reduce(const void* vals, const void* ptr, const void* inc,
 
 }  // namespace tlfea
 
-// Plain C interface of one family's K1-K3, bound with ctypes
+// Plain C interface of one family's K1-K3, K5 and K5t, bound with ctypes
 // (tlfea_torch/ops/fem_kernels.py): tlfea_<kernel>_<NAME>_<SUFFIX>.
 #define TLFEA_FAMILY_ENTRY_POINTS(NAME, FAM, SUFFIX, T)                                 \
   extern "C" int tlfea_primal_prep_##NAME##_##SUFFIX(                                   \
@@ -577,4 +727,19 @@ int launch_node_reduce(const void* vals, const void* ptr, const void* inc,
       int E, double lam, double mu, void* stream) {                                     \
     return tlfea::launch_svk_blocks<T, FAM>(u, conn_t, gN_t, dV_t, out, E, lam, mu,     \
                                             stream);                                    \
+  }                                                                                     \
+  extern "C" int tlfea_contrib_##NAME##_##SUFFIX(                                       \
+      const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
+      const void* Me_t, void* fe, int E, double lam, double mu, double eta,             \
+      double lam_d, void* stream) {                                                     \
+    return tlfea::launch_contrib<T, FAM>(packed, conn_t, gN_t, dV_t, Me_t, fe, E, lam,  \
+                                         mu, eta, lam_d, stream);                       \
+  }                                                                                     \
+  extern "C" int tlfea_contrib_tangent_##NAME##_##SUFFIX(                               \
+      const void* packed, const void* dpacked, const void* conn_t, const void* gN_t,    \
+      const void* dV_t, const void* Me_t, void* out, int E, double lam, double mu,      \
+      double eta, double lam_d, void* stream) {                                         \
+    return tlfea::launch_contrib_tangent<T, FAM>(packed, dpacked, conn_t, gN_t, dV_t,   \
+                                                 Me_t, out, E, lam, mu, eta, lam_d,     \
+                                                 stream);                               \
   }

@@ -2,10 +2,11 @@
 // kernels, as per-thread __device__ functions on 3x3 register arrays.
 //
 // The CUDA form of the tile algebra in tlfea/ops/pallas_fem.py:
-// `_svk_stress_rows` (:89, the strain-safe primal stress), `_SVKTile.hv`
-// (:229, the cached-primal directional derivative) and `_precond_fe` (:630,
-// the closed-form diagonal tangent block). The plain PyTorch twins of the
-// same algebra live in tlfea_torch/ops/fem_kernels.py.
+// `_svk_stress_rows` (:89, the strain-safe primal stress),
+// `_svk_stress_tangent_rows` (:126, its derivative along any direction),
+// `_SVKTile.hv` (:229, the cached-primal derivative along the Newton chain)
+// and `_precond_fe` (:630, the closed-form diagonal tangent block). The
+// plain PyTorch twins of the same algebra live in tlfea_torch/ops/fem_kernels.py.
 #pragma once
 
 namespace tlfea {
@@ -98,6 +99,61 @@ __device__ __forceinline__ void svk_hv(const T G[3][3], const T Du[3][3],
       T s = dS[i][j];
 #pragma unroll
       for (int k = 0; k < 3; ++k) s += dt * G[i][k] * S0[k][j] + Du[i][k] * dS[k][j];
+      dP[i][j] = s;
+    }
+  }
+}
+
+// Exact directional derivative of `svk_stress`'s P at the primal (Du, Fd)
+// along independent tangents dF (of Du) and dFd (of Fd), the port of
+// `_svk_stress_tangent_rows` (pallas_fem.py:126):
+//   S0  = lam tr(E) I + 2 mu E + lam_d tr(Ed) I + 2 eta Ed   (svk_stress's S)
+//   dE  = (dF + dF^T + dF^T Du + Du^T dF)/2
+//   dEd = (dFd + dFd^T + dFd^T Du + Du^T dFd + Fd^T dF + dF^T Fd)/2
+//   dS  = lam tr(dE) I + 2 mu dE + lam_d tr(dEd) I + 2 eta dEd
+//   dP  = dF S0 + dS + Du dS
+// `svk_hv` is this function along the Newton chain dF = dt G, dFd = G, with
+// S0 read from the prep cache instead of recomputed.
+template <typename T>
+__device__ __forceinline__ void svk_stress_tangent(const T Du[3][3], const T dF[3][3],
+                                                   const T Fd[3][3], const T dFd[3][3],
+                                                   T lam, T mu, T eta, T lam_d,
+                                                   T dP[3][3]) {
+  T P0[3][3], S0[3][3];
+  svk_stress(Du, Fd, lam, mu, eta, lam_d, P0, S0);
+  T dE[3][3], dEd[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      T s = dF[i][j] + dF[j][i];
+      T d = dFd[i][j] + dFd[j][i];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        s += dF[k][i] * Du[k][j] + Du[k][i] * dF[k][j];
+        d += dFd[k][i] * Du[k][j] + Du[k][i] * dFd[k][j] + Fd[k][i] * dF[k][j] +
+             dF[k][i] * Fd[k][j];
+      }
+      dE[i][j] = T(0.5) * s;
+      dEd[i][j] = T(0.5) * d;
+    }
+  }
+  const T trdE = dE[0][0] + dE[1][1] + dE[2][2];
+  const T trdEd = dEd[0][0] + dEd[1][1] + dEd[2][2];
+  T dS[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) dS[i][j] = T(2) * mu * dE[i][j] + T(2) * eta * dEd[i][j];
+    dS[i][i] += lam * trdE + lam_d * trdEd;
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      T s = dS[i][j];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) s += dF[i][k] * S0[k][j] + Du[i][k] * dS[k][j];
       dP[i][j] = s;
     }
   }

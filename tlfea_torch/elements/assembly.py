@@ -104,27 +104,6 @@ def viscous_piola(F: torch.Tensor, Fdot: torch.Tensor, eta: float,
     return torch.einsum("...ik,...kj->...ij", F, S_vis)
 
 
-def _element_contrib_values(u, v, dv_dt, elems: ElementBatch, material) -> torch.Tensor:
-    """Per-(element, slot) ALM contribution f_int,e + M_e dv/dt, pre-scatter,
-    (E, S, 3). u: node displacements; one gather of the packed [u|v|dv]."""
-    packed = torch.cat([u, v, dv_dt], dim=1)  # (n_coef, 9)
-    pe = packed[elems.conn]  # (E, S, 9)
-    ue = center_translation(pe[..., 0:3], elems)
-    dve = pe[..., 6:9]
-
-    Du = torch.einsum("eai,eqaj->eqij", ue, elems.grad_N)
-    P = material.first_piola_du(Du)
-    if material.damped:
-        ve = center_translation(pe[..., 3:6], elems)
-        Fdot = torch.einsum("eai,eqaj->eqij", ve, elems.grad_N)
-        F = Du + torch.eye(3, dtype=Du.dtype, device=Du.device)
-        P = P + viscous_piola(F, Fdot, material.eta_damp, material.lam_damp)
-
-    fe = torch.einsum("eqij,eqaj,eq->eai", P, elems.grad_N, elems.dV)
-    me = torch.einsum("eab,ebi->eai", elems.mass_elem, dve)
-    return fe + me
-
-
 def mass_diag(elems: ElementBatch) -> torch.Tensor:
     """Diagonal of the assembled consistent mass matrix -> (n_coef,)."""
     diag_e = torch.diagonal(elems.mass_elem, dim1=1, dim2=2)  # (E, S)

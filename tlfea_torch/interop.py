@@ -1,7 +1,8 @@
 """Build the port's objects from the JAX package's.
 
 `from_numpy_system` reads the fields of a `tlfea` `ElementBatch`, `SVK`,
-`FixedCoefs`, `StepState` and `NewtonParams` through `np.asarray` (duck
+`FixedCoefs`, `StepState` and solver parameters (`NewtonParams`,
+`AdamWParams`, `NesterovParams`, `VBDParams`) through `np.asarray` (duck
 typed: any object with those attribute names will do, so this module never
 imports jax or tlfea) and returns the matching `tlfea_torch` objects on the
 given device and dtype. The parity tests use it to run both packages on the
@@ -10,20 +11,25 @@ same problem.
 
 from __future__ import annotations
 
+from dataclasses import fields
+
 import numpy as np
 import torch
 
 from tlfea_torch.constraints import FixedCoefs
 from tlfea_torch.elements.assembly import ElementBatch
 from tlfea_torch.materials.svk import SVK
+from tlfea_torch.solvers.adamw import AdamWParams
 from tlfea_torch.solvers.common import StepState, System
+from tlfea_torch.solvers.nesterov import NesterovParams
 from tlfea_torch.solvers.newton import NewtonParams
+from tlfea_torch.solvers.vbd import VBDParams
 
 __all__ = ["from_numpy_system"]
 
-_PARAM_FLOATS = ("dt", "rho", "inner_atol", "inner_rtol", "outer_tol", "cg_rtol",
-                 "predict", "ew_eta_max")
-_PARAM_INTS = ("max_outer", "max_inner", "cg_max_iter", "ls_max")
+# A field only one solver's parameters have -> that solver's parameters.
+_PARAM_KINDS = (("lr", AdamWParams), ("alpha", NesterovParams), ("omega", VBDParams),
+                ("cg_rtol", NewtonParams))
 
 
 def _scalar(a) -> float:
@@ -32,11 +38,12 @@ def _scalar(a) -> float:
 
 def from_numpy_system(elems, material, constraints=None, state=None, params=None, *,
                       device="cuda", dtype=torch.float64):
-    """(System, StepState or None, NewtonParams or None) from the JAX
+    """(System, StepState or None, solver parameters or None) from the JAX
     package's objects, on `device` (pass device="cpu" to stay on the host).
-    Floating arrays are cast to `dtype`, index arrays to int64;
-    NewtonParams fields become Python numbers. Raises on what the
-    port does not carry: a non-zero `max_dv`, or a batch without x_ref."""
+    Floating arrays are cast to `dtype`, index arrays to int64; the
+    parameters (Newton, AdamW, Nesterov or VBD, told apart by their
+    fields) become the port's dataclass of Python numbers. Raises on what
+    the port does not carry: a non-zero `max_dv`, or a batch without x_ref."""
 
     def t(a):
         return torch.as_tensor(np.array(a), device=device).to(dtype)
@@ -70,8 +77,11 @@ def from_numpy_system(elems, material, constraints=None, state=None, params=None
 
     prm = None
     if params is not None:
-        if _scalar(params.max_dv) != 0.0:
+        cls = next((c for attr, c in _PARAM_KINDS if hasattr(params, attr)), None)
+        if cls is None:
+            raise TypeError(f"unknown solver parameters {type(params).__name__}")
+        if cls is NewtonParams and _scalar(params.max_dv) != 0.0:
             raise ValueError("max_dv is not ported; use the ls_max safeguard")
-        prm = NewtonParams(**{k: _scalar(getattr(params, k)) for k in _PARAM_FLOATS},
-                           **{k: int(getattr(params, k)) for k in _PARAM_INTS})
+        prm = cls(**{f.name: int(getattr(params, f.name)) if f.type == "int"
+                     else _scalar(getattr(params, f.name)) for f in fields(cls)})
     return system, st, prm

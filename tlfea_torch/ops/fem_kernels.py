@@ -1,7 +1,7 @@
-"""FEM element kernels of the Newton-PCG step, with their plain PyTorch twins.
+"""FEM element kernels of the implicit solvers, with their plain PyTorch twins.
 
 The port of `tlfea/ops/pallas_fem.py` and `tlfea/ops/pallas_banded.py` for
-SVK + Kelvin-Voigt. Four CUDA kernels (sources in `tlfea_torch/csrc/`,
+SVK + Kelvin-Voigt. Six CUDA kernels (sources in `tlfea_torch/csrc/`,
 design notes at the top of `fem_kernels.cuh`) carry the element work:
 
     K1 primal_prep  <- pallas_fem._primal_prep_body (:888),
@@ -14,14 +14,23 @@ design notes at the top of `fem_kernels.cuh`) carry the element work:
                        pallas_banded._blocks_banded_body (:839)
     K4 node_reduce  <- the scatter half of K1-K3 (pallas_banded
                        ._window_scatter :689, the flat path's `.at[].add`)
+    K5 contrib      <- pallas_fem._body (:519) with tangent=False: K1's
+                       per-element gradient without the prep cache
+    K5t contrib_tangent <- _body with tangent=True (the custom JVP of
+                       make_element_contrib, :819-838)
+
+Newton-PCG runs K1-K4 (`g_and_hvp`); the first-order solvers' gradient
+`solvers.common.grad_L` runs K5 + K4 through `ElementContrib`, an
+autograd Function whose forward-mode derivative is K5t + K4, so that
+`torch.func.jvp` of `grad_L` runs through the kernels too.
 
 A fifth kernel, the persistent Newton-PCG solve of `tlfea_torch.ops.resident`
 (csrc/resident.cuh, sources in `RESIDENT_SOURCES`), runs the K1/K2 tile code
 and K4's node sums inside one cooperative launch; it is built and launched
 through this module too.
 
-K1-K3 are templates instantiated for the element families in `FAMILIES`
-(FEAT10, ANCF3243, ANCF3443), one CUDA source each; `FemOperator` refuses
+K1-K3, K5 and K5t are templates instantiated for the element families in
+`FAMILIES` (FEAT10, ANCF3243, ANCF3443), one CUDA source each; `FemOperator` refuses
 any other (Q, S, translation mask). Each wrapper takes the plain twin
 (`*_plain`, same module) for a tensor on the CPU, and launches its kernel
 for a tensor on a CUDA device, raising if the launch fails; it never falls
@@ -46,6 +55,9 @@ import time
 
 import numpy as np
 import torch
+from torch._C._functorch import get_unwrapped, is_functorch_wrapped_tensor
+from torch._functorch.pyfunctorch import temporarily_pop_interpreter_stack
+from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
 from tlfea_torch.elements.assembly import ElementBatch, mass_diag
 from tlfea_torch.materials.svk import SVK
@@ -56,7 +68,8 @@ __all__ = [
     "build_kernels",
     "primal_prep", "primal_prep_plain", "hv", "hv_plain",
     "svk_blocks", "svk_blocks_plain", "node_reduce", "node_reduce_plain",
-    "element_fns", "unpack_sym6", "g_and_hvp",
+    "contrib", "contrib_plain", "contrib_tangent", "contrib_tangent_plain",
+    "ElementContrib", "element_fns", "unpack_sym6", "g_and_hvp",
 ]
 
 PREP_ROWS = 27
@@ -69,7 +82,7 @@ FAMILIES = {
     (12, 8, 0x11): ("ancf3243", "fem_ancf3243.cu"),
     (48, 16, 0x1111): ("ancf3443", "fem_ancf3443.cu"),
 }
-KERNEL_NAMES = ("primal_prep", "hv", "svk_blocks", "node_reduce")
+KERNEL_NAMES = ("primal_prep", "hv", "svk_blocks", "node_reduce", "contrib", "contrib_tangent")
 # family -> CUDA source of its persistent Newton-PCG kernel (csrc/resident.cuh,
 # wrapped in tlfea_torch/ops/resident.py).
 RESIDENT_SOURCES = {"feat10": "fem_resident.cu"}
@@ -111,6 +124,8 @@ def _bind(lib, family: str | None, resident: bool = False) -> None:
             f"tlfea_primal_prep_{family}_{{}}": [P] * 7 + [I] + [D] * 4 + [P],
             f"tlfea_hv_{family}_{{}}": [P] * 7 + [I] + [D] * 5 + [P],
             f"tlfea_svk_blocks_{family}_{{}}": [P] * 5 + [I] + [D] * 2 + [P],
+            f"tlfea_contrib_{family}_{{}}": [P] * 6 + [I] + [D] * 4 + [P],
+            f"tlfea_contrib_tangent_{family}_{{}}": [P] * 7 + [I] + [D] * 4 + [P],
         }
     for name, args in sigs.items():
         for sfx in ("f32", "f64"):
@@ -183,6 +198,11 @@ def _launch(name: str, op: "FemOperator", x: torch.Tensor, *args) -> None:
     if x.device.index != torch.cuda.current_device():
         raise ValueError(f"{name}: tensor on {x.device}, but the current CUDA device is "
                          f"{torch.cuda.current_device()} (torch.cuda.set_device)")
+    if get_proxy_mode() is not None:
+        # make_fx (torch.func.linearize, export) records torch operations
+        # only: a graph would keep this launch's output as a constant.
+        raise RuntimeError(f"{name}: a kernel launch cannot be traced into a graph; use "
+                           f"torch.func.jvp, or the plain path (system.plain=True)")
     libs = build_kernels()
     if name == "node_reduce":
         fn = getattr(libs["fem_kernels.cu"], f"tlfea_node_reduce_{sfx}")
@@ -292,25 +312,65 @@ def _svk_stress(Du, Fd, lam, mu, eta, lam_d):
     return Sm + Du @ Sm, Sm
 
 
+def _svk_stress_tangent(Du, dF, Fd, dFd, lam, mu, eta, lam_d):
+    """dP at (Du, Fd) along (dF, dFd) (see csrc/svk.cuh `svk_stress_tangent`)."""
+    eye = torch.eye(3, dtype=Du.dtype, device=Du.device)
+    DuT, FdT = Du.transpose(-1, -2), Fd.transpose(-1, -2)
+    dFT, dFdT = dF.transpose(-1, -2), dFd.transpose(-1, -2)
+    _, S0 = _svk_stress(Du, Fd, lam, mu, eta, lam_d)
+    dE = 0.5 * (dF + dFT + dFT @ Du + DuT @ dF)
+    dEd = 0.5 * (dFd + dFdT + dFdT @ Du + DuT @ dFd + FdT @ dF + dFT @ Fd)
+    trdE = torch.diagonal(dE, dim1=-2, dim2=-1).sum(-1)
+    trdEd = torch.diagonal(dEd, dim1=-2, dim2=-1).sum(-1)
+    dS = 2.0 * mu * dE + 2.0 * eta * dEd + (lam * trdE + lam_d * trdEd)[..., None, None] * eye
+    return dF @ S0 + dS + Du @ dS
+
+
+def _mass_term(op: FemOperator, x: torch.Tensor) -> torch.Tensor:
+    """Me x_e per (slot, channel, element) from node values x (n, 3), raw."""
+    return torch.einsum("abe,bie->aie", op.Me_t.view(op.S, op.S, op.E),
+                        x[op.conn].permute(1, 2, 0))
+
+
+def _primal(op: FemOperator, packed: torch.Tensor):
+    """K1's and K5's f_e (S*3, E) from packed (n, 9) [u|v|dv/dt], with the
+    per-QP Du, total S and Fd."""
+    Du = _grad(_centred_slots(op, packed[:, 0:3]), op)
+    Fd = _grad(_centred_slots(op, packed[:, 3:6]), op)
+    P, Sm = _svk_stress(Du, Fd, op.lam, op.mu, op.eta, op.lam_d)
+    fe = _to_slots(P, op, _mass_term(op, packed[:, 6:9]))
+    return fe.reshape(op.S * 3, op.E).contiguous(), Du, Sm, Fd
+
+
 def primal_prep_plain(op: FemOperator, packed: torch.Tensor):
     """Twin of K1: packed (n, 9) [u|v|dv/dt] -> (fe (S*3, E), prep (Q*27, E))."""
-    uc = _centred_slots(op, packed[:, 0:3])
-    vc = _centred_slots(op, packed[:, 3:6])
-    dve = packed[:, 6:9][op.conn].permute(1, 2, 0)  # (S, 3, E), raw
-    Du, Fd = _grad(uc, op), _grad(vc, op)
-    P, Sm = _svk_stress(Du, Fd, op.lam, op.mu, op.eta, op.lam_d)
-    Me = op.Me_t.view(op.S, op.S, op.E)
-    fe = _to_slots(P, op, torch.einsum("abe,bie->aie", Me, dve))
+    fe, Du, Sm, Fd = _primal(op, packed)
     prep = torch.cat([Du.reshape(op.Q, op.E, 9), Sm.reshape(op.Q, op.E, 9),
                       Fd.reshape(op.Q, op.E, 9)], dim=-1)  # (Q, E, 27)
-    return (fe.reshape(op.S * 3, op.E).contiguous(),
-            prep.permute(0, 2, 1).reshape(op.Q * PREP_ROWS, op.E).contiguous())
+    return fe, prep.permute(0, 2, 1).reshape(op.Q * PREP_ROWS, op.E).contiguous()
+
+
+def contrib_plain(op: FemOperator, packed: torch.Tensor) -> torch.Tensor:
+    """Twin of K5: K1's fe (S*3, E) without the prep cache."""
+    return _primal(op, packed)[0]
+
+
+def contrib_tangent_plain(op: FemOperator, packed: torch.Tensor,
+                          dpacked: torch.Tensor) -> torch.Tensor:
+    """Twin of K5t: the derivative of K5's fe at packed along dpacked (n, 9)
+    [du | dv | d(dv/dt)], (S*3, E)."""
+    Du = _grad(_centred_slots(op, packed[:, 0:3]), op)
+    Fd = _grad(_centred_slots(op, packed[:, 3:6]), op)
+    dF = _grad(_centred_slots(op, dpacked[:, 0:3]), op)
+    dFd = _grad(_centred_slots(op, dpacked[:, 3:6]), op)
+    dP = _svk_stress_tangent(Du, dF, Fd, dFd, op.lam, op.mu, op.eta, op.lam_d)
+    fe = _to_slots(dP, op, _mass_term(op, dpacked[:, 6:9]))
+    return fe.reshape(op.S * 3, op.E).contiguous()
 
 
 def hv_plain(op: FemOperator, p: torch.Tensor, prep: torch.Tensor, dt: float):
     """Twin of K2: direction p (n, 3) and the K1 prep cache -> (S*3, E)."""
-    pe = p[op.conn].permute(1, 2, 0)  # (S, 3, E), raw for the mass term
-    G = _grad(_centre(op, pe), op)
+    G = _grad(_centred_slots(op, p), op)
     pr = prep.view(op.Q, PREP_ROWS, op.E).permute(0, 2, 1)  # (Q, E, 27)
     Du, S0, Fd = (pr[..., 9 * k:9 * k + 9].reshape(op.Q, op.E, 3, 3) for k in range(3))
     eye = torch.eye(3, dtype=p.dtype, device=p.device)
@@ -322,8 +382,7 @@ def hv_plain(op: FemOperator, p: torch.Tensor, prep: torch.Tensor, dt: float):
     dS = (2.0 * op.mu * dt) * sym2 + (2.0 * op.eta) * dEd \
         + ((op.lam * dt) * tr2 + op.lam_d * trd)[..., None, None] * eye
     dP = dS + dt * (G @ S0) + Du @ dS
-    Me = op.Me_t.view(op.S, op.S, op.E)
-    fe = _to_slots(dP, op, (1.0 / dt) * torch.einsum("abe,bie->aie", Me, pe))
+    fe = _to_slots(dP, op, (1.0 / dt) * _mass_term(op, p))
     return fe.reshape(op.S * 3, op.E).contiguous()
 
 
@@ -340,7 +399,8 @@ def svk_blocks_plain(op: FemOperator, u: torch.Tensor) -> torch.Tensor:
 
 
 def node_reduce_plain(op: FemOperator, vals: torch.Tensor) -> torch.Tensor:
-    """Twin of K4: per-(element, slot) values (S*C, E) -> node sums (n, C)."""
+    """Twin of K4: per-(element, slot) values (S*C, E) -> node sums (n, C),
+    each node's in a fixed order (`coef_scatter_add`)."""
     C = vals.shape[0] // op.S
     return coef_scatter_add(vals.view(op.S, C, op.E).permute(2, 0, 1), op.conn, op.n)
 
@@ -397,14 +457,92 @@ def node_reduce(op: FemOperator, vals: torch.Tensor) -> torch.Tensor:
     return out
 
 
-_KERNELS = (primal_prep, hv, svk_blocks, node_reduce)
-_PLAIN = (primal_prep_plain, hv_plain, svk_blocks_plain, node_reduce_plain)
+def contrib(op: FemOperator, packed: torch.Tensor) -> torch.Tensor:
+    """K5: element ALM contribution f_int + Me dv/dt per (element, slot),
+    (S*3, E): K1's fe without the prep cache."""
+    op._check("contrib", packed, (op.n, 9))
+    if packed.device.type == "cpu":
+        return contrib_plain(op, packed)
+    fe = torch.empty((op.S * 3, op.E), dtype=packed.dtype, device=packed.device)
+    _launch("contrib", op, packed, packed, op.conn_t, op.gN_t, op.dV_t, op.Me_t, fe, op.E,
+            op.lam, op.mu, op.eta, op.lam_d)
+    return fe
 
 
-def element_fns(plain: bool):
-    """(primal_prep, hv, svk_blocks, node_reduce): the kernel wrappers, or
+def contrib_tangent(op: FemOperator, packed: torch.Tensor, dpacked: torch.Tensor) -> torch.Tensor:
+    """K5t: the derivative of K5 at packed along dpacked (n, 9) [du | dv |
+    d(dv/dt)], per (element, slot), (S*3, E)."""
+    op._check("contrib_tangent", packed, (op.n, 9))
+    op._check("contrib_tangent", dpacked, (op.n, 9))
+    if packed.device.type == "cpu":
+        return contrib_tangent_plain(op, packed, dpacked)
+    out = torch.empty((op.S * 3, op.E), dtype=packed.dtype, device=packed.device)
+    _launch("contrib_tangent", op, packed, packed, dpacked, op.conn_t, op.gN_t, op.dV_t,
+            op.Me_t, out, op.E, op.lam, op.mu, op.eta, op.lam_d)
+    return out
+
+
+_KERNELS = {f.__name__: f for f in (primal_prep, hv, svk_blocks, node_reduce, contrib,
+                                    contrib_tangent)}
+_PLAIN = {name: globals()[name + "_plain"] for name in _KERNELS}
+
+
+def element_fns(plain: bool) -> dict:
+    """{kernel name: function} of the kernel wrappers (KERNEL_NAMES), or of
     the plain twins on any device when `plain` (the on-card reference)."""
     return _PLAIN if plain else _KERNELS
+
+
+class ElementContrib(torch.autograd.Function):
+    """Node sums of the element ALM contributions, K4(K5(packed)) -> (n, 3),
+    with the forward-mode derivative K4(K5t(packed, dpacked)): the
+    counterpart of `make_element_contrib`'s `jax.custom_jvp` (K4 is linear),
+    so `torch.func.jvp` of `grad_L` runs through the kernels.
+
+        ElementContrib.apply(op, packed, plain)
+
+    plain=True takes the twins on any device. Under `torch.func.jvp` the
+    derivative rule sees its tensors wrapped one transform level deep, and
+    every tensor made there would be wrapped too; a kernel reads raw device
+    pointers, so the rule steps out of that level and runs K5t + K4 on the
+    values under it. A kernel has no derivative of its own, so nested
+    transforms raise there (`_level_values`; use plain=True for them)."""
+
+    @staticmethod
+    def forward(op, packed, plain):
+        fns = element_fns(plain)
+        return fns["node_reduce"](op, fns["contrib"](op, packed))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        op, packed, plain = inputs
+        ctx.op, ctx.plain = op, plain
+        ctx.save_for_forward(packed)
+
+    @staticmethod
+    def jvp(ctx, _dop, dpacked, _dplain):
+        (packed,) = ctx.saved_tensors
+        fns = element_fns(ctx.plain)
+
+        def tangent(x, dx):
+            return fns["node_reduce"](ctx.op, fns["contrib_tangent"](ctx.op, x, dx.contiguous()))
+
+        if ctx.plain or not is_functorch_wrapped_tensor(packed):
+            return tangent(packed, dpacked)
+        with temporarily_pop_interpreter_stack():
+            return tangent(_level_values(packed), _level_values(dpacked))
+
+
+def _level_values(t: torch.Tensor) -> torch.Tensor:
+    """The tensor under one torch.func transform level (t itself outside
+    any transform); raises under nested transforms."""
+    if not is_functorch_wrapped_tensor(t):
+        return t
+    u = get_unwrapped(t)
+    if is_functorch_wrapped_tensor(u):
+        raise RuntimeError("nested torch.func transforms cannot differentiate a kernel "
+                           "launch; use the plain path (system.plain=True)")
+    return u
 
 
 def unpack_sym6(sym: torch.Tensor) -> torch.Tensor:
@@ -431,10 +569,11 @@ def g_and_hvp(v, u_prev, v_prev, f_ext, dt, op: FemOperator, pin_terms=None,
     u = u_prev + dt * v is formed in displacement space (never x_prev +
     dt * v, whose float32 rounding stalls Newton on stiff problems).
     """
-    k1, k2, _, k4 = element_fns(plain)
+    fns = element_fns(plain)
+    k2, k4 = fns["hv"], fns["node_reduce"]
     u = u_prev + dt * v
     packed = torch.cat([u, v, (v - v_prev) / dt], dim=1).contiguous()
-    fe, prep = k1(op, packed)
+    fe, prep = fns["primal_prep"](op, packed)
     g = k4(op, fe)
     pin_lin = None
     if pin_terms is not None:

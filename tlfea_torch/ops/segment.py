@@ -19,7 +19,11 @@ def gather_coefs(x: torch.Tensor, conn: torch.Tensor) -> torch.Tensor:
 
 
 def coef_scatter_add(values: torch.Tensor, conn: torch.Tensor, n_coef: int) -> torch.Tensor:
-    """Sum per-(element, slot) values (E, S, C) onto the nodes -> (n_coef, C)."""
+    """Sum per-(element, slot) values (E, S, C) onto the nodes -> (n_coef, C).
+
+    `index_put_(accumulate=True)` sums each node's values in a fixed order
+    (on the card it sorts the indices first), so results are repeatable;
+    `index_add_` would sum with atomics on the card."""
     C = values.shape[-1]
     out = torch.zeros((n_coef, C), dtype=values.dtype, device=values.device)
-    return out.index_add_(0, conn.reshape(-1), values.reshape(-1, C))
+    return out.index_put_((conn.reshape(-1),), values.reshape(-1, C), accumulate=True)

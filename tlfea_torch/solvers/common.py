@@ -6,10 +6,11 @@ augmented-Lagrangian minimisation over the velocity v:
   g(v) = M (v - v_prev)/h + f_int(u_prev + h v) - f_ext
          + h J^T (lambda + rho c(u_prev + h v))
 
-evaluated in displacement space u = x - x_ref (the primary state). The hot
-path evaluates g and its Hessian products through the FEM kernels
-(`tlfea_torch.ops.fem_kernels.g_and_hvp`); `grad_L` here is the plain
-PyTorch form of the reference's fused XLA path.
+evaluated in displacement space u = x - x_ref (the primary state).
+Newton-PCG evaluates g and its Hessian products through K1-K4
+(`tlfea_torch.ops.fem_kernels.g_and_hvp`); the first-order solvers call
+`grad_L` here, one K5 + K4 pass per gradient, whose `torch.func.jvp` runs
+K5t + K4.
 """
 
 from __future__ import annotations
@@ -19,13 +20,13 @@ from dataclasses import dataclass, field
 import torch
 
 from tlfea_torch.constraints import FixedCoefs
-from tlfea_torch.elements.assembly import ElementBatch, _element_contrib_values, node_ref
+from tlfea_torch.elements.assembly import ElementBatch, node_ref
 from tlfea_torch.materials.svk import SVK
-from tlfea_torch.ops.fem_kernels import FemOperator, element_fns, unpack_sym6
+from tlfea_torch.ops.fem_kernels import ElementContrib, FemOperator, element_fns, unpack_sym6
 
 __all__ = [
-    "System", "StepState", "grad_L", "constraint_values", "precond_blocks",
-    "flat_norm", "suggest_rho",
+    "System", "StepState", "grad_L", "grad_fn", "constraint_values", "precond_blocks",
+    "flat_norm", "suggest_rho", "alm_outer",
 ]
 
 
@@ -83,25 +84,56 @@ def constraint_values(cons, x_prev, v, dt, elems, u_prev=None):
     return cons.eval_c_u(u_prev + dt * v, x_ref).to(v.dtype)
 
 
-def grad_L(v, x_prev, v_prev, lam, f_ext, dt, rho, system: System, u_prev=None):
-    """ALM gradient g(v) (n, 3), plain PyTorch: the fused path of the
-    reference (`common.py:183-203`), one gather and one scatter-add with
-    the pin forces h (lam + rho c) folded in."""
-    elems = system.elems
-    x_ref = node_ref(elems)
-    if u_prev is None:
-        u_prev = x_prev - x_ref
-    u = u_prev + dt * v
-    contrib = _element_contrib_values(u, v, (v - v_prev) / dt, elems, system.material)
-    idx = elems.conn.reshape(-1)
-    vals = contrib.reshape(-1, 3)
+def _pin_terms(system: System, lam: torch.Tensor, dt: float, rho: float, dtype):
+    """Dense pin fields (`newton.py:183-198`), built once per inner solve:
+    the pin forces h (lam + rho c) are pin_aff + pin_lin * u, and their
+    Hessian term is dt * pin_lin * p, so the duals are never scattered
+    inside an inner loop."""
     cons = system.constraints
-    if cons is not None:
-        c = cons.eval_c_u(u, x_ref)
-        idx = torch.cat([idx, cons.idx])
-        vals = torch.cat([vals, dt * (lam + rho * c)], dim=0)
-    out = torch.zeros((elems.n_coef, 3), dtype=v.dtype, device=v.device)
-    return out.index_add_(0, idx, vals) - f_ext
+    if cons is None:
+        return None
+    if not isinstance(cons, FixedCoefs):
+        raise TypeError(f"unsupported constraints {type(cons).__name__}")
+    x_ref = node_ref(system.elems)
+    n = x_ref.shape[0]
+    zero3 = torch.zeros((n, 3), dtype=dtype, device=x_ref.device)
+    lam_dense = zero3.index_copy(0, cons.idx, lam.to(dtype))
+    tgt_dense = zero3.index_copy(0, cons.idx, (cons.target - x_ref[cons.idx]).to(dtype))
+    pinmask = torch.zeros((n, 1), dtype=dtype, device=x_ref.device)
+    pinmask[cons.idx] = 1.0
+    return dt * (lam_dense - rho * tgt_dense), dt * rho * pinmask
+
+
+def grad_fn(system: System, x_prev, v_prev, lam, f_ext, dt, rho, u_prev=None):
+    """g(v) = grad_L(v, x_prev, v_prev, lam, f_ext, dt, rho, system, u_prev)
+    as a function of v alone, with the pin fields (`_pin_terms`) and
+    -f_ext folded once: what an inner loop calls. Per call: the packed
+    [u | v | dv/dt], one K5 + K4 pass (`ElementContrib`: the twins on CPU
+    tensors or when `system.plain`; on a CUDA tensor the kernels or an
+    error), and three node-wise operations. No atomics: the node sums run
+    in a fixed order and the pins are dense fields."""
+    if u_prev is None:
+        u_prev = x_prev - node_ref(system.elems)
+    pins = _pin_terms(system, lam, dt, rho, v_prev.dtype)
+    aff = -f_ext if pins is None else pins[0] - f_ext
+
+    def g(v):
+        u = u_prev + dt * v
+        packed = torch.cat([u, v, (v - v_prev) / dt], dim=1)
+        out = ElementContrib.apply(system.fem, packed, system.plain)
+        if pins is not None:
+            out = out + pins[1] * u
+        return out + aff
+
+    return g
+
+
+def grad_L(v, x_prev, v_prev, lam, f_ext, dt, rho, system: System, u_prev=None):
+    """ALM gradient g(v) (n, 3): the `system.pallas` path of the reference
+    (`common.py:162-181`), through `grad_fn`. Pure in v:
+    `torch.func.jvp(grad_L)` gives the exact Hessian-vector product through
+    K5t + K4."""
+    return grad_fn(system, x_prev, v_prev, lam, f_ext, dt, rho, u_prev)(v)
 
 
 def precond_blocks(v, x_prev, dt, rho, system: System, u_prev=None) -> torch.Tensor:
@@ -118,8 +150,8 @@ def precond_blocks(v, x_prev, dt, rho, system: System, u_prev=None) -> torch.Ten
     if u_prev is None:
         u_prev = x_prev - node_ref(elems)
     u = (u_prev + dt * v).to(v.dtype).contiguous()
-    _, _, k3, k4 = element_fns(system.plain)
-    blocks = unpack_sym6(dt * k4(op, k3(op, u)))
+    fns = element_fns(system.plain)
+    blocks = unpack_sym6(dt * fns["node_reduce"](op, fns["svk_blocks"](op, u)))
 
     # Kelvin-Voigt tangent: same lam*A + mu*B structure as the elastic one
     # with (lam_d, eta) for (dt*lam, dt*mu), folded in as a scalar factor.
@@ -145,6 +177,37 @@ def precond_blocks(v, x_prev, dt, rho, system: System, u_prev=None) -> torch.Ten
 def flat_norm(a: torch.Tensor) -> torch.Tensor:
     """L2 norm of a tensor viewed as a flat vector."""
     return torch.sqrt(torch.sum(a * a))
+
+
+def alm_outer(system: System, state: StepState, params, f_ext, inner, dual_scale: float):
+    """The outer ALM loop of the first-order solvers (`adamw.py:91-124`,
+    `nesterov.py:71-103`, `vbd.py:152-183`). inner(v, v_prev, lam) -> (v,
+    inner iterations) runs one inner solve; after it v_prev = v, as in the
+    reference, and the duals take lam += dual_scale * c. At most
+    params.max_outer passes, the first always, then while ||c|| >=
+    params.outer_tol. Returns (state, outer passes, inner iterations in
+    all, ||c||): u = u_prev + dt v in displacement space, x = x_ref + u,
+    dv zeros (the reference leaves it unset)."""
+    x_ref = node_ref(system.elems)
+    cons = system.constraints
+    v = v_prev = state.v
+    lam = state.lam
+    outers = inner_tot = 0
+    norm_c = float("inf")
+    while outers < params.max_outer and (outers == 0 or norm_c >= params.outer_tol):
+        v, n_it = inner(v, v_prev, lam)
+        v_prev = v
+        if cons is not None:
+            c = constraint_values(cons, state.x, v, params.dt, system.elems, u_prev=state.u)
+            lam = lam + dual_scale * c
+            norm_c = float(flat_norm(c))
+        else:
+            norm_c = 0.0
+        outers += 1
+        inner_tot += n_it
+    u = state.u + params.dt * v  # displacement-scale update: never x_prev + dt v
+    x = (x_ref + u).to(state.x.dtype)
+    return StepState(x=x, v=v, lam=lam, u=u, dv=torch.zeros_like(v)), outers, inner_tot, norm_c
 
 
 def suggest_rho(elems: ElementBatch, material, dt: float) -> float:

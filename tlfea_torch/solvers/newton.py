@@ -26,13 +26,12 @@ from dataclasses import dataclass
 
 import torch
 
-from tlfea_torch.constraints import FixedCoefs
 from tlfea_torch.elements.assembly import node_ref
 from tlfea_torch.ops import resident
 from tlfea_torch.ops.fem_kernels import g_and_hvp
 from tlfea_torch.ops.linalg import inv3x3
 from tlfea_torch.solvers.common import (
-    StepState, System, constraint_values, flat_norm, precond_blocks,
+    StepState, System, _pin_terms, constraint_values, flat_norm, precond_blocks,
 )
 
 __all__ = ["NewtonParams", "make_step", "make_rollout", "inner_solve_args"]
@@ -103,25 +102,6 @@ def _pcg(hvp, precond, b: torch.Tensor, rtol: float, max_iter: int):
         neg = neg | ~good
         k += 1
     return x, k, flat_norm(r), bool(neg)
-
-
-def _pin_terms(system: System, lam: torch.Tensor, dt: float, rho: float, dtype):
-    """Dense pin fields (`newton.py:183-198`), built once per inner solve:
-    g gets pin_aff + pin_lin * u and H p gets dt * pin_lin * p, so the dual
-    is never scattered inside the Newton/CG loops."""
-    cons = system.constraints
-    if cons is None:
-        return None
-    if not isinstance(cons, FixedCoefs):
-        raise TypeError(f"unsupported constraints {type(cons).__name__}")
-    x_ref = node_ref(system.elems)
-    n = x_ref.shape[0]
-    zero3 = torch.zeros((n, 3), dtype=dtype, device=x_ref.device)
-    lam_dense = zero3.index_copy(0, cons.idx, lam.to(dtype))
-    tgt_dense = zero3.index_copy(0, cons.idx, (cons.target - x_ref[cons.idx]).to(dtype))
-    pinmask = torch.zeros((n, 1), dtype=dtype, device=x_ref.device)
-    pinmask[cons.idx] = 1.0
-    return dt * (lam_dense - rho * tgt_dense), dt * rho * pinmask
 
 
 def _newton_inner(v0, x_prev, v_prev, lam, f_ext, params: NewtonParams, system: System,
