@@ -36,7 +36,9 @@ non-zero:
    gives the device busy time per step and the largest device operations
    ([trace] lines). Then 5 steps from rest through the kernels and through
    the plain twins on the card, whose positions must agree within 5e-3 of
-   the coordinate scale.
+   the coordinate scale. Last, the float32 gradient's rounding noise at
+   the final state (against the float64 twins, over ||f_ext||) and the
+   float64 kernels' Newton and CG medians over the same steps.
 5. resident: the `bench.py` "1k" problem (FEAT10 box 12x4x3, 864
    elements, the same material and solver settings, no coarse
    correction, 250 steps) through the persistent Newton-PCG kernel: the
@@ -72,6 +74,22 @@ non-zero:
    10 % of the deformation from Newton's positions.
 12. first_order_ancf: one capped AdamW step and the jvp on the shell plate
    and the ANCF3243 beam (K5, K5t in those families).
+13. mr_flagship: the 10k problem of 4 with its material swapped for
+   Mooney-Rivlin (mapped from E 1e7, nu 0.3 as `examples/bunny_deform.py`
+   maps it, damping 1e3): the same rollout, trace and check as 4, through
+   the Mooney-Rivlin instantiations of K1 and K2 (`[feat10_mr]`), K4, the
+   exact Mooney-Rivlin preconditioner blocks (plain tensor code) and the
+   coarse correction. Its kernels sit in 2 beside the others, at the
+   flagship's shapes.
+14. bunny_mr: `examples/bunny_deform.py --material mooney_rivlin` on its
+   fallback mesh (box 1 x 1 x 2, 2 x 2 x 4 cells, 96 elements; E 5e5, nu
+   0.4, damping 50, base clamped, 20 N on each ear node, rho_alm 1e8) with
+   `make_solver("newton")`'s parameters and the coarse correction, float32:
+   the rollout of 4 over 30 steps, then max |dx| every 5 steps as the
+   example prints it, beside a float64 run through the plain twins.
+15. mr_first_order: one AdamW step of make_solver's parameters (inner cap
+   2,000) on the Mooney-Rivlin flagship through K5 `[feat10_mr]` + K4, as in
+   9; then the jvp of 10 through K5t `[feat10_mr]`.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 `{"ok": true, "device": {...}}`.
@@ -111,6 +129,17 @@ TRACE_STEPS = 16  # profiled window
 # H100 SXM data sheet, at the full 700 W: HBM bytes/s, float32 flop/s
 # outside the tensor cores.
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+# Floating-point operations per quadrature point of each material's algebra
+# in K1/K5 (primal), K2 (hv) and K5t (tangent), an FMA counted as two, a
+# divide or a cube root as one: SVK from csrc/svk.cuh (svk_stress 310,
+# svk_hv 440, svk_stress_tangent 770); Mooney-Rivlin from csrc/mr.cuh
+# (mr_elastic 182, the coefficients 10, P 101, S_v 80 and F S_v 54 make the
+# primal 427; mr_dP 922 with F, dF, C, FC and S_v recomputed makes K2's
+# 1104; mr_elastic, S_v and mr_dP make the tangent's 1184). The JAX
+# package's own counts of `_MRTile` (tlfea/utils/roofline.py:86-88) are
+# 420/560 primal and 560/700 Hv, undamped/damped.
+MATERIAL_OPS = {"svk": {"primal": 310, "hv": 440, "tangent": 770},
+                "mr": {"primal": 427, "hv": 1104, "tangent": 1184}}
 
 # kernel -> the TPU kernel it replaces, per family
 REPLACES = {
@@ -129,7 +158,14 @@ KERNELS = ("primal_prep", "hv", "svk_blocks", "node_reduce")  # the Newton path
 FIRST_ORDER = ("contrib", "contrib_tangent")
 BODY_REPLACES = {"contrib": "tlfea/ops/pallas_fem.py:519",
                  "contrib_tangent": "tlfea/ops/pallas_fem.py:830"}
-FIRST_ORDER_STEPS = {"adamw": 2, "nesterov": 2, "vbd": 2}  # timed steps after a warm one
+FIRST_ORDER_STEPS = {"adamw": 1, "nesterov": 1, "vbd": 2}  # timed steps after a warm one
+MR_INNER = 2000  # [mr_first_order]'s inner cap (make_solver's 20,000 cut)
+BUNNY_STEPS = 30  # examples/bunny_deform.py's --steps
+BUNNY_DIMS = (1.0, 1.0, 2.0, 2, 2, 4)  # its fallback mesh, box_t10_mesh
+# float32 kernels against the float64 twins after BUNNY_STEPS, of the
+# displacement: both solve each step to rtol 1e-4 and CG to 1e-3, so they
+# stop at different iterates; a wrong kernel moves the result by order 1.
+BUNNY_TOL = 5e-2
 TRACE_ITERS = 200  # inner iterations (VBD: gradients) in a first-order [trace] window
 CHECK_INNER = 500  # the capped step of kernels against twins (VBD: 20 sweeps)
 JVP_DIRECTIONS = 8
@@ -174,8 +210,21 @@ def _svk():
     return SVK(lam, mu, 1e3, 1e3)
 
 
-def flagship_problem(device, dtype, dims=(2.0, 0.35, 0.3, 42, 7, 6)):
-    """The bench.py "10k" problem: (system, state, f_ext, params)."""
+def mooney_rivlin(E=1e7, nu=0.3, damping=1e3):
+    """Mooney-Rivlin mapped from (E, nu) as `examples/bunny_deform.py:58-64`
+    maps it: mu10 = 0.4 mu, mu01 = 0.1 mu, kappa = E / (3 (1 - 2 nu)). Its
+    small-strain mu and lam are SVK's at (E, nu), so the ALM penalty, the
+    coarse space and the viscous fold are the SVK flagship's."""
+    from tlfea_torch.materials import MooneyRivlin
+
+    mu = E / (2.0 * (1.0 + nu))
+    return MooneyRivlin(mu10=0.4 * mu, mu01=0.1 * mu, kappa=E / (3.0 * (1.0 - 2.0 * nu)),
+                        eta_damp=damping, lam_damp=damping)
+
+
+def flagship_problem(device, dtype, dims=(2.0, 0.35, 0.3, 42, 7, 6), material=None):
+    """The bench.py "10k" problem: (system, state, f_ext, params); damped SVK
+    unless another material is given."""
     from tlfea_torch.elements import feat10
     from tlfea_torch.utils.reorder import apply_node_order, best_order
     from tlfea_torch.utils.tetmesh import box_t10_mesh
@@ -183,7 +232,37 @@ def flagship_problem(device, dtype, dims=(2.0, 0.35, 0.3, 42, 7, 6)):
     nodes, conn = box_t10_mesh(*dims)
     nodes, conn = apply_node_order(nodes, conn, best_order(nodes, conn))
     elems_cpu = feat10.build(nodes, conn, rho=1000.0, dtype=dtype, device="cpu")
-    return _pinned_problem(elems_cpu, nodes, np.nonzero(nodes[:, 0] < 1e-12)[0], device, _svk())
+    return _pinned_problem(elems_cpu, nodes, np.nonzero(nodes[:, 0] < 1e-12)[0], device,
+                           material or _svk())
+
+
+def bunny_problem(device, dtype):
+    """`examples/bunny_deform.py --material mooney_rivlin` on its fallback
+    mesh with `make_solver("newton")`'s parameters: (system, state, f_ext,
+    params). No gravity: 20 N along x on each ear node (the top tenth),
+    the base (the bottom twentieth) clamped."""
+    import torch
+
+    from tlfea_torch.constraints import FixedCoefs
+    from tlfea_torch.elements import feat10
+    from tlfea_torch.solvers import StepState, System
+    from tlfea_torch.solvers.newton import NewtonParams
+    from tlfea_torch.utils.tetmesh import box_t10_mesh
+
+    nodes, conn = box_t10_mesh(*BUNNY_DIMS)
+    elems_cpu = feat10.build(nodes, conn, rho=1000.0, dtype=dtype, device="cpu")
+    z = nodes[:, 2]
+    zr = z.max() - z.min()
+    base = np.nonzero(z < z.min() + 0.05 * zr)[0]
+    ears = np.nonzero(z > z.max() - 0.1 * zr)[0]
+    x0 = torch.as_tensor(nodes, dtype=dtype, device=device)
+    system = System(elems=elems_cpu.to(device), material=mooney_rivlin(5e5, 0.4, 50.0),
+                    constraints=FixedCoefs.from_indices(base, x0))
+    f_ext = torch.zeros_like(x0)
+    f_ext[torch.as_tensor(ears, device=device), 0] += 20.0
+    params = NewtonParams(dt=1e-3, rho=1e8, inner_atol=1e-7, inner_rtol=1e-4, outer_tol=0.0,
+                          max_outer=1, max_inner=6, cg_rtol=1e-3, cg_max_iter=50)
+    return system, StepState.rest(system, x0), f_ext, params
 
 
 def _clamp_rows(edge_nodes):
@@ -248,29 +327,31 @@ def _device_ms(fn, n):
 
 def _pass_work(name, op, C=6):
     """(words moved, floating-point operations) of one launch of a K1-K5t
-    kernel: each input read once, each output written once; the operations
-    counted from the kernel's arithmetic per quadrature point."""
+    kernel: each input read once, each output written once (the prep cache
+    has the material's op.prep_rows rows a quadrature point); the operations
+    counted from the kernel's arithmetic per quadrature point, the
+    material's from MATERIAL_OPS."""
     E, Q, S, n = op.E, op.Q, op.S, op.n
-    gN, dV, Me, prep = Q * S * 3 * E, Q * E, S * S * E, Q * 27 * E
+    gN, dV, Me, prep = Q * S * 3 * E, Q * E, S * S * E, Q * op.prep_rows * E
+    ops = MATERIAL_OPS[op.kind]
     if name == "primal_prep":
         return (n * 9 + S * E + gN + dV + Me + S * 3 * E + prep,
-                E * (Q * (36 * (S - 1) + 310 + 24 * S) + 6 * S * S + 6 * S))
+                E * (Q * (36 * (S - 1) + ops["primal"] + 24 * S) + 6 * S * S + 6 * S))
     if name == "hv":
         return (n * 3 + S * E + prep + gN + dV + Me + S * 3 * E,
-                E * (Q * (18 * (S - 1) + 440 + 24 * S) + 6 * S * S + 6 * S))
+                E * (Q * (18 * (S - 1) + ops["hv"] + 24 * S) + 6 * S * S + 6 * S))
     if name == "svk_blocks":
         return (n * 3 + S * E + gN + dV + S * 6 * E,
                 E * (Q * (18 * (S - 1) + 72 + 84 * S) + 3 * S))
     if name == "contrib":  # K1 without the prep cache
         return (n * 9 + S * E + gN + dV + Me + S * 3 * E,
-                E * (Q * (36 * (S - 1) + 310 + 24 * S) + 6 * S * S + 6 * S))
+                E * (Q * (36 * (S - 1) + ops["primal"] + 24 * S) + 6 * S * S + 6 * S))
     if name == "contrib_tangent":
         # the tangent's 9 node channels and the primal's u | v (its dv/dt
-        # does not enter); per QP four contractions, and
-        # svk_stress_tangent: the primal S (256), dE (126), dEd (234), dS
-        # (43) and dP (108), about 770
+        # does not enter); per QP four contractions and the material's
+        # tangent (SVK: the primal S 256, dE 126, dEd 234, dS 43, dP 108)
         return (n * 9 + n * 6 + S * E + gN + dV + Me + S * 3 * E,
-                E * (Q * (72 * (S - 1) + 770 + 24 * S) + 6 * S * S + 6 * S))
+                E * (Q * (72 * (S - 1) + ops["tangent"] + 24 * S) + 6 * S * S + 6 * S))
     # node_reduce: vals, the CSR list (ptr, inc), node sums
     return S * C * E + (n + 1) + S * E + n * C, S * C * E
 
@@ -288,11 +369,12 @@ def bound_ms(name, op, C=6, itemsize=4):
     return _bound(*_pass_work(name, op, C), itemsize)
 
 
-def phase_kernels(device, family, system):
-    """Each kernel against its twin at the shapes of `system` (a float64
-    system on the CPU); K5 against K1's fe (bitwise) and K5t + K4 along the
-    Newton chain (dt p, p, p/dt) against K2 + K4 along p. Returns {kernel:
-    record fields} for float32."""
+def phase_kernels(device, tag, system):
+    """Each kernel of the system's material against its twin at the shapes
+    of `system` (a float64 system on the CPU); K5 against K1's fe (bitwise)
+    and K5t + K4 along the Newton chain (dt p, p, p/dt) against K2 + K4
+    along p. tag: the kernels' LAUNCHES tag ("feat10", "feat10_mr", ...).
+    Returns {kernel: record fields} for float32."""
     import torch
 
     from tlfea_torch.ops import fem_kernels as fk
@@ -309,15 +391,23 @@ def phase_kernels(device, family, system):
     out = {}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         op = fk.FemOperator(system.elems.to(device, dtype), system.material)
-        if op.family != family:
-            raise AssertionError(f"expected the {family} kernels, got {op.family}")
+        if op.tag != tag:
+            raise AssertionError(f"expected the {tag} kernels, got {op.tag}")
         x = {k: torch.as_tensor(v, dtype=dtype, device=device) for k, v in host.items()}
         _, prep = fk.primal_prep_plain(op, x["packed"])
+        if op.kind == "mr":
+            # The strained state: J - 1 (prep row 18) well inside (-1, 1).
+            jm1 = prep.view(op.Q, op.prep_rows, op.E)[:, 18]
+            log("kernels", f"{tag} {str(dtype)[6:]}: J - 1 in [{float(jm1.min()):.3e}, "
+                f"{float(jm1.max()):.3e}] at the random state")
+            if not float(jm1.abs().max()) < 0.5:
+                raise AssertionError(f"{tag}: the random state inverts or crushes an element")
         args = {"primal_prep": (x["packed"],), "hv": (x["p"], prep, dt),
                 "svk_blocks": (x["u"],), "node_reduce": (x["vals"],),
                 "contrib": (x["packed"],), "contrib_tangent": (x["packed"], x["dpacked"])}
-        extra = _body_checks(op, x, dt, tol, family)
-        for name in KERNELS + FIRST_ORDER:
+        extra = _body_checks(op, x, dt, tol, tag)
+        names = KERNELS + FIRST_ORDER if op.kind == "svk" else fk.MATERIAL_KERNELS[op.kind]
+        for name in names:
             got = getattr(fk, name)(op, *args[name])
             want = getattr(fk, name + "_plain")(op, *args[name])
             torch.cuda.synchronize()
@@ -326,10 +416,10 @@ def phase_kernels(device, family, system):
             abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             rel = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
             ok = all(torch.isfinite(g).all() for g in got) and rel <= tol
-            log("kernels", f"{name}[{family}] {str(dtype)[6:]}: max rel err {rel:.3e} "
+            log("kernels", f"{name}[{tag}] {str(dtype)[6:]}: max rel err {rel:.3e} "
                 f"(tol {tol:g}), max abs err {abs_err:.3e}")
             if not ok:
-                raise AssertionError(f"{name}[{family}] disagrees with its twin in {dtype}: "
+                raise AssertionError(f"{name}[{tag}] disagrees with its twin in {dtype}: "
                                      f"{rel:.3e}")
             if dtype != torch.float32:
                 continue
@@ -354,7 +444,7 @@ def phase_kernels(device, family, system):
                 idx = op.conn.reshape(-1)
                 acc = torch.zeros((n, 6), dtype=dtype, device=device)
                 lib_ms, _ = _device_ms(lambda: acc.index_add_(0, idx, vals_l), 256)
-            log("kernels", f"{name}[{family}] float32 at E={E}: device {ms:.4f} ms per launch "
+            log("kernels", f"{name}[{tag}] float32 at E={E}: device {ms:.4f} ms per launch "
                 f"(bound {b_ms:.4f} ms by {b_by}, {b_ms / ms:.2f} of it), twin {plain_ms:.4f} "
                 f"ms ({plain_ms / ms:.1f}x); host {kh:.4f} ms per wrapper call, twin {ph:.4f} ms"
                 + ("" if lib_ms is None else f"; index_add_ {lib_ms:.4f} ms"))
@@ -489,7 +579,8 @@ def rollout_phase(tag, device, problem, n_steps, traced=True, coarse=True):
 
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     system, state0, f_ext, params = problem
-    family = system.fem.family
+    op = system.fem
+    family = op.family
     t0 = time.perf_counter()
     co, desc = None, "no coarse correction"
     if coarse:
@@ -499,7 +590,10 @@ def rollout_phase(tag, device, problem, n_steps, traced=True, coarse=True):
                 f"{time.perf_counter() - t0:.2f} s")
     on_resident = resident.eligible(system, co)
     path = ("newton_resident", "svk_blocks", "node_reduce") if on_resident else KERNELS
-    log(tag, f"{system.elems.n_elem} elems ({family}), {system.n_coef} nodes, "
+    if op.kind != "svk":  # no K3: the blocks are plain tensor code
+        path = ("primal_prep", "hv", "node_reduce")
+    log(tag, f"{system.elems.n_elem} elems ({op.tag}, {type(op.material).__name__}), "
+        f"{system.n_coef} nodes, "
         f"{int(system.constraints.idx.numel())} pinned; {desc}; inner solves "
         f"{'in the persistent kernel' if on_resident else 'composed of K1-K4'}")
     roll = newton.make_rollout(system, params, n_steps, coarse=co, precond_refresh=8)
@@ -514,7 +608,7 @@ def rollout_phase(tag, device, problem, n_steps, traced=True, coarse=True):
     sync()
     wall = time.perf_counter() - t0
     names = KERNELS + (("newton_resident",) if family in fk.RESIDENT_SOURCES else ())
-    launches = {k: fk.LAUNCHES[f"{k}[{family}]"] for k in names}
+    launches = {k: fk.LAUNCHES[fk.launch_key(k, op)] for k in names}
     if not bool(torch.isfinite(s.x).all()) or s.x.shape != state0.x.shape:
         raise AssertionError(f"{tag} rollout state is not finite")
     nit, cgit = np.asarray(nit), np.asarray(cgit)
@@ -523,7 +617,8 @@ def rollout_phase(tag, device, problem, n_steps, traced=True, coarse=True):
         f"newton/step median {np.median(nit):g}, cg/step median {np.median(cgit):g}, "
         f"newton_capped_frac {float((nit >= params.max_inner).mean()):.3f}, "
         f"max |u| {float(s.u.abs().max()):.4e}")
-    log(tag, f"launches in the timed rollout: {launches}")
+    log(tag, f"launches in the timed rollout: "
+        f"{ {fk.launch_key(k, op): v for k, v in launches.items()} }")
     if min(launches[k] for k in path) <= 0:
         raise AssertionError(f"a kernel of the path was never launched: {launches}")
     if traced and device.type == "cuda":
@@ -549,16 +644,67 @@ def rollout_phase(tag, device, problem, n_steps, traced=True, coarse=True):
         f"displacement scale")
     if not rel_coord < 5e-3:
         raise AssertionError(f"kernel path disagrees with the twin path: {rel_coord:.3e}")
-    return {"launches": launches, "ms": ms, "newton": nit, "cg": cgit}
+    return {"launches": launches, "ms": ms, "newton": nit, "cg": cgit, "coarse": co,
+            "state": s}
+
+
+def gradient_noise(tag, device, state, material=None, dims=(2.0, 0.35, 0.3, 42, 7, 6)):
+    """The float32 kernels' ALM gradient (K5 + K4, `grad_L` at v = v_prev)
+    against the float64 twins' from the same float32 state, over the
+    flagship's ||f_ext||: the gradient's rounding noise, beside Newton's
+    tolerance of 2.5e-2 ||f_ext||. Returns ||dg|| / ||f_ext||."""
+    import torch
+
+    from tlfea_torch.solvers.common import grad_L
+
+    sys32, _, f32, prm = flagship_problem(device, torch.float32, dims, material)
+    sys64, _, f64, _ = flagship_problem(device, torch.float64, dims, material)
+    sys64 = replace(sys64, plain=True)
+    x, v, lam, u = (getattr(state, k) for k in ("x", "v", "lam", "u"))
+    g32 = grad_L(v, x, v, lam, f32, prm.dt, prm.rho, sys32, u_prev=u)
+    x, v, lam, u = (t.double() for t in (x, v, lam, u))
+    g64 = grad_L(v, x, v, lam, f64, prm.dt, prm.rho, sys64, u_prev=u)
+    dg = g32.double() - g64
+    rel = float(dg.norm() / f64.norm())
+    node = float(dg.norm(dim=1).max() / f64.norm(dim=1).max())
+    log(tag, f"float32 kernels' gradient vs the float64 twins' at the last state: ||dg|| / "
+        f"||f_ext|| = {rel:.3e} (Newton's tolerance 2.5e-2), max over nodes |dg| / max |f_ext| "
+        f"= {node:.3e}")
+    return rel
+
+
+def float64_counts(tag, device, material=None, dims=(2.0, 0.35, 0.3, 42, 7, 6)):
+    """Median Newton and CG per step of the float64 kernels over the steps
+    the float32 rollout times (ROLLOUT + 1 .. 2 ROLLOUT): the counts free of
+    float32 rounding. Returns (newton, cg) medians."""
+    import torch
+
+    from tlfea_torch.solvers import newton
+    from tlfea_torch.solvers.coarse import build_coarse_precond
+
+    system, state, f_ext, params = flagship_problem(device, torch.float64, dims, material)
+    co = build_coarse_precond(system, state.x, params.dt, params.rho, max_agg=512)
+    roll = newton.make_rollout(system, params, ROLLOUT, coarse=co, precond_refresh=8)
+    state, _ = roll(state, f_ext)
+    _, (nit, cgit) = roll(state, f_ext)
+    med = float(np.median(nit)), float(np.median(cgit))
+    log(tag, f"float64 kernels over the same steps: newton/step median {med[0]:g}, cg/step "
+        f"median {med[1]:g}, newton_capped_frac "
+        f"{float((np.asarray(nit) >= params.max_inner).mean()):.3f}")
+    return med
 
 
 def flagship(device, dims=(2.0, 0.35, 0.3, 42, 7, 6)):
-    """The bench.py 10k rollout through the kernels. Returns the launch
+    """The bench.py 10k rollout through the kernels, its gradient's float32
+    noise at the last state and the float64 counts. Returns the launch
     counts of the timed rollout."""
     import torch
 
-    return rollout_phase("flagship", device, flagship_problem(device, torch.float32, dims),
-                         ROLLOUT)["launches"]
+    out = rollout_phase("flagship", device, flagship_problem(device, torch.float32, dims),
+                        ROLLOUT)
+    gradient_noise("flagship", device, out["state"], dims=dims)
+    float64_counts("flagship", device, dims=dims)
+    return out["launches"]
 
 
 def shell(device, nx=72, ny=72):
@@ -784,22 +930,26 @@ def _capped(name, params, n, structures=None):
     return replace(params, max_outer=1, max_inner=n)
 
 
-def first_order_phase(name, device, problem, n_steps):
+def first_order_phase(name, device, problem, n_steps, params=None, tag=None):
     """A first-order solver on the flagship through K5 + K4: a warm step, then
     n_steps timed ones (their launches: K5 and K4, and for VBD K3 for its
     blocks; K1, K2 and K5t never); a torch.profiler window of a capped step
     of TRACE_ITERS inner iterations; and one capped step from rest through
     the kernels and through the twins (equal counts, positions within 5e-3
-    of the coordinate scale). Returns {"launches", "state"}: the timed
-    steps' launches and the state after them."""
+    of the coordinate scale). params: the solver's parameters
+    (`first_order_params(name)` unless given); tag: the phase's name in the
+    log (name unless given). Returns {"launches", "state"}: the timed steps'
+    launches and the state after them."""
     import torch
 
     from tlfea_torch.ops import fem_kernels as fk
     from tlfea_torch.solvers import adamw, nesterov, vbd
 
     system, state0, f_ext, _ = problem
-    params = first_order_params(name)
+    op = system.fem
+    params = params or first_order_params(name)
     module = {"adamw": adamw, "nesterov": nesterov, "vbd": vbd}[name]
+    log_name = tag or name
     inner_key, unit = ("sweeps", "sweep") if name == "vbd" else ("inner_iters", "iteration")
     structures = None
     if name == "vbd":
@@ -821,12 +971,12 @@ def first_order_phase(name, device, problem, n_steps):
             return vbd.make_step(sysx, prm, structures)
         return module.make_step(sysx, prm)
 
-    log(name, f"{params}")
+    log(log_name, f"{params}")
     step = make(system, params)
     t0 = time.perf_counter()
     s, d = step(state0, f_ext)
     torch.cuda.synchronize()
-    log(name, f"warm step: {time.perf_counter() - t0:.2f} s, outer {d['outer_iters']}, "
+    log(log_name, f"warm step: {time.perf_counter() - t0:.2f} s, outer {d['outer_iters']}, "
         f"{inner_key} {d[inner_key]}, ||c|| {d['norm_c']:.3e}")
 
     fk.reset_launch_counts()
@@ -838,18 +988,19 @@ def first_order_phase(name, device, problem, n_steps):
         inners.append(d[inner_key])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fk.LAUNCHES[f"{k}[feat10]"] for k in KERNELS + FIRST_ORDER}
+    launches = {k: fk.LAUNCHES[fk.launch_key(k, op)] for k in KERNELS + FIRST_ORDER}
     if not bool(torch.isfinite(s.x).all()) or s.x.shape != state0.x.shape:
-        raise AssertionError(f"{name}: the state is not finite")
+        raise AssertionError(f"{log_name}: the state is not finite")
     ms, per_inner = wall / n_steps * 1e3, wall / sum(inners) * 1e3
-    log(name, f"timed: {n_steps} steps in {wall:.3f} s = {ms:.3f} ms/step, {per_inner:.5f} "
+    log(log_name, f"timed: {n_steps} steps in {wall:.3f} s = {ms:.3f} ms/step, {per_inner:.5f} "
         f"ms/{unit}; outer per step {outers}, {inner_key} per step {inners}; ||c|| "
         f"{d['norm_c']:.3e}, max |u| {float(s.u.abs().max()):.4e}")
-    log(name, f"launches in the timed steps: {launches}")
+    log(log_name, f"launches in the timed steps: "
+        f"{ {fk.launch_key(k, op): v for k, v in launches.items()} }")
     need = ("contrib", "node_reduce") + (("svk_blocks",) if name == "vbd" else ())
     never = ("primal_prep", "hv", "contrib_tangent") + (() if name == "vbd" else ("svk_blocks",))
     if min(launches[k] for k in need) <= 0 or any(launches[k] for k in never):
-        raise AssertionError(f"{name}: launches {launches}: expected {need} > 0, {never} = 0")
+        raise AssertionError(f"{log_name}: launches {launches}: expected {need} > 0, {never} = 0")
 
     capped = _capped(name, params, TRACE_ITERS, structures)
     cstep = make(system, capped)
@@ -861,8 +1012,8 @@ def first_order_phase(name, device, problem, n_steps):
     wall_c = (time.perf_counter() - t0) * 1e3
     fk.reset_launch_counts()
     by_name = _device_profile(lambda: cstep(s, f_ext))
-    grads = fk.LAUNCHES["contrib[feat10]"]
-    log("trace", f"{name}: a capped step of {dc[inner_key]} {unit}s, {grads} gradients: "
+    grads = fk.LAUNCHES[fk.launch_key("contrib", op)]
+    log("trace", f"{log_name}: a capped step of {dc[inner_key]} {unit}s, {grads} gradients: "
         f"{wall_c:.3f} ms untraced")
     _log_profile("trace", by_name, grads, "gradient", wall_c / grads)
 
@@ -873,18 +1024,18 @@ def first_order_phase(name, device, problem, n_steps):
         t0 = time.perf_counter()
         sx, dx = make(sysx, check)(state0, f_ext)
         torch.cuda.synchronize()
-        log(name, f"one capped step from rest via {'twins' if plain else 'kernels'}: "
+        log(log_name, f"one capped step from rest via {'twins' if plain else 'kernels'}: "
             f"{time.perf_counter() - t0:.3f} s, outer {dx['outer_iters']}, {inner_key} "
             f"{dx[inner_key]}")
         finals[plain] = (sx.x, dx[inner_key])
     diff = float((finals[False][0] - finals[True][0]).abs().max())
     rel_coord = diff / float(finals[True][0].abs().max())
     rel_disp = diff / float((finals[True][0] - state0.x).abs().max())
-    log(name, f"kernels vs twins: {inner_key} {finals[False][1]} vs {finals[True][1]}, max |dx| "
+    log(log_name, f"kernels vs twins: {inner_key} {finals[False][1]} vs {finals[True][1]}, max |dx| "
         f"{diff:.3e} = {rel_coord:.3e} of the coordinate scale (bar 5e-3), {rel_disp:.3e} of "
         f"the displacement scale")
     if finals[False][1] != finals[True][1] or not rel_coord < 5e-3:
-        raise AssertionError(f"{name}: the kernel path disagrees with the twin path")
+        raise AssertionError(f"{log_name}: the kernel path disagrees with the twin path")
     return {"launches": launches, "state": s}
 
 
@@ -899,7 +1050,7 @@ def jvp_phase(tag, device, problem, state, n_dirs=JVP_DIRECTIONS):
     from tlfea_torch.solvers.common import _pin_terms, grad_L
 
     system, _, f_ext, _ = problem
-    family = system.fem.family
+    op = system.fem
     dt, rho = 1e-3, 1e7
 
     def g_of(v):
@@ -913,13 +1064,14 @@ def jvp_phase(tag, device, problem, state, n_dirs=JVP_DIRECTIONS):
     tangents = [torch.func.jvp(g_of, (state.v,), (p,))[1] for p in dirs]
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n_dirs
-    launches = {k: fk.LAUNCHES[f"{k}[{family}]"] for k in KERNELS + FIRST_ORDER}
+    launches = {k: fk.LAUNCHES[fk.launch_key(k, op)] for k in KERNELS + FIRST_ORDER}
     pins = _pin_terms(system, state.lam, dt, rho, state.v.dtype)
     _, hvp = fk.g_and_hvp(state.v, state.u, state.v, f_ext, dt, system.fem, pins)
     rel = max(float((t - h).abs().max() / h.abs().max())
               for t, h in zip(tangents, (hvp(p) for p in dirs)))
-    log(tag, f"torch.func.jvp(grad_L) along {n_dirs} directions: {wall:.3f} ms each; against "
-        f"g_and_hvp's K2 product: max rel err {rel:.3e} (tol 1e-5); launches {launches}")
+    log(tag, f"{op.tag}: torch.func.jvp(grad_L) along {n_dirs} directions: {wall:.3f} ms "
+        f"each; against g_and_hvp's K2 product: max rel err {rel:.3e} (tol 1e-5); launches "
+        f"{ {fk.launch_key(k, op): v for k, v in launches.items()} }")
     if launches["contrib_tangent"] != n_dirs or launches["hv"] or not rel <= 1e-5:
         raise AssertionError(f"{tag}: the jvp did not run through K5t or disagrees with K2")
     return launches
@@ -944,7 +1096,7 @@ def first_order_ancf(device):
         t0 = time.perf_counter()
         s, d = adamw.make_step(system, params)(state0, f_ext)
         torch.cuda.synchronize()
-        launches = {k: fk.LAUNCHES[f"{k}[{family}]"] for k in KERNELS + FIRST_ORDER}
+        launches = {k: fk.LAUNCHES[fk.launch_key(k, system.fem)] for k in KERNELS + FIRST_ORDER}
         log("first_order_ancf", f"{family}: {system.elems.n_elem} elements, one AdamW step of "
             f"{d['inner_iters']} iterations in {time.perf_counter() - t0:.3f} s, max |u| "
             f"{float(s.u.abs().max()):.3e}; launches {launches}")
@@ -997,6 +1149,76 @@ def first_order_vs_newton(device):
     return devs
 
 
+def mr_flagship(device):
+    """[mr_flagship]: the 10k rollout with the flagship's material swapped
+    for Mooney-Rivlin, through K1 and K2 `[feat10_mr]`, K4, the exact
+    preconditioner blocks and the coarse correction, its gradient's float32
+    noise (`gradient_noise`) and the float64 counts (`float64_counts`).
+    Returns the launch counts of the timed rollout."""
+    import torch
+
+    out = rollout_phase("mr_flagship", device,
+                        flagship_problem(device, torch.float32, material=mooney_rivlin()), ROLLOUT)
+    log("mr_flagship", f"median Newton {np.median(out['newton']):g} / CG "
+        f"{np.median(out['cg']):g} per step (the SVK flagship's: see [flagship])")
+    gradient_noise("mr_flagship", device, out["state"], mooney_rivlin())
+    float64_counts("mr_flagship", device, mooney_rivlin())
+    return out["launches"]
+
+
+def bunny_mr(device, n_steps=BUNNY_STEPS):
+    """[bunny_mr]: `examples/bunny_deform.py --material mooney_rivlin` on its
+    fallback mesh through the Mooney-Rivlin kernels (the rollout of
+    `rollout_phase`), then its loop as the example runs it (a step at a
+    time, blocks refreshed every step), printing max |dx| every 5 steps, in
+    float32 through the kernels beside float64 through the plain twins on
+    the card; their displacements must agree within BUNNY_TOL. Returns the
+    launch counts of the timed rollout."""
+    import torch
+
+    from tlfea_torch.solvers import newton
+    from tlfea_torch.solvers.coarse import build_coarse_precond
+
+    tag = "bunny_mr"
+    problem = bunny_problem(device, torch.float32)
+    out = rollout_phase(tag, device, problem, n_steps)
+    system, s32, f_ext, params = problem
+    sys64, s64, f64_ext, params64 = bunny_problem(device, torch.float64)
+    sys64 = replace(sys64, plain=True)
+    co64 = build_coarse_precond(sys64, s64.x, params64.dt, params64.rho, max_agg=512)
+    step32 = newton.make_step(system, params, coarse=out["coarse"])
+    step64 = newton.make_step(sys64, params64, coarse=co64)
+    x0 = s64.x[:, 0]
+    t0 = time.perf_counter()
+    for k in range(n_steps):
+        s32, d32 = step32(s32, f_ext)
+        s64, d64 = step64(s64, f64_ext)
+        if k % 5 == 0:
+            dx32 = float((s32.x[:, 0].double() - x0).abs().max())
+            dx64 = float((s64.x[:, 0] - x0).abs().max())
+            log(tag, f"step {k:4d} max_dx={dx32:.5f} |c|={d32['norm_c']:.1e} newton "
+                f"{d32['newton_iters']} cg {d32['cg_iters']} (float64 twins: max_dx={dx64:.5f} "
+                f"|c|={d64['norm_c']:.1e} newton {d64['newton_iters']} cg {d64['cg_iters']})")
+    torch.cuda.synchronize()
+    diff = float((s32.u.double() - s64.u).abs().max())
+    scale = float(s64.u.abs().max())
+    log(tag, f"{n_steps} steps a step at a time, both runs: {time.perf_counter() - t0:.2f} s; "
+        f"float32 kernels vs float64 twins: max |du| {diff:.3e} = {diff / scale:.3e} of the "
+        f"displacement {scale:.4e} m (bar {BUNNY_TOL:g})")
+    if not diff / scale < BUNNY_TOL:
+        raise AssertionError(f"{tag}: float32 kernels off the float64 twins: {diff / scale:.3e}")
+    return out["launches"]
+
+
+def mr_first_order(device, problem):
+    """[mr_first_order]: one AdamW step of make_solver's parameters with the
+    inner cap cut to MR_INNER on the Mooney-Rivlin flagship, through K5
+    `[feat10_mr]` + K4, as `first_order_phase` runs it (warm step, timed
+    step, trace, capped step kernels vs twins). Returns its result."""
+    params = replace(first_order_params("adamw"), max_inner=MR_INNER)
+    return first_order_phase("adamw", device, problem, 1, params=params, tag="mr_first_order")
+
+
 def main():
     import torch
 
@@ -1041,6 +1263,8 @@ def main():
 
     timings = {
         "feat10": phase_kernels(device, "feat10", flagship_problem("cpu", torch.float64)[0]),
+        "feat10_mr": phase_kernels(device, "feat10_mr", flagship_problem(
+            "cpu", torch.float64, material=mooney_rivlin())[0]),
         "ancf3443": phase_kernels(device, "ancf3443", shell_problem("cpu", torch.float64)[0]),
         "ancf3243": phase_kernels(device, "ancf3243", ancf_beam_problem("cpu", torch.float64)[0]),
     }
@@ -1085,22 +1309,40 @@ def main():
     done("first_order_vs_newton")
     ancf_first = first_order_ancf(device)
     done("first_order_ancf")
+
+    # Mooney-Rivlin on the 10k box: K1/K2 [feat10_mr] in the Newton rollout,
+    # K5 in an AdamW step, K5t in the jvp.
+    launches["feat10_mr"] = mr_flagship(device)
+    done("mr_flagship")
+    bunny_mr(device)
+    done("bunny_mr")
+    mr_problem = flagship_problem(device, torch.float32, material=mooney_rivlin())
+    mr_first = mr_first_order(device, mr_problem)
+    done("mr_first_order")
+    mr_jvp = jvp_phase("jvp", device, mr_problem, mr_first["state"])
+    done("jvp (Mooney-Rivlin)")
+
     launches["feat10"]["contrib"] = sum(r["launches"]["contrib"] for r in first.values())
     launches["feat10"]["contrib_tangent"] = jvp_launches["contrib_tangent"]
+    launches["feat10_mr"]["contrib"] = mr_first["launches"]["contrib"]
+    launches["feat10_mr"]["contrib_tangent"] = mr_jvp["contrib_tangent"]
     for family, fl in ancf_first.items():
         launches[family].update({k: fl[k] for k in FIRST_ORDER})
 
-    def src(family, name):
-        return "tlfea_torch/csrc/" + ("fem_kernels.cu" if name == "node_reduce" else next(
-            s for fam, s in fk.FAMILIES.values() if fam == family))
+    def src(tag, name):
+        family, kind = (tag[:-3], "mr") if tag.endswith("_mr") else (tag, "svk")
+        return "tlfea_torch/csrc/" + ("fem_kernels.cu" if name == "node_reduce"
+                                      else fk.SOURCES[(family, kind)])
 
-    def replaces(family, name):
+    def replaces(tag, name):
         return BODY_REPLACES.get(name) or (NODE_REDUCE_REPLACES if name == "node_reduce"
-                                           else REPLACES[family][name])
+                                           else REPLACES[tag.removesuffix("_mr")][name])
 
-    entries = [(f"{name}[{family}]", src(family, name), replaces(family, name),
-                launches[family][name], timings[family][name])
-               for family in ("feat10", "ancf3443", "ancf3243") for name in KERNELS + FIRST_ORDER]
+    entries = [(f"{name}[{tag}]", src(tag, name), replaces(tag, name),
+                launches[tag][name], timings[tag][name])
+               for tag in ("feat10", "ancf3443", "ancf3243", "feat10_mr")
+               for name in (fk.MATERIAL_KERNELS["mr"] if tag.endswith("_mr")
+                            else KERNELS + FIRST_ORDER)]
     entries.append(("newton_resident[feat10]", "tlfea_torch/csrc/" + fk.RESIDENT_SOURCES["feat10"],
                     "tlfea/ops/pallas_resident.py:64", res_launches, res_record))
     # The contract's keys and max_rel_err (the bar), and the resident

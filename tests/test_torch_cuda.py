@@ -8,7 +8,11 @@ rollouts through the kernels match the same rollouts through the twins. The
 persistent Newton-PCG kernel is held against its plain version with the
 JAX package's bars for the resident solve (`tests/test_pallas_banded.py`,
 `test_resident_inner_matches_newton_inner`): the same Newton count, CG
-within 2, positions within 1e-10 relative.
+within 2, positions within 1e-10 relative. The Mooney-Rivlin instantiations
+(`[feat10_mr]`) are held to their twins at a strained state (the JAX
+test's 1e-2 random displacement of a 1.0 x 0.3 x 0.3 box of 4 x 2 x 2
+cells, `tests/test_pallas_fem.py:23,113-125`): the isochoric terms cancel to
+O(strain), so their float32 error relative to |P| is about eps / strain.
 This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed; tests/conftest.py imports jax, so on such a machine
 run it as
@@ -25,7 +29,7 @@ import torch
 from tlfea_torch.constraints import FixedCoefs
 from tlfea_torch.elements import ancf3243, ancf3443, feat10
 from tlfea_torch.elements.assembly import lumped_mass
-from tlfea_torch.materials import SVK, lame_from_E_nu
+from tlfea_torch.materials import SVK, MooneyRivlin, lame_from_E_nu
 from tlfea_torch.ops import fem_kernels as fk
 from tlfea_torch.ops import resident
 from tlfea_torch.solvers import StepState, System, newton
@@ -33,6 +37,7 @@ from tlfea_torch.utils.tetmesh import box_t10_mesh
 
 DT = 1e-3
 KERNELS = ["primal_prep", "hv", "svk_blocks", "node_reduce"]
+MR_KERNELS = ["primal_prep", "hv", "contrib", "contrib_tangent"]
 
 
 @pytest.fixture
@@ -43,14 +48,20 @@ def cuda_dev():
     return torch.device("cuda")
 
 
-def _box_system(device, dtype, dims=(1.0, 0.2, 0.2, 3, 1, 1)):
+def _mooney_rivlin(E=1e7, nu=0.3, damping=1e3):
+    """Mooney-Rivlin mapped from (E, nu) as `examples/bunny_deform.py` maps it."""
+    mu = E / (2.0 * (1.0 + nu))
+    return MooneyRivlin(0.4 * mu, 0.1 * mu, E / (3.0 * (1.0 - 2.0 * nu)), damping, damping)
+
+
+def _box_system(device, dtype, dims=(1.0, 0.2, 0.2, 3, 1, 1), material=None):
     nodes, conn = box_t10_mesh(*dims)
     lam, mu = lame_from_E_nu(1e7, 0.3)
     elems = feat10.build(nodes, conn, rho=1000.0, dtype=dtype, device="cpu")
     f_ext = torch.zeros((len(nodes), 3), dtype=dtype)
     f_ext[:, 2] = lumped_mass(elems) * -9.81
     x0 = torch.as_tensor(nodes, dtype=dtype, device=device)
-    system = System(elems=elems.to(device), material=SVK(lam, mu, 1e3, 1e3),
+    system = System(elems=elems.to(device), material=material or SVK(lam, mu, 1e3, 1e3),
                     constraints=FixedCoefs.from_indices(np.nonzero(nodes[:, 0] < 1e-12)[0], x0))
     return system, x0, f_ext.to(device)
 
@@ -426,4 +437,109 @@ def test_grad_L_raises_without_the_library(cuda_dev, monkeypatch):
     fk.reset_launch_counts()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         grad_L(state.v, state.x, state.v, state.lam, f_ext, DT, 1e7, system, u_prev=state.u)
+    assert sum(fk.LAUNCHES.values()) == 0
+
+
+def _mr_case(device, dtype, damping):
+    """The strained Mooney-Rivlin state: the 4 x 2 x 2 box, 1e-2 random
+    displacement, random velocities, increments, directions and tangents."""
+    system, _, _ = _box_system(device, dtype, dims=(1.0, 0.3, 0.3, 4, 2, 2),
+                               material=_mooney_rivlin(1e6, 0.3, damping))
+    op = system.fem
+    rng = np.random.default_rng(21)
+    n = op.n
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+
+    packed = dev(np.concatenate([rng.normal(size=(n, 3)) * 1e-2, rng.normal(size=(n, 6))], 1))
+    return system, packed, dev(rng.normal(size=(n, 3))), dev(rng.normal(size=(n, 9)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("damping", [0.0, 1e2])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("kernel", MR_KERNELS)
+def test_mr_kernel_matches_twin_on_card(cuda_dev, kernel, dtype, tol, damping):
+    """K1, K2, K5 and K5t `[feat10_mr]` (the port of `_MRTile` in
+    `_primal_prep_body`, `_hv_body` and `_body`) against their twins, one
+    launch each, damped and undamped."""
+    system, packed, p, dpacked = _mr_case(cuda_dev, dtype, damping)
+    op = system.fem
+    assert (op.tag, op.source, op.prep_rows) == ("feat10_mr", "fem_feat10_mr.cu", 30)
+    _, prep = fk.primal_prep_plain(op, packed)
+    args = {"primal_prep": (packed,), "hv": (p, prep, DT), "contrib": (packed,),
+            "contrib_tangent": (packed, dpacked)}[kernel]
+    fk.reset_launch_counts()
+    got = getattr(fk, kernel)(op, *args)
+    want = getattr(fk, kernel + "_plain")(op, *args)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES[f"{kernel}[feat10_mr]"] == 1 and sum(fk.LAUNCHES.values()) == 1
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert bool(torch.isfinite(g).all()) and _rel(g, w) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_mr_contrib_is_k1_and_its_tangent_is_k2(cuda_dev, dtype, tol):
+    """As for SVK: K5 `[feat10_mr]` is K1's fe bit for bit, and K5t + K4
+    along the Newton chain (dt p, p, p/dt) is K2 + K4 along p."""
+    system, packed, p, _ = _mr_case(cuda_dev, dtype, 1e2)
+    op = system.fem
+    fe, prep = fk.primal_prep(op, packed)
+    assert torch.equal(fk.contrib(op, packed), fe)
+    chain = torch.cat([DT * p, p, p / DT], dim=1).contiguous()
+    h5 = fk.node_reduce(op, fk.contrib_tangent(op, packed, chain))
+    h2 = fk.node_reduce(op, fk.hv(op, p, prep, DT))
+    assert _rel(h5, h2) < tol
+
+
+@pytest.mark.cuda
+def test_mr_rollout_is_bitwise_repeatable_and_matches_twins(cuda_dev):
+    """Three float32 steps of the pinned MR box with the coarse correction
+    through K1/K2 `[feat10_mr]` give the same bits and counts twice (no
+    atomics; the MR blocks sum in a fixed order); in float64 the kernel path
+    takes the twins' counts, positions within 1e-10 of the displacement."""
+    from tlfea_torch.solvers.coarse import build_coarse_precond
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        system, x0, f_ext = _box_system(cuda_dev, dtype, dims=(1.0, 0.3, 0.3, 4, 2, 2),
+                                        material=_mooney_rivlin())
+        params = newton.NewtonParams(dt=DT, rho=1e7, inner_atol=1e-3 * float(f_ext.norm()),
+                                     outer_tol=0.0, max_outer=1, max_inner=6, cg_rtol=1e-3,
+                                     cg_max_iter=50)
+        coarse = build_coarse_precond(system, x0, DT, 1e7, target_cluster=8)
+        runs = []
+        for plain in (False, False, True):
+            sysx = replace(system, plain=plain)
+            fk.reset_launch_counts()
+            state, counts = newton.make_rollout(sysx, params, 3, coarse=coarse,
+                                                precond_refresh=2)(StepState.rest(sysx, x0),
+                                                                   f_ext)
+            launched = {k: fk.LAUNCHES[f"{k}[feat10_mr]"] for k in ("primal_prep", "hv")}
+            assert (min(launched.values()) > 0) != plain
+            assert fk.LAUNCHES["svk_blocks[feat10]"] == 0
+            runs.append((state.x, counts))
+        out[dtype] = (runs, x0)
+    (a, b, _), _ = out[torch.float32]
+    assert torch.equal(a[0], b[0]) and a[1] == b[1]
+    (k, _, p), x0 = out[torch.float64]
+    assert k[1] == p[1]
+    assert float((k[0] - p[0]).abs().max()) < 1e-10 * float((p[0] - x0).abs().max())
+
+
+@pytest.mark.cuda
+def test_mr_raises_on_ancf_and_has_no_k3(cuda_dev):
+    """No Mooney-Rivlin instantiation exists for the ANCF families (nor a
+    JAX path that pairs them), and K3 is SVK only: both raise on the card,
+    launching nothing."""
+    system, _, _ = _ancf_system(cuda_dev, torch.float32, "ancf3443")
+    with pytest.raises(ValueError, match="MooneyRivlin with ancf3443"):
+        fk.FemOperator(system.elems, _mooney_rivlin())
+    mr, _, _ = _box_system(cuda_dev, torch.float32, material=_mooney_rivlin())
+    fk.reset_launch_counts()
+    with pytest.raises(ValueError, match="takes no MooneyRivlin"):
+        fk.svk_blocks(mr.fem, torch.zeros((mr.n_coef, 3), device=cuda_dev))
     assert sum(fk.LAUNCHES.values()) == 0

@@ -122,7 +122,7 @@ def test_primal_prep_twin_matches_jax(prob):
                              float(mat.lam_damp))
     S0 = jnp.stack([jnp.stack(row, -1) for row in S0], -2)
     want = jnp.concatenate([a.reshape(op.E, op.Q, 9) for a in (Du, S0, Fd)], axis=-1)
-    got = prep.numpy().reshape(op.Q, fk.PREP_ROWS, op.E).transpose(2, 0, 1)
+    got = prep.numpy().reshape(op.Q, op.prep_rows, op.E).transpose(2, 0, 1)
     assert _rel(got, want) < RTOL
 
     g, _ = _port_g_and_hvp(tsys, d)
@@ -204,7 +204,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(prob):
     with pytest.raises(ValueError, match="expected a contiguous"):
         fk.primal_prep(op, _t(packed)[:, :6])
     with pytest.raises(ValueError, match="expected a contiguous"):
-        fk.hv(op, _t(d["p"]).t().contiguous().t(), torch.zeros(op.Q * fk.PREP_ROWS, op.E,
+        fk.hv(op, _t(d["p"]).t().contiguous().t(), torch.zeros(op.Q * op.prep_rows, op.E,
                                                                   dtype=torch.float64), DT)
     with pytest.raises(ValueError, match="tables are"):
         fk.svk_blocks(op, _t(d["p"]).float())

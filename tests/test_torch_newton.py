@@ -23,6 +23,7 @@ from tlfea.constraints import FixedCoefs as JFixedCoefs
 from tlfea.elements import feat10 as j_feat10
 from tlfea.elements.assembly import lumped_mass as j_lumped_mass
 from tlfea.materials import SVK as JSVK
+from tlfea.materials import MooneyRivlin as JMooneyRivlin
 from tlfea.materials import lame_from_E_nu
 from tlfea.solvers import StepState as JStepState
 from tlfea.solvers import System as JSystem
@@ -31,6 +32,7 @@ from tlfea.solvers.coarse import build_coarse_precond as j_build_coarse
 from tlfea.utils.reorder import apply_node_order, best_order
 from tlfea.utils.tetmesh import box_t10_mesh
 from tlfea_torch.interop import from_numpy_system
+from tlfea_torch.materials import SVK, MooneyRivlin
 from tlfea_torch.solvers import newton
 from tlfea_torch.solvers.coarse import build_coarse_precond
 
@@ -136,11 +138,28 @@ def test_interop_round_trip(prob):
         for name in ("max_outer", "max_inner", "cg_max_iter", "ls_max"):
             assert getattr(tparams, name) == getattr(jparams, name)
         m = tsys.material
+        assert type(m) is SVK and tsys.fem.kind == "svk"
         assert (m.lam, m.mu, m.eta_damp, m.lam_damp) == tuple(
             float(getattr(jsys.material, k)) for k in ("lam", "mu", "eta_damp", "lam_damp"))
     with pytest.raises(ValueError, match="max_dv"):
         from_numpy_system(jsys.elems, jsys.material, params=jparams.replace(max_dv=1.0),
                           device="cpu")
+    # A JAX MooneyRivlin has small-strain `lam` and `mu` properties; it must
+    # come over as the port's MooneyRivlin with equal fields, not as an SVK.
+    fields = ("mu10", "mu01", "kappa", "eta_damp", "lam_damp")
+    jmr = JMooneyRivlin(mu10=jnp.asarray(1.5e6), mu01=jnp.asarray(4e5), kappa=jnp.asarray(8e6),
+                        eta_damp=jnp.asarray(1e3), lam_damp=jnp.asarray(2e3))
+    tsys, _, _ = from_numpy_system(jsys.elems, jmr, jsys.constraints, device="cpu")
+    m = tsys.material
+    assert type(m) is MooneyRivlin and tsys.fem.kind == "mr"
+    assert tuple(getattr(m, k) for k in fields) == tuple(float(getattr(jmr, k)) for k in fields)
+    assert (m.lam, m.mu) == pytest.approx((float(jmr.lam), float(jmr.mu)), rel=1e-15)
+
+    class NotAMaterial:
+        lam, mu, eta_damp, lam_damp = 1.0, 1.0, 0.0, 0.0
+
+    with pytest.raises(TypeError, match="no counterpart in the port for material NotAMaterial"):
+        from_numpy_system(jsys.elems, NotAMaterial(), device="cpu")
 
 
 def test_import_leaves_jax_out():
@@ -148,7 +167,8 @@ def test_import_leaves_jax_out():
             "tlfea_torch.elements.ancf, tlfea_torch.elements.ancf3243, "
             "tlfea_torch.elements.ancf3443, tlfea_torch.solvers.coarse, "
             "tlfea_torch.ops.resident, tlfea_torch.solvers.adamw, tlfea_torch.solvers.nesterov, "
-            "tlfea_torch.solvers.vbd, tlfea_torch.utils.coloring; "
+            "tlfea_torch.solvers.vbd, tlfea_torch.utils.coloring, "
+            "tlfea_torch.materials.mooney_rivlin; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tlfea.'))); "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -1,0 +1,18 @@
+// FEAT10 x Mooney-Rivlin instantiation of the element kernels K1 primal_prep,
+// K2 hv, K5 contrib and K5t contrib_tangent (templates in fem_kernels.cuh,
+// material algebra in mr.cuh): `pallas_fem._MRTile` (:282-463) inside
+// `_primal_prep_body` (:888), `_hv_body` (:956) and `_body` (:519, its
+// tangent :830), as `tile_material` (:466-480) hands it to them. No K3: the
+// JAX package builds the Pallas blocks kernel for SVK only (:1374-1383), and
+// the preconditioner's Mooney-Rivlin blocks are plain PyTorch here as they
+// are XLA there. K4 (node_reduce) is material-free, in fem_kernels.cu.
+//
+// The same family parameters as fem_kernels.cu: S = 10, Q = 5, all slots
+// translation slots, NG = 5 (one thread per element and quadrature point),
+// partial sums in shared memory.
+
+#include "fem_kernels.cuh"
+
+using Feat10 = tlfea::Family<10, 5, 0x3FFu, 5, 0>;
+TLFEA_MR_ENTRY_POINTS(feat10, Feat10, f32, float)
+TLFEA_MR_ENTRY_POINTS(feat10, Feat10, f64, double)

@@ -1,6 +1,9 @@
 // Element kernels of the implicit Newton-PCG step (Hopper, sm_90a), templated
-// on the element family: the number of slots S, of stiffness quadrature
-// points Q, and the mask of translation slots.
+// on the element family (the number of slots S, of stiffness quadrature
+// points Q, and the mask of translation slots) and, for K1, K2, K5 and K5t,
+// on the material: `SvkMat` (svk.cuh) or `MrMat` (mr.cuh, FEAT10 only, in
+// fem_feat10_mr.cu), which carries its prep-row count PR, its constants and
+// its stress, Hv and tangent algebra. K3 is SVK only, as in the JAX package.
 //
 // Six kernels replace the Pallas TPU kernels of the Newton-PCG path and of the
 // first-order solvers' gradients:
@@ -45,7 +48,7 @@
 // results are bitwise repeatable.
 //
 // What bounds them: K1-K3 stream the element tables once (per element, Q*S*3
-// shape gradients, Q volumes, S*S mass entries, and the Q*27-row prep cache
+// shape gradients, Q volumes, S*S mass entries, and the Q*PR-row prep cache
 // written by K1 and read by K2) at a few hundred flops per quadrature point;
 // bytes, not flops, are the bound. At the shell's 5,184 elements the
 // shape-gradient table alone is 47.8 MB in float32, about the size of the
@@ -57,7 +60,8 @@
 //   gN_t    (Q*S*3, E)   shape gradients, row (q*S + a)*3 + j
 //   dV_t    (Q, E)       quadrature volumes
 //   Me_t    (S*S, E)     consistent mass, row a*S + b
-//   prep    (Q*27, E)    per-QP cache: Du (9), S0 (9), Fd (9), row q*27 + r
+//   prep    (Q*PR, E)    per-QP cache, row q*PR + r: SVK (PR 27) Du, S0, Fd;
+//                        MR (PR 30) Du, F^{-T}, [J-1, I1, I2], Fd
 //   dpacked (n, 9)       K5t's tangent [du | dv | d(dv/dt)], node-major
 //   fe/out  (S*C, E)     per-(element, slot) values, row a*C + c
 //
@@ -82,11 +86,11 @@
 
 #include <cuda_runtime.h>
 
+#include "mr.cuh"
 #include "svk.cuh"
 
 namespace tlfea {
 
-constexpr int PR = 27;       // prep rows per quadrature point
 constexpr int EX = 32;       // elements per block (threadIdx.x)
 constexpr int THREADS = 128;  // K4 block size
 
@@ -175,14 +179,14 @@ using PartialFor = Partial<T, N, (N * sizeof(T) <= (size_t)F::REG_BYTES)>;
 // dV + Me dv/dt, and the per-QP prep cache. smem holds smem_bytes<T, F, 9,
 // 3>(); the caller separates two tiles that share it by __syncthreads().
 // PREP = false compiles the prep writes out (K5: `prep` is not touched), and
-// leaves f_e's arithmetic as it is, so K5's f_e equals K1's bit for bit.
-template <typename T, class F, bool PREP = true>
+// leaves f_e's arithmetic as it is, so K5's f_e equals K1's bit for bit. M is
+// the material (SvkMat or MrMat).
+template <typename T, class F, class M, bool PREP = true>
 __device__ __forceinline__ void primal_prep_tile(const T* packed, const int* __restrict__ conn_t,
                                                  const T* __restrict__ gN_t,
                                                  const T* __restrict__ dV_t,
                                                  const T* __restrict__ Me_t, T* fe, T* prep,
-                                                 int E, int e0, T lam, T mu, T eta, T lam_d,
-                                                 T* smem) {
+                                                 int E, int e0, const M& m, T* smem) {
   constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = EX * NG;
   T* xs = smem;               // (S*9, EX): centred u | centred v | dv
   T* part = xs + S * 9 * EX;  // (NG*S*3, EX)
@@ -220,19 +224,10 @@ __device__ __forceinline__ void primal_prep_tile(const T* packed, const int* __r
           }
         }
       }
-      T P[3][3], Sm[3][3];
-      svk_stress(Du, Fd, lam, mu, eta, lam_d, P, Sm);
-      if constexpr (PREP) {
-        T* pq = prep + (size_t)q * PR * sE + e;
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            pq[(i * 3 + j) * sE] = Du[i][j];
-            pq[(9 + i * 3 + j) * sE] = Sm[i][j];
-            pq[(18 + i * 3 + j) * sE] = Fd[i][j];
-          }
-      }
+      T P[3][3];
+      T* pq = nullptr;
+      if constexpr (PREP) pq = prep + (size_t)q * M::PR * sE + e;
+      m.template primal<PREP>(Du, Fd, P, pq, sE);
       const T w = dV_t[q * sE + e];
 #pragma unroll
       for (int a = 0; a < S; ++a) {
@@ -268,30 +263,28 @@ __device__ __forceinline__ void primal_prep_tile(const T* packed, const int* __r
   }
 }
 
-template <typename T, class F>
+template <typename T, class F, class M>
 __global__ void __launch_bounds__(EX * F::NG)
 primal_prep_kernel(const T* __restrict__ packed, const int* __restrict__ conn_t,
                    const T* __restrict__ gN_t, const T* __restrict__ dV_t,
                    const T* __restrict__ Me_t, T* __restrict__ fe,
-                   T* __restrict__ prep, int E, T lam, T mu, T eta, T lam_d) {
+                   T* __restrict__ prep, int E, M m) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  primal_prep_tile<T, F>(packed, conn_t, gN_t, dV_t, Me_t, fe, prep, E, blockIdx.x * EX, lam,
-                         mu, eta, lam_d, reinterpret_cast<T*>(smem_raw));
+  primal_prep_tile<T, F, M>(packed, conn_t, gN_t, dV_t, Me_t, fe, prep, E, blockIdx.x * EX, m,
+                            reinterpret_cast<T*>(smem_raw));
 }
 
 // K5: K1's f_e without the prep cache, the port of `_body` with tangent=False
 // (pallas_fem.py:519, `pallas_call` :812), the element half of every ALM
 // gradient of the first-order solvers.
-template <typename T, class F>
+template <typename T, class F, class M>
 __global__ void __launch_bounds__(EX * F::NG)
 contrib_kernel(const T* __restrict__ packed, const int* __restrict__ conn_t,
                const T* __restrict__ gN_t, const T* __restrict__ dV_t,
-               const T* __restrict__ Me_t, T* __restrict__ fe, int E, T lam, T mu, T eta,
-               T lam_d) {
+               const T* __restrict__ Me_t, T* __restrict__ fe, int E, M m) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  primal_prep_tile<T, F, false>(packed, conn_t, gN_t, dV_t, Me_t, fe, nullptr, E,
-                                blockIdx.x * EX, lam, mu, eta, lam_d,
-                                reinterpret_cast<T*>(smem_raw));
+  primal_prep_tile<T, F, M, false>(packed, conn_t, gN_t, dV_t, Me_t, fe, nullptr, E,
+                                   blockIdx.x * EX, m, reinterpret_cast<T*>(smem_raw));
 }
 
 // sum over the non-reference slots a of x_a (x) gradN_qa, x_a staged in
@@ -325,12 +318,12 @@ __device__ __forceinline__ void contract(const T* xe, const T* __restrict__ gN_t
 // (its dv/dt does not enter) are staged, translation slots centred and the
 // d(dv/dt) channels raw; the primal is recomputed per quadrature point.
 // smem holds smem_bytes<T, F, 15, 3>().
-template <typename T, class F>
+template <typename T, class F, class M>
 __global__ void __launch_bounds__(EX * F::NG)
 contrib_tangent_kernel(const T* __restrict__ packed, const T* __restrict__ dpacked,
                        const int* __restrict__ conn_t, const T* __restrict__ gN_t,
                        const T* __restrict__ dV_t, const T* __restrict__ Me_t,
-                       T* __restrict__ out, int E, T lam, T mu, T eta, T lam_d) {
+                       T* __restrict__ out, int E, M m) {
   constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = EX * NG;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xt = reinterpret_cast<T*>(smem_raw);  // (S*9, EX): tangent du | dv | d(dv/dt)
@@ -353,7 +346,7 @@ contrib_tangent_kernel(const T* __restrict__ packed, const T* __restrict__ dpack
       contract<T, F, 0, 6>(xp + x, gN_t, q, sE, e, Du);
       contract<T, F, 3, 6>(xp + x, gN_t, q, sE, e, Fd);
       T dP[3][3];
-      svk_stress_tangent(Du, dF, Fd, dFd, lam, mu, eta, lam_d, dP);
+      m.tangent(Du, dF, Fd, dFd, dP);
       const T w = dV_t[q * sE + e];
 #pragma unroll
       for (int a = 0; a < S; ++a) {
@@ -391,12 +384,11 @@ contrib_tangent_kernel(const T* __restrict__ packed, const T* __restrict__ dpack
 // from prep. Runs once per CG iteration. It re-reads the prep cache instead
 // of recomputing the primal, so one contraction (G) per QP is all the
 // arithmetic left. smem holds smem_bytes<T, F, 3, 3>().
-template <typename T, class F>
+template <typename T, class F, class M>
 __device__ __forceinline__ void hv_tile(const T* p, const int* __restrict__ conn_t,
                                         const T* prep, const T* __restrict__ gN_t,
                                         const T* __restrict__ dV_t, const T* __restrict__ Me_t,
-                                        T* out, int E, int e0, T dt, T lam, T mu, T eta,
-                                        T lam_d, T* smem) {
+                                        T* out, int E, int e0, T dt, const M& m, T* smem) {
   constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = EX * NG;
   T* xs = smem;               // (S*3, EX): raw direction
   T* part = xs + S * 3 * EX;  // (NG*S*3, EX)
@@ -430,18 +422,8 @@ __device__ __forceinline__ void hv_tile(const T* p, const int* __restrict__ conn
           for (int i = 0; i < 3; ++i) G[i][j] += pc[i] * gv;
         }
       }
-      T Du[3][3], S0[3][3], Fd[3][3];
-      const T* pq = prep + (size_t)q * PR * sE + e;
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          Du[i][j] = pq[(i * 3 + j) * sE];
-          S0[i][j] = pq[(9 + i * 3 + j) * sE];
-          Fd[i][j] = pq[(18 + i * 3 + j) * sE];
-        }
       T dP[3][3];
-      svk_hv(G, Du, S0, Fd, dt, lam, mu, eta, lam_d, dP);
+      m.hv(G, prep + (size_t)q * M::PR * sE + e, sE, dt, dP);
       const T w = dV_t[q * sE + e];
 #pragma unroll
       for (int a = 0; a < S; ++a) {
@@ -476,15 +458,15 @@ __device__ __forceinline__ void hv_tile(const T* p, const int* __restrict__ conn
   }
 }
 
-template <typename T, class F>
+template <typename T, class F, class M>
 __global__ void __launch_bounds__(EX * F::NG)
 hv_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
           const T* __restrict__ prep, const T* __restrict__ gN_t,
           const T* __restrict__ dV_t, const T* __restrict__ Me_t,
-          T* __restrict__ out, int E, T dt, T lam, T mu, T eta, T lam_d) {
+          T* __restrict__ out, int E, T dt, M m) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  hv_tile<T, F>(p, conn_t, prep, gN_t, dV_t, Me_t, out, E, blockIdx.x * EX, dt, lam, mu, eta,
-                lam_d, reinterpret_cast<T*>(smem_raw));
+  hv_tile<T, F, M>(p, conn_t, prep, gN_t, dV_t, Me_t, out, E, blockIdx.x * EX, dt, m,
+                   reinterpret_cast<T*>(smem_raw));
 }
 
 // K3: per-(element, slot) SVK diagonal tangent blocks, sum_q K(F_q, h_qa) dV_q,
@@ -611,65 +593,62 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, class F>
+template <typename T, class F, class M>
 int launch_primal_prep(const void* packed, const void* conn_t, const void* gN_t,
-                       const void* dV_t, const void* Me_t, void* fe, void* prep,
-                       int E, double lam, double mu, double eta, double lam_d,
-                       void* stream) {
+                       const void* dV_t, const void* Me_t, void* fe, void* prep, int E,
+                       const M& m, void* stream) {
   constexpr size_t smem = smem_bytes<T, F, 9, 3>();
-  static const cudaError_t attr = allow_smem(primal_prep_kernel<T, F>, smem);
+  static const cudaError_t attr = allow_smem(primal_prep_kernel<T, F, M>, smem);
   if (attr != cudaSuccess) return (int)attr;
   if (E > 0) {
-    primal_prep_kernel<T, F><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
+    primal_prep_kernel<T, F, M><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
         (const T*)packed, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t,
-        (const T*)Me_t, (T*)fe, (T*)prep, E, (T)lam, (T)mu, (T)eta, (T)lam_d);
+        (const T*)Me_t, (T*)fe, (T*)prep, E, m);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T, class F>
+template <typename T, class F, class M>
 int launch_contrib(const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,
-                   const void* Me_t, void* fe, int E, double lam, double mu, double eta,
-                   double lam_d, void* stream) {
+                   const void* Me_t, void* fe, int E, const M& m, void* stream) {
   constexpr size_t smem = smem_bytes<T, F, 9, 3>();
-  static const cudaError_t attr = allow_smem(contrib_kernel<T, F>, smem);
+  static const cudaError_t attr = allow_smem(contrib_kernel<T, F, M>, smem);
   if (attr != cudaSuccess) return (int)attr;
   if (E > 0) {
-    contrib_kernel<T, F><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
+    contrib_kernel<T, F, M><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
         (const T*)packed, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t,
-        (const T*)Me_t, (T*)fe, E, (T)lam, (T)mu, (T)eta, (T)lam_d);
+        (const T*)Me_t, (T*)fe, E, m);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T, class F>
+template <typename T, class F, class M>
 int launch_contrib_tangent(const void* packed, const void* dpacked, const void* conn_t,
                            const void* gN_t, const void* dV_t, const void* Me_t, void* out,
-                           int E, double lam, double mu, double eta, double lam_d,
-                           void* stream) {
+                           int E, const M& m, void* stream) {
   constexpr size_t smem = smem_bytes<T, F, 15, 3>();
-  static const cudaError_t attr = allow_smem(contrib_tangent_kernel<T, F>, smem);
+  static const cudaError_t attr = allow_smem(contrib_tangent_kernel<T, F, M>, smem);
   if (attr != cudaSuccess) return (int)attr;
   if (E > 0) {
-    contrib_tangent_kernel<T, F><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
-        (const T*)packed, (const T*)dpacked, (const int*)conn_t, (const T*)gN_t,
-        (const T*)dV_t, (const T*)Me_t, (T*)out, E, (T)lam, (T)mu, (T)eta, (T)lam_d);
+    contrib_tangent_kernel<T, F, M>
+        <<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
+            (const T*)packed, (const T*)dpacked, (const int*)conn_t, (const T*)gN_t,
+            (const T*)dV_t, (const T*)Me_t, (T*)out, E, m);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T, class F>
+template <typename T, class F, class M>
 int launch_hv(const void* p, const void* conn_t, const void* prep, const void* gN_t,
-              const void* dV_t, const void* Me_t, void* out, int E, double dt,
-              double lam, double mu, double eta, double lam_d, void* stream) {
+              const void* dV_t, const void* Me_t, void* out, int E, double dt, const M& m,
+              void* stream) {
   constexpr size_t smem = smem_bytes<T, F, 3, 3>();
-  static const cudaError_t attr = allow_smem(hv_kernel<T, F>, smem);
+  static const cudaError_t attr = allow_smem(hv_kernel<T, F, M>, smem);
   if (attr != cudaSuccess) return (int)attr;
   if (E > 0) {
-    hv_kernel<T, F><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
+    hv_kernel<T, F, M><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
         (const T*)p, (const int*)conn_t, (const T*)prep, (const T*)gN_t,
-        (const T*)dV_t, (const T*)Me_t, (T*)out, E, (T)dt, (T)lam, (T)mu,
-        (T)eta, (T)lam_d);
+        (const T*)dV_t, (const T*)Me_t, (T*)out, E, (T)dt, m);
   }
   return (int)cudaGetLastError();
 }
@@ -705,22 +684,24 @@ int launch_node_reduce(const void* vals, const void* ptr, const void* inc,
 
 }  // namespace tlfea
 
-// Plain C interface of one family's K1-K3, K5 and K5t, bound with ctypes
-// (tlfea_torch/ops/fem_kernels.py): tlfea_<kernel>_<NAME>_<SUFFIX>.
+// Plain C interface of one family's K1-K3, K5 and K5t with SVK, bound with
+// ctypes (tlfea_torch/ops/fem_kernels.py): tlfea_<kernel>_<NAME>_<SUFFIX>.
 #define TLFEA_FAMILY_ENTRY_POINTS(NAME, FAM, SUFFIX, T)                                 \
   extern "C" int tlfea_primal_prep_##NAME##_##SUFFIX(                                   \
       const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
       const void* Me_t, void* fe, void* prep, int E, double lam, double mu,             \
       double eta, double lam_d, void* stream) {                                         \
-    return tlfea::launch_primal_prep<T, FAM>(packed, conn_t, gN_t, dV_t, Me_t, fe,      \
-                                             prep, E, lam, mu, eta, lam_d, stream);     \
+    return tlfea::launch_primal_prep<T, FAM>(                                           \
+        packed, conn_t, gN_t, dV_t, Me_t, fe, prep, E,                                  \
+        tlfea::SvkMat<T>{(T)lam, (T)mu, (T)eta, (T)lam_d}, stream);                     \
   }                                                                                     \
   extern "C" int tlfea_hv_##NAME##_##SUFFIX(                                            \
       const void* p, const void* conn_t, const void* prep, const void* gN_t,            \
       const void* dV_t, const void* Me_t, void* out, int E, double dt, double lam,      \
       double mu, double eta, double lam_d, void* stream) {                              \
-    return tlfea::launch_hv<T, FAM>(p, conn_t, prep, gN_t, dV_t, Me_t, out, E, dt, lam, \
-                                    mu, eta, lam_d, stream);                            \
+    return tlfea::launch_hv<T, FAM>(p, conn_t, prep, gN_t, dV_t, Me_t, out, E, dt,      \
+                                    tlfea::SvkMat<T>{(T)lam, (T)mu, (T)eta, (T)lam_d},  \
+                                    stream);                                            \
   }                                                                                     \
   extern "C" int tlfea_svk_blocks_##NAME##_##SUFFIX(                                    \
       const void* u, const void* conn_t, const void* gN_t, const void* dV_t, void* out, \
@@ -732,14 +713,53 @@ int launch_node_reduce(const void* vals, const void* ptr, const void* inc,
       const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
       const void* Me_t, void* fe, int E, double lam, double mu, double eta,             \
       double lam_d, void* stream) {                                                     \
-    return tlfea::launch_contrib<T, FAM>(packed, conn_t, gN_t, dV_t, Me_t, fe, E, lam,  \
-                                         mu, eta, lam_d, stream);                       \
+    return tlfea::launch_contrib<T, FAM>(packed, conn_t, gN_t, dV_t, Me_t, fe, E,       \
+                                         tlfea::SvkMat<T>{(T)lam, (T)mu, (T)eta,        \
+                                                          (T)lam_d},                    \
+                                         stream);                                       \
   }                                                                                     \
   extern "C" int tlfea_contrib_tangent_##NAME##_##SUFFIX(                               \
       const void* packed, const void* dpacked, const void* conn_t, const void* gN_t,    \
       const void* dV_t, const void* Me_t, void* out, int E, double lam, double mu,      \
       double eta, double lam_d, void* stream) {                                         \
-    return tlfea::launch_contrib_tangent<T, FAM>(packed, dpacked, conn_t, gN_t, dV_t,   \
-                                                 Me_t, out, E, lam, mu, eta, lam_d,     \
-                                                 stream);                               \
+    return tlfea::launch_contrib_tangent<T, FAM>(                                       \
+        packed, dpacked, conn_t, gN_t, dV_t, Me_t, out, E,                              \
+        tlfea::SvkMat<T>{(T)lam, (T)mu, (T)eta, (T)lam_d}, stream);                     \
+  }
+
+// The same with Mooney-Rivlin (no K3: the preconditioner's blocks are plain
+// PyTorch, as the JAX package leaves them to XLA):
+// tlfea_<kernel>_<NAME>_mr_<SUFFIX>, constants (mu10, mu01, kappa, eta, lam_d).
+#define TLFEA_MR_ENTRY_POINTS(NAME, FAM, SUFFIX, T)                                     \
+  extern "C" int tlfea_primal_prep_##NAME##_mr_##SUFFIX(                                \
+      const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
+      const void* Me_t, void* fe, void* prep, int E, double mu10, double mu01,          \
+      double kappa, double eta, double lam_d, void* stream) {                           \
+    return tlfea::launch_primal_prep<T, FAM>(                                           \
+        packed, conn_t, gN_t, dV_t, Me_t, fe, prep, E,                                  \
+        tlfea::MrMat<T>{(T)mu10, (T)mu01, (T)kappa, (T)eta, (T)lam_d}, stream);         \
+  }                                                                                     \
+  extern "C" int tlfea_hv_##NAME##_mr_##SUFFIX(                                         \
+      const void* p, const void* conn_t, const void* prep, const void* gN_t,            \
+      const void* dV_t, const void* Me_t, void* out, int E, double dt, double mu10,     \
+      double mu01, double kappa, double eta, double lam_d, void* stream) {              \
+    return tlfea::launch_hv<T, FAM>(                                                    \
+        p, conn_t, prep, gN_t, dV_t, Me_t, out, E, dt,                                  \
+        tlfea::MrMat<T>{(T)mu10, (T)mu01, (T)kappa, (T)eta, (T)lam_d}, stream);         \
+  }                                                                                     \
+  extern "C" int tlfea_contrib_##NAME##_mr_##SUFFIX(                                    \
+      const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
+      const void* Me_t, void* fe, int E, double mu10, double mu01, double kappa,        \
+      double eta, double lam_d, void* stream) {                                         \
+    return tlfea::launch_contrib<T, FAM>(                                               \
+        packed, conn_t, gN_t, dV_t, Me_t, fe, E,                                        \
+        tlfea::MrMat<T>{(T)mu10, (T)mu01, (T)kappa, (T)eta, (T)lam_d}, stream);         \
+  }                                                                                     \
+  extern "C" int tlfea_contrib_tangent_##NAME##_mr_##SUFFIX(                            \
+      const void* packed, const void* dpacked, const void* conn_t, const void* gN_t,    \
+      const void* dV_t, const void* Me_t, void* out, int E, double mu10, double mu01,   \
+      double kappa, double eta, double lam_d, void* stream) {                           \
+    return tlfea::launch_contrib_tangent<T, FAM>(                                       \
+        packed, dpacked, conn_t, gN_t, dV_t, Me_t, out, E,                              \
+        tlfea::MrMat<T>{(T)mu10, (T)mu01, (T)kappa, (T)eta, (T)lam_d}, stream);         \
   }

@@ -145,7 +145,7 @@ __global__ void __launch_bounds__(EX * F::NG) newton_resident_kernel(ResidentArg
     sync();
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       primal_prep_tile<T, F>(a.packed, a.conn_t, a.gN_t, a.dV_t, a.Me_t, a.fe, a.prep, E,
-                             tile * EX, a.lam, a.mu, a.eta, a.lam_d, smem);
+                             tile * EX, SvkMat<T>{a.lam, a.mu, a.eta, a.lam_d}, smem);
       __syncthreads();
     }
     sync();
@@ -166,8 +166,8 @@ __global__ void __launch_bounds__(EX * F::NG) newton_resident_kernel(ResidentArg
   // hp = H p from the current prep cache; returns p . hp.
   auto hessian_p = [&]() -> T {
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      hv_tile<T, F>(a.p, a.conn_t, a.prep, a.gN_t, a.dV_t, a.Me_t, a.fe, E, tile * EX, dt, a.lam,
-                    a.mu, a.eta, a.lam_d, smem);
+      hv_tile<T, F>(a.p, a.conn_t, a.prep, a.gN_t, a.dV_t, a.Me_t, a.fe, E, tile * EX, dt,
+                    SvkMat<T>{a.lam, a.mu, a.eta, a.lam_d}, smem);
       __syncthreads();
     }
     sync();
@@ -367,7 +367,7 @@ int launch_newton_resident(const ResidentArgs<T>& args, void* stream) {
     a.fe = w;                                                                                 \
     w += (long long)FAM::S * 3 * E;                                                           \
     a.prep = w;                                                                               \
-    w += (long long)FAM::Q * tlfea::PR * E;                                                   \
+    w += (long long)FAM::Q * tlfea::SvkMat<T>::PR * E;                                        \
     T** vecs[6] = {&a.g, &a.x, &a.r, &a.z, &a.p, &a.hp};                                      \
     for (int i = 0; i < 6; ++i) {                                                             \
       *vecs[i] = w;                                                                           \

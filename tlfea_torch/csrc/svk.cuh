@@ -183,4 +183,56 @@ __device__ __forceinline__ void svk_diag_block(const T F[3][3], const T FFT[3][3
   }
 }
 
+// The SVK material parameter of the element kernels. A material parameter
+// M of K1 primal_prep, K2 hv, K5 contrib and K5t contrib_tangent
+// (fem_kernels.cuh) has PR, its prep rows per quadrature point, its
+// constants (passed to the kernels by value), and
+//   primal<PREP>(Du, Fd, P, pq, sE)  P at (Du, Fd); with PREP, the prep rows
+//                                    at pq (row r at pq[r * sE])
+//   hv(G, pq, sE, dt, dP)            dP along the Newton direction from them
+//   tangent(Du, dF, Fd, dFd, dP)     dP along independent tangents (K5t)
+// MrMat (mr.cuh) is the other one. SVK's prep rows: Du (9), the total second
+// Piola S (9), Fd (9).
+template <typename T>
+struct SvkMat {
+  static constexpr int PR = 27;
+  T lam, mu, eta, lam_d;
+
+  template <bool PREP>
+  __device__ __forceinline__ void primal(const T Du[3][3], const T Fd[3][3], T P[3][3], T* pq,
+                                         size_t sE) const {
+    T Sm[3][3];
+    svk_stress(Du, Fd, lam, mu, eta, lam_d, P, Sm);
+    if constexpr (PREP) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          pq[(i * 3 + j) * sE] = Du[i][j];
+          pq[(9 + i * 3 + j) * sE] = Sm[i][j];
+          pq[(18 + i * 3 + j) * sE] = Fd[i][j];
+        }
+    }
+  }
+
+  __device__ __forceinline__ void hv(const T G[3][3], const T* pq, size_t sE, T dt,
+                                     T dP[3][3]) const {
+    T Du[3][3], S0[3][3], Fd[3][3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        Du[i][j] = pq[(i * 3 + j) * sE];
+        S0[i][j] = pq[(9 + i * 3 + j) * sE];
+        Fd[i][j] = pq[(18 + i * 3 + j) * sE];
+      }
+    svk_hv(G, Du, S0, Fd, dt, lam, mu, eta, lam_d, dP);
+  }
+
+  __device__ __forceinline__ void tangent(const T Du[3][3], const T dF[3][3], const T Fd[3][3],
+                                          const T dFd[3][3], T dP[3][3]) const {
+    svk_stress_tangent(Du, dF, Fd, dFd, lam, mu, eta, lam_d, dP);
+  }
+};
+
 }  // namespace tlfea

@@ -1,7 +1,7 @@
 """Build the port's objects from the JAX package's.
 
-`from_numpy_system` reads the fields of a `tlfea` `ElementBatch`, `SVK`,
-`FixedCoefs`, `StepState` and solver parameters (`NewtonParams`,
+`from_numpy_system` reads the fields of a `tlfea` `ElementBatch`, `SVK` or
+`MooneyRivlin`, `FixedCoefs`, `StepState` and solver parameters (`NewtonParams`,
 `AdamWParams`, `NesterovParams`, `VBDParams`) through `np.asarray` (duck
 typed: any object with those attribute names will do, so this module never
 imports jax or tlfea) and returns the matching `tlfea_torch` objects on the
@@ -11,13 +11,14 @@ same problem.
 
 from __future__ import annotations
 
-from dataclasses import fields
+from dataclasses import fields, is_dataclass
 
 import numpy as np
 import torch
 
 from tlfea_torch.constraints import FixedCoefs
 from tlfea_torch.elements.assembly import ElementBatch
+from tlfea_torch.materials.mooney_rivlin import MooneyRivlin
 from tlfea_torch.materials.svk import SVK
 from tlfea_torch.solvers.adamw import AdamWParams
 from tlfea_torch.solvers.common import StepState, System
@@ -30,10 +31,26 @@ __all__ = ["from_numpy_system"]
 # A field only one solver's parameters have -> that solver's parameters.
 _PARAM_KINDS = (("lr", AdamWParams), ("alpha", NesterovParams), ("omega", VBDParams),
                 ("cg_rtol", NewtonParams))
+# A material's dataclass fields -> the port's material.
+_MATERIAL_KINDS = (({"mu10", "mu01", "kappa", "eta_damp", "lam_damp"}, MooneyRivlin),
+                   ({"lam", "mu", "eta_damp", "lam_damp"}, SVK))
 
 
 def _scalar(a) -> float:
     return float(np.asarray(a))
+
+
+def _material(material):
+    """The port's SVK or MooneyRivlin with the same fields, told apart by
+    the material's dataclass fields (mu10 ... means Mooney-Rivlin: its
+    small-strain `lam` and `mu` properties must not make it an SVK). Raises
+    on any other material."""
+    names = {f.name for f in fields(material)} if is_dataclass(material) else set()
+    for keys, cls in _MATERIAL_KINDS:
+        if names == keys:
+            return cls(**{f.name: _scalar(getattr(material, f.name)) for f in fields(cls)})
+    raise TypeError(f"no counterpart in the port for material {type(material).__name__} "
+                    f"(fields {sorted(names)}); it has SVK and MooneyRivlin")
 
 
 def from_numpy_system(elems, material, constraints=None, state=None, params=None, *,
@@ -42,8 +59,10 @@ def from_numpy_system(elems, material, constraints=None, state=None, params=None
     package's objects, on `device` (pass device="cpu" to stay on the host).
     Floating arrays are cast to `dtype`, index arrays to int64; the
     parameters (Newton, AdamW, Nesterov or VBD, told apart by their
-    fields) become the port's dataclass of Python numbers. Raises on what
-    the port does not carry: a non-zero `max_dv`, or a batch without x_ref."""
+    fields) become the port's dataclass of Python numbers, and the material
+    the port's SVK or MooneyRivlin (`_material`). Raises on what the port
+    does not carry: another material, a non-zero `max_dv`, or a batch
+    without x_ref."""
 
     def t(a):
         return torch.as_tensor(np.array(a), device=device).to(dtype)
@@ -59,8 +78,7 @@ def from_numpy_system(elems, material, constraints=None, state=None, params=None
         n_coef=int(elems.n_coef), x_ref=t(elems.x_ref),
         trans_mask=None if elems.trans_mask is None else tuple(elems.trans_mask),
     )
-    mat = SVK(lam=_scalar(material.lam), mu=_scalar(material.mu),
-              eta_damp=_scalar(material.eta_damp), lam_damp=_scalar(material.lam_damp))
+    mat = _material(material)
     cons = None
     if constraints is not None:
         cons = FixedCoefs(idx=idx(constraints.idx), target=t(constraints.target))

@@ -1,8 +1,9 @@
 """FEM element kernels of the implicit solvers, with their plain PyTorch twins.
 
 The port of `tlfea/ops/pallas_fem.py` and `tlfea/ops/pallas_banded.py` for
-SVK + Kelvin-Voigt. Six CUDA kernels (sources in `tlfea_torch/csrc/`,
-design notes at the top of `fem_kernels.cuh`) carry the element work:
+SVK and Mooney-Rivlin, each with Kelvin-Voigt damping. Six CUDA kernels
+(sources in `tlfea_torch/csrc/`, design notes at the top of
+`fem_kernels.cuh`) carry the element work:
 
     K1 primal_prep  <- pallas_fem._primal_prep_body (:888),
                        _primal_prep_chunked_body (:1018),
@@ -30,12 +31,26 @@ and K4's node sums inside one cooperative launch; it is built and launched
 through this module too.
 
 K1-K3, K5 and K5t are templates instantiated for the element families in
-`FAMILIES` (FEAT10, ANCF3243, ANCF3443), one CUDA source each; `FemOperator` refuses
-any other (Q, S, translation mask). Each wrapper takes the plain twin
+`FAMILIES` (FEAT10, ANCF3243, ANCF3443) and, K1, K2, K5 and K5t, for the
+material: one CUDA source per (family, material) in `SOURCES`. SVK runs in
+every family (`svk.cuh`); Mooney-Rivlin (`mr.cuh`, the port of
+`pallas_fem._MRTile`) in FEAT10 only, and has no K3: as in the JAX package,
+its preconditioner blocks are plain tensor code
+(`solvers.common.precond_blocks`). `FemOperator` refuses any other (Q, S,
+translation mask), any other material and Mooney-Rivlin with an ANCF
+family. Each wrapper takes the plain twin
 (`*_plain`, same module) for a tensor on the CPU, and launches its kernel
 for a tensor on a CUDA device, raising if the launch fails; it never falls
-back. Every launch adds one to `LAUNCHES["<kernel>[<family>]"]`, so a run
-can show which kernels it went through.
+back. Every launch adds one to `LAUNCHES["<kernel>[<tag>]"]`, the tag being
+the family for SVK and "<family>_mr" for Mooney-Rivlin (K4, which knows no
+material, counts under the family), so a run can show which kernels it went
+through.
+
+The prep cache K1 writes and K2 reads holds `op.prep_rows` rows per
+quadrature point: SVK 27 (Du, the total second Piola S, Fd), Mooney-Rivlin
+30 (Du, F^{-T}, [J - 1, I1, I2], Fd). The JAX package's Mooney-Rivlin cache
+drops Fd when undamped (21 rows); the port always keeps the 30, so that one
+instantiation serves damped and undamped materials.
 
 Kernel layouts are element-minor: a table row r is stored as [r * E + e]
 (see `FemOperator`), and per-(element, slot) outputs are (S * C, E). The
@@ -60,39 +75,55 @@ from torch._functorch.pyfunctorch import temporarily_pop_interpreter_stack
 from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
 from tlfea_torch.elements.assembly import ElementBatch, mass_diag
+from tlfea_torch.materials.mooney_rivlin import MooneyRivlin
 from tlfea_torch.materials.svk import SVK
+from tlfea_torch.ops.linalg import _adjugate3x3, det3x3
 from tlfea_torch.ops.segment import coef_scatter_add
 
 __all__ = [
-    "FemOperator", "FAMILIES", "RESIDENT_SOURCES", "LAUNCHES", "reset_launch_counts",
+    "FemOperator", "FAMILIES", "SOURCES", "RESIDENT_SOURCES", "LAUNCHES",
+    "reset_launch_counts",
     "build_kernels",
     "primal_prep", "primal_prep_plain", "hv", "hv_plain",
-    "svk_blocks", "svk_blocks_plain", "node_reduce", "node_reduce_plain",
+    "svk_blocks", "svk_blocks_plain", "tangent_blocks_plain", "node_reduce",
+    "node_reduce_plain",
     "contrib", "contrib_plain", "contrib_tangent", "contrib_tangent_plain",
     "ElementContrib", "element_fns", "unpack_sym6", "g_and_hvp",
 ]
 
-PREP_ROWS = 27
 SYM6 = [(0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)]
 
-# (Q, S, translation-slot bits) -> (family, CUDA source of its K1-K3). The
-# same table is instantiated in csrc/*.cu.
-FAMILIES = {
-    (5, 10, 0x3FF): ("feat10", "fem_kernels.cu"),
-    (12, 8, 0x11): ("ancf3243", "fem_ancf3243.cu"),
-    (48, 16, 0x1111): ("ancf3443", "fem_ancf3443.cu"),
-}
+# (Q, S, translation-slot bits) -> family.
+FAMILIES = {(5, 10, 0x3FF): "feat10", (12, 8, 0x11): "ancf3243", (48, 16, 0x1111): "ancf3443"}
+# material class -> (kind, prep rows per quadrature point, constants the
+# kernels take in this order)
+MATERIALS = {SVK: ("svk", 27, ("lam", "mu", "eta_damp", "lam_damp")),
+             MooneyRivlin: ("mr", 30, ("mu10", "mu01", "kappa", "eta_damp", "lam_damp"))}
+# (family, material kind) -> the CUDA source that instantiates its kernels
+# (csrc/*.cu).
+SOURCES = {("feat10", "svk"): "fem_kernels.cu", ("ancf3243", "svk"): "fem_ancf3243.cu",
+           ("ancf3443", "svk"): "fem_ancf3443.cu", ("feat10", "mr"): "fem_feat10_mr.cu"}
 KERNEL_NAMES = ("primal_prep", "hv", "svk_blocks", "node_reduce", "contrib", "contrib_tangent")
+# The kernels that read the material; K3 exists for SVK only.
+MATERIAL_KERNELS = {"svk": ("primal_prep", "hv", "svk_blocks", "contrib", "contrib_tangent"),
+                    "mr": ("primal_prep", "hv", "contrib", "contrib_tangent")}
 # family -> CUDA source of its persistent Newton-PCG kernel (csrc/resident.cuh,
 # wrapped in tlfea_torch/ops/resident.py).
 RESIDENT_SOURCES = {"feat10": "fem_resident.cu"}
 
-LAUNCHES = {f"{k}[{fam}]": 0 for fam, _ in FAMILIES.values() for k in KERNEL_NAMES}
+
+def _tag(family: str, kind: str) -> str:
+    return family if kind == "svk" else f"{family}_{kind}"
+
+
+LAUNCHES = {f"{k}[{fam}]": 0 for fam in FAMILIES.values() for k in KERNEL_NAMES}
+LAUNCHES.update({f"{k}[{_tag(fam, kind)}]": 0 for fam, kind in SOURCES if kind != "svk"
+                 for k in MATERIAL_KERNELS[kind]})
 LAUNCHES.update({f"newton_resident[{fam}]": 0 for fam in RESIDENT_SOURCES})
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(os.path.dirname(_CSRC), "_build")
-_HEADERS = ("fem_kernels.cuh", "svk.cuh", "resident.cuh")
+_HEADERS = ("fem_kernels.cuh", "svk.cuh", "mr.cuh", "resident.cuh")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _libs: dict = {}
@@ -112,7 +143,7 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the FEM kernels need the CUDA toolkit")
 
 
-def _bind(lib, family: str | None, resident: bool = False) -> None:
+def _bind(lib, family: str | None, kind: str = "svk", resident: bool = False) -> None:
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     if family is None:
         sigs = {"tlfea_node_reduce_{}": [P] * 4 + [I] * 3 + [P]}
@@ -120,13 +151,12 @@ def _bind(lib, family: str | None, resident: bool = False) -> None:
         sigs = {f"tlfea_newton_resident_{family}_{{}}": [P] * 17 + [I] * 2 + [D] * 9 + [I] * 3
                 + [P]}
     else:
-        sigs = {
-            f"tlfea_primal_prep_{family}_{{}}": [P] * 7 + [I] + [D] * 4 + [P],
-            f"tlfea_hv_{family}_{{}}": [P] * 7 + [I] + [D] * 5 + [P],
-            f"tlfea_svk_blocks_{family}_{{}}": [P] * 5 + [I] + [D] * 2 + [P],
-            f"tlfea_contrib_{family}_{{}}": [P] * 6 + [I] + [D] * 4 + [P],
-            f"tlfea_contrib_tangent_{family}_{{}}": [P] * 7 + [I] + [D] * 4 + [P],
-        }
+        nm = len(next(names for k, _, names in MATERIALS.values() if k == kind))
+        args = {"primal_prep": [P] * 7 + [I] + [D] * nm, "hv": [P] * 7 + [I] + [D] * (1 + nm),
+                "svk_blocks": [P] * 5 + [I] + [D] * 2, "contrib": [P] * 6 + [I] + [D] * nm,
+                "contrib_tangent": [P] * 7 + [I] + [D] * nm}
+        sigs = {f"tlfea_{k}_{_tag(family, kind)}_{{}}": args[k] + [P]
+                for k in MATERIAL_KERNELS[kind]}
     for name, args in sigs.items():
         for sfx in ("f32", "f64"):
             fn = getattr(lib, name.format(sfx))
@@ -140,15 +170,15 @@ def _read(name: str) -> bytes:
 
 
 def build_kernels() -> dict:
-    """Compile the CUDA source of every family in FAMILIES and of every
-    persistent kernel in RESIDENT_SOURCES for sm_90a into a shared library
+    """Compile the CUDA source of every (family, material) in SOURCES and of
+    every persistent kernel in RESIDENT_SOURCES for sm_90a into a shared library
     (once per source content; all nvcc processes run at once) and load
     them. Returns {source: ctypes library}; BUILD_INFO gets the wall seconds
     of the build and, per source, its seconds and ptxas report."""
     if _libs:
         return _libs
-    with_family = {src: fam for fam, src in FAMILIES.values()}
-    with_family.update({src: fam for fam, src in RESIDENT_SOURCES.items()})
+    with_family = {src: key for key, src in SOURCES.items()}
+    with_family.update({src: (fam, "svk") for fam, src in RESIDENT_SOURCES.items()})
     headers = b"".join(_read(h) for h in _HEADERS)
     os.makedirs(_BUILD, exist_ok=True)
     t0 = time.perf_counter()
@@ -181,7 +211,7 @@ def build_kernels() -> dict:
     libs = {}
     for src, info in per_src.items():
         lib = ctypes.CDLL(info["path"])
-        _bind(lib, with_family[src], resident=src in RESIDENT_SOURCES.values())
+        _bind(lib, *with_family[src], resident=src in RESIDENT_SOURCES.values())
         if src == "fem_kernels.cu":
             _bind(lib, None)
         libs[src] = lib
@@ -204,24 +234,36 @@ def _launch(name: str, op: "FemOperator", x: torch.Tensor, *args) -> None:
         raise RuntimeError(f"{name}: a kernel launch cannot be traced into a graph; use "
                            f"torch.func.jvp, or the plain path (system.plain=True)")
     libs = build_kernels()
+    key = launch_key(name, op)
     if name == "node_reduce":
         fn = getattr(libs["fem_kernels.cu"], f"tlfea_node_reduce_{sfx}")
     elif name == "newton_resident":
         fn = getattr(libs[RESIDENT_SOURCES[op.family]], f"tlfea_{name}_{op.family}_{sfx}")
     else:
-        fn = getattr(libs[op.source], f"tlfea_{name}_{op.family}_{sfx}")
+        fn = getattr(libs[op.source], f"tlfea_{name}_{op.tag}_{sfx}")
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     err = fn(*conv, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name}[{op.family}] kernel launch failed: CUDA error {err}")
-    LAUNCHES[f"{name}[{op.family}]"] += 1
+        raise RuntimeError(f"{key} kernel launch failed: CUDA error {err}")
+    LAUNCHES[key] += 1
+
+
+def launch_key(name: str, op: "FemOperator") -> str:
+    """The LAUNCHES key of kernel `name` on op: "<name>[<op.tag>]" for the
+    kernels that read the material, "<name>[<op.family>]" for the others."""
+    return f"{name}[{op.tag if name in MATERIAL_KERNELS[op.kind] else op.family}]"
 
 
 class FemOperator(torch.nn.Module):
     """The element tables of one batch in the kernels' layout.
 
-    The batch's (Q, S, trans_mask) must be one of `FAMILIES`, whose kernels
-    the CUDA library instantiates; anything else raises, on any device.
+    The batch's (Q, S, trans_mask) must be one of `FAMILIES` and the
+    material an `SVK` or a `MooneyRivlin` whose (family, kind) has a source
+    in `SOURCES`; anything else raises, on any device. Attributes: family,
+    kind ("svk" or "mr"), tag (the kernels' name suffix), source,
+    prep_rows, material, mat_args (the constants the kernels take), and
+    lam, mu, eta, lam_d (SVK's constants; for Mooney-Rivlin the
+    small-strain equivalents and its viscosities, which no kernel reads).
     Buffers: conn (E, S) int64 for the twins; tmask (S,) bool, the
     translation slots; conn_t (S, E) int32, gN_t (Q*S*3, E), dV_t (Q, E),
     Me_t (S*S, E) element-minor for the kernels; the node -> incidence CSR
@@ -237,12 +279,23 @@ class FemOperator(torch.nn.Module):
         bits = None if tm is None else sum(1 << a for a, t in enumerate(tm) if t)
         if (Q, S, bits) not in FAMILIES:
             known = ", ".join(f"{fam} (Q={q}, S={s}, mask {b:#x})"
-                              for (q, s, b), (fam, _) in FAMILIES.items())
+                              for (q, s, b), fam in FAMILIES.items())
             raise ValueError(f"no FEM kernel is instantiated for Q={Q}, S={S}, "
                              f"trans_mask={tm}; the CUDA library has {known}")
+        if type(material) not in MATERIALS:
+            raise TypeError(f"no FEM kernel for material {type(material).__name__}; the CUDA "
+                            f"library has {', '.join(c.__name__ for c in MATERIALS)}")
         if elems.n_coef * 6 >= 2**31 or E * S >= 2**31 or Q * S * 3 * E >= 2**31:
             raise ValueError("mesh too large for the kernels' int32 indices")
-        self.family, self.source = FAMILIES[(Q, S, bits)]
+        self.family = FAMILIES[(Q, S, bits)]
+        self.kind, self.prep_rows, names = MATERIALS[type(material)]
+        if (self.family, self.kind) not in SOURCES:
+            raise ValueError(f"no FEM kernel is instantiated for {type(material).__name__} "
+                             f"with {self.family} elements (the JAX package pairs it with none)")
+        self.source = SOURCES[(self.family, self.kind)]
+        self.tag = _tag(self.family, self.kind)
+        self.material = material
+        self.mat_args = tuple(float(getattr(material, k)) for k in names)
         self.E, self.Q, self.S, self.n = E, Q, S, elems.n_coef
         self.lam, self.mu = float(material.lam), float(material.mu)
         self.eta, self.lam_d = float(material.eta_damp), float(material.lam_damp)
@@ -326,6 +379,88 @@ def _svk_stress_tangent(Du, dF, Fd, dFd, lam, mu, eta, lam_d):
     return dF @ S0 + dS + Du @ dS
 
 
+def _mr_elastic(Du):
+    """(F, C, FC, G = F^{-T}, I1, I2, J - 1) from Du, the exact J - 1 = tr Du
+    + c2(Du) + det Du (see csrc/mr.cuh `mr_elastic`)."""
+    F = Du + torch.eye(3, dtype=Du.dtype, device=Du.device)
+    d = torch.diagonal(Du, dim1=-2, dim2=-1)
+    c2 = (d[..., 0] * d[..., 1] - Du[..., 0, 1] * Du[..., 1, 0]
+          + d[..., 0] * d[..., 2] - Du[..., 0, 2] * Du[..., 2, 0]
+          + d[..., 1] * d[..., 2] - Du[..., 1, 2] * Du[..., 2, 1])
+    Jm1 = d[..., 0] + d[..., 1] + d[..., 2] + c2 + det3x3(Du)
+    G = _adjugate3x3(F).transpose(-1, -2) * (1.0 / (1.0 + Jm1))[..., None, None]
+    C = F.transpose(-1, -2) @ F
+    I1 = C[..., 0, 0] + C[..., 1, 1] + C[..., 2, 2]
+    I2 = 0.5 * (I1 * I1 - (C * C.transpose(-1, -2)).sum((-2, -1)))
+    return F, C, F @ C, G, I1, I2, Jm1
+
+
+def _mr_viscous_S(F, Fd, eta, lam_d):
+    """S_v = 2 eta Edot + lam_d tr(Edot) I, Edot = sym(Fd^T F)."""
+    X = Fd.transpose(-1, -2) @ F
+    tr = torch.diagonal(X, dim1=-2, dim2=-1).sum(-1)
+    eye = torch.eye(3, dtype=F.dtype, device=F.device)
+    return (2.0 * eta) * (0.5 * (X + X.transpose(-1, -2))) + (lam_d * tr)[..., None, None] * eye
+
+
+def _mr_coefs(Jm1, m):
+    """t1 = 2 mu10 J^{-2/3}, t2 = 2 mu01 J^{-4/3}, t3 = kappa (J - 1) J; J > 0
+    (`J.pow(1/3)`: PyTorch has no cube root)."""
+    J = 1.0 + Jm1
+    J13 = J.pow(1.0 / 3.0)
+    Jm23 = 1.0 / (J13 * J13)
+    return ((2.0 * m.mu10) * Jm23)[..., None, None], \
+        ((2.0 * m.mu01) * (Jm23 * Jm23))[..., None, None], (m.kappa * Jm1 * J)[..., None, None]
+
+
+def _mr_stress(Du, Fd, m):
+    """Total P, G = F^{-T} and [J - 1, I1, I2] (..., 3) from Du and Fd (see
+    csrc/mr.cuh `mr_stress`)."""
+    F, _, FC, G, I1, I2, Jm1 = _mr_elastic(Du)
+    t1, t2, t3 = _mr_coefs(Jm1, m)
+    c1, c2, i1 = (I1 * (1.0 / 3.0))[..., None, None], (I2 * (2.0 / 3.0))[..., None, None], \
+        I1[..., None, None]
+    P = t1 * (F - c1 * G) + t2 * (i1 * F - FC - c2 * G) + t3 * G
+    P = P + F @ _mr_viscous_S(F, Fd, m.eta_damp, m.lam_damp)
+    return P, G, torch.stack([Jm1, I1, I2], dim=-1)
+
+
+def _mr_dP(F, C, FC, G, I1, I2, Jm1, dF, Fd, dFd, Sv, m):
+    """Exact derivative of the total P along (dF, dFd) at the primal (see
+    csrc/mr.cuh `mr_dP`)."""
+    J = (1.0 + Jm1)[..., None, None]
+    s = (G * dF).sum((-2, -1))[..., None, None]
+    FdotdF = (F * dF).sum((-2, -1))[..., None, None]
+    dI1 = 2.0 * FdotdF
+    i1 = I1[..., None, None]
+    dI2 = 2.0 * (i1 * FdotdF - (FC * dF).sum((-2, -1))[..., None, None])
+    t1, t2, t3 = _mr_coefs(Jm1, m)
+    dt1, dt2 = (-2.0 / 3.0) * t1 * s, (-4.0 / 3.0) * t2 * s
+    dt3 = m.kappa * (2.0 * J - 1.0) * J * s
+    c1, c2 = i1 * (1.0 / 3.0), I2[..., None, None] * (2.0 / 3.0)
+    dc1, dc2 = dI1 * (1.0 / 3.0), dI2 * (2.0 / 3.0)
+    dFT = dF.transpose(-1, -2)
+    dG = -(G @ (dFT @ G))
+    dFC = dF @ C + F @ (dFT @ F) + (F @ F.transpose(-1, -2)) @ dF
+    T1, dT1 = F - c1 * G, dF - dc1 * G - c1 * dG
+    T2 = i1 * F - FC - c2 * G
+    dT2 = dI1 * F + i1 * dF - dFC - dc2 * G - c2 * dG
+    dP = dt1 * T1 + t1 * dT1 + dt2 * T2 + t2 * dT2 + dt3 * G + t3 * dG
+    X = dFd.transpose(-1, -2) @ F + Fd.transpose(-1, -2) @ dF
+    tr = torch.diagonal(X, dim1=-2, dim2=-1).sum(-1)
+    eye = torch.eye(3, dtype=F.dtype, device=F.device)
+    dSv = (2.0 * m.eta_damp) * (0.5 * (X + X.transpose(-1, -2))) \
+        + (m.lam_damp * tr)[..., None, None] * eye
+    return dP + dF @ Sv + F @ dSv
+
+
+def _mr_stress_tangent(Du, dF, Fd, dFd, m):
+    """dP at (Du, Fd) along (dF, dFd) (see csrc/mr.cuh `mr_stress_tangent`)."""
+    F, C, FC, G, I1, I2, Jm1 = _mr_elastic(Du)
+    Sv = _mr_viscous_S(F, Fd, m.eta_damp, m.lam_damp)
+    return _mr_dP(F, C, FC, G, I1, I2, Jm1, dF, Fd, dFd, Sv, m)
+
+
 def _mass_term(op: FemOperator, x: torch.Tensor) -> torch.Tensor:
     """Me x_e per (slot, channel, element) from node values x (n, 3), raw."""
     return torch.einsum("abe,bie->aie", op.Me_t.view(op.S, op.S, op.E),
@@ -334,20 +469,26 @@ def _mass_term(op: FemOperator, x: torch.Tensor) -> torch.Tensor:
 
 def _primal(op: FemOperator, packed: torch.Tensor):
     """K1's and K5's f_e (S*3, E) from packed (n, 9) [u|v|dv/dt], with the
-    per-QP Du, total S and Fd."""
+    per-QP tensors of the prep cache in its row order: SVK Du, total S, Fd;
+    Mooney-Rivlin Du, F^{-T}, [J - 1, I1, I2], Fd."""
     Du = _grad(_centred_slots(op, packed[:, 0:3]), op)
     Fd = _grad(_centred_slots(op, packed[:, 3:6]), op)
-    P, Sm = _svk_stress(Du, Fd, op.lam, op.mu, op.eta, op.lam_d)
+    if op.kind == "svk":
+        P, Sm = _svk_stress(Du, Fd, op.lam, op.mu, op.eta, op.lam_d)
+        rows = (Du, Sm, Fd)
+    else:
+        P, G, s3 = _mr_stress(Du, Fd, op.material)
+        rows = (Du, G, s3, Fd)
     fe = _to_slots(P, op, _mass_term(op, packed[:, 6:9]))
-    return fe.reshape(op.S * 3, op.E).contiguous(), Du, Sm, Fd
+    return fe.reshape(op.S * 3, op.E).contiguous(), rows
 
 
 def primal_prep_plain(op: FemOperator, packed: torch.Tensor):
-    """Twin of K1: packed (n, 9) [u|v|dv/dt] -> (fe (S*3, E), prep (Q*27, E))."""
-    fe, Du, Sm, Fd = _primal(op, packed)
-    prep = torch.cat([Du.reshape(op.Q, op.E, 9), Sm.reshape(op.Q, op.E, 9),
-                      Fd.reshape(op.Q, op.E, 9)], dim=-1)  # (Q, E, 27)
-    return fe, prep.permute(0, 2, 1).reshape(op.Q * PREP_ROWS, op.E).contiguous()
+    """Twin of K1: packed (n, 9) [u|v|dv/dt] -> (fe (S*3, E), prep
+    (Q*prep_rows, E))."""
+    fe, rows = _primal(op, packed)
+    prep = torch.cat([r.reshape(op.Q, op.E, -1) for r in rows], dim=-1)  # (Q, E, PR)
+    return fe, prep.permute(0, 2, 1).reshape(op.Q * op.prep_rows, op.E).contiguous()
 
 
 def contrib_plain(op: FemOperator, packed: torch.Tensor) -> torch.Tensor:
@@ -363,7 +504,10 @@ def contrib_tangent_plain(op: FemOperator, packed: torch.Tensor,
     Fd = _grad(_centred_slots(op, packed[:, 3:6]), op)
     dF = _grad(_centred_slots(op, dpacked[:, 0:3]), op)
     dFd = _grad(_centred_slots(op, dpacked[:, 3:6]), op)
-    dP = _svk_stress_tangent(Du, dF, Fd, dFd, op.lam, op.mu, op.eta, op.lam_d)
+    if op.kind == "svk":
+        dP = _svk_stress_tangent(Du, dF, Fd, dFd, op.lam, op.mu, op.eta, op.lam_d)
+    else:
+        dP = _mr_stress_tangent(Du, dF, Fd, dFd, op.material)
     fe = _to_slots(dP, op, _mass_term(op, dpacked[:, 6:9]))
     return fe.reshape(op.S * 3, op.E).contiguous()
 
@@ -371,7 +515,9 @@ def contrib_tangent_plain(op: FemOperator, packed: torch.Tensor,
 def hv_plain(op: FemOperator, p: torch.Tensor, prep: torch.Tensor, dt: float):
     """Twin of K2: direction p (n, 3) and the K1 prep cache -> (S*3, E)."""
     G = _grad(_centred_slots(op, p), op)
-    pr = prep.view(op.Q, PREP_ROWS, op.E).permute(0, 2, 1)  # (Q, E, 27)
+    pr = prep.view(op.Q, op.prep_rows, op.E).permute(0, 2, 1)  # (Q, E, PR)
+    if op.kind == "mr":
+        return _hv_plain_mr(op, p, G, pr, dt)
     Du, S0, Fd = (pr[..., 9 * k:9 * k + 9].reshape(op.Q, op.E, 3, 3) for k in range(3))
     eye = torch.eye(3, dtype=p.dtype, device=p.device)
     GT, DuT, FdT = G.transpose(-1, -2), Du.transpose(-1, -2), Fd.transpose(-1, -2)
@@ -386,9 +532,31 @@ def hv_plain(op: FemOperator, p: torch.Tensor, prep: torch.Tensor, dt: float):
     return fe.reshape(op.S * 3, op.E).contiguous()
 
 
+def _hv_plain_mr(op: FemOperator, p, Gp, pr, dt):
+    """K2's Mooney-Rivlin twin from the prep rows pr (Q, E, 30): Du, G, [J -
+    1, I1, I2], Fd read; F, C, FC and S_v recomputed (csrc/mr.cuh `mr_hv`)."""
+    Du, G, Fd = (pr[..., k:k + 9].reshape(op.Q, op.E, 3, 3) for k in (0, 9, 21))
+    Jm1, I1, I2 = pr[..., 18], pr[..., 19], pr[..., 20]
+    F = Du + torch.eye(3, dtype=p.dtype, device=p.device)
+    C = F.transpose(-1, -2) @ F
+    m = op.material
+    Sv = _mr_viscous_S(F, Fd, m.eta_damp, m.lam_damp)
+    dP = _mr_dP(F, C, F @ C, G, I1, I2, Jm1, Gp * dt, Fd, Gp, Sv, m)
+    fe = _to_slots(dP, op, (1.0 / dt) * _mass_term(op, p))
+    return fe.reshape(op.S * 3, op.E).contiguous()
+
+
+def _require_svk(name: str, op: FemOperator) -> None:
+    if op.kind != "svk":
+        raise ValueError(f"{name}: the SVK diagonal-block kernel K3 takes no "
+                         f"{type(op.material).__name__}; its blocks come from "
+                         f"solvers.common.precond_blocks")
+
+
 def svk_blocks_plain(op: FemOperator, u: torch.Tensor) -> torch.Tensor:
     """Twin of K3: displacements u (n, 3) -> SYM6 blocks (S*6, E), through
     `SVK.tangent_diag_block` (the reference einsum branch)."""
+    _require_svk("svk_blocks_plain", op)
     eye = torch.eye(3, dtype=u.dtype, device=u.device)
     F = _grad(_centred_slots(op, u), op) + eye  # (Q, E, 3, 3)
     h = op.gN_t.view(op.Q, op.S, 3, op.E).permute(0, 1, 3, 2)  # (Q, S, E, 3)
@@ -396,6 +564,19 @@ def svk_blocks_plain(op: FemOperator, u: torch.Tensor) -> torch.Tensor:
     Kb = Kb.sum(0)  # (S, E, 3, 3)
     sym = torch.stack([Kb[..., d, e] for d, e in SYM6], dim=1)  # (S, 6, E)
     return sym.reshape(op.S * 6, op.E).contiguous()
+
+
+def tangent_blocks_plain(op: FemOperator, u: torch.Tensor) -> torch.Tensor:
+    """The exact diagonal tangent blocks of any material, sum_q
+    material.tangent_diag_block(F_q, gradN_qa) dV_q per (element, slot), full
+    3x3 row-major, (S*9, E): the XLA branch of the JAX package's
+    `precond_blocks` (`common.py:263-270`), which preconditions Mooney-Rivlin.
+    Plain tensor code on any device; F from the centred slots, as K3's."""
+    eye = torch.eye(3, dtype=u.dtype, device=u.device)
+    F = _grad(_centred_slots(op, u), op) + eye  # (Q, E, 3, 3)
+    h = op.gN_t.view(op.Q, op.S, 3, op.E).permute(0, 1, 3, 2)  # (Q, S, E, 3)
+    Kb = op.material.tangent_diag_block(F[:, None], h) * op.dV_t[:, None, :, None, None]
+    return Kb.sum(0).permute(0, 2, 3, 1).reshape(op.S * 9, op.E).contiguous()
 
 
 def node_reduce_plain(op: FemOperator, vals: torch.Tensor) -> torch.Tensor:
@@ -410,14 +591,14 @@ def node_reduce_plain(op: FemOperator, vals: torch.Tensor) -> torch.Tensor:
 
 def primal_prep(op: FemOperator, packed: torch.Tensor):
     """K1: element ALM contribution f_int + Me dv/dt per (element, slot),
-    (S*3, E), and the per-QP prep cache (Q*27, E) that K2 reads."""
+    (S*3, E), and the per-QP prep cache (Q*prep_rows, E) that K2 reads."""
     op._check("primal_prep", packed, (op.n, 9))
     if packed.device.type == "cpu":
         return primal_prep_plain(op, packed)
     fe = torch.empty((op.S * 3, op.E), dtype=packed.dtype, device=packed.device)
-    prep = torch.empty((op.Q * PREP_ROWS, op.E), dtype=packed.dtype, device=packed.device)
+    prep = torch.empty((op.Q * op.prep_rows, op.E), dtype=packed.dtype, device=packed.device)
     _launch("primal_prep", op, packed, packed, op.conn_t, op.gN_t, op.dV_t, op.Me_t,
-            fe, prep, op.E, op.lam, op.mu, op.eta, op.lam_d)
+            fe, prep, op.E, *op.mat_args)
     return fe, prep
 
 
@@ -425,17 +606,18 @@ def hv(op: FemOperator, p: torch.Tensor, prep: torch.Tensor, dt: float) -> torch
     """K2: Hessian-vector product of the element contribution along p,
     per (element, slot), (S*3, E)."""
     op._check("hv", p, (op.n, 3))
-    op._check("hv", prep, (op.Q * PREP_ROWS, op.E))
+    op._check("hv", prep, (op.Q * op.prep_rows, op.E))
     if p.device.type == "cpu":
         return hv_plain(op, p, prep, dt)
     out = torch.empty((op.S * 3, op.E), dtype=p.dtype, device=p.device)
     _launch("hv", op, p, p, op.conn_t, prep, op.gN_t, op.dV_t, op.Me_t, out, op.E,
-            float(dt), op.lam, op.mu, op.eta, op.lam_d)
+            float(dt), *op.mat_args)
     return out
 
 
 def svk_blocks(op: FemOperator, u: torch.Tensor) -> torch.Tensor:
     """K3: SVK diagonal tangent blocks per (element, slot), SYM6, (S*6, E)."""
+    _require_svk("svk_blocks", op)
     op._check("svk_blocks", u, (op.n, 3))
     if u.device.type == "cpu":
         return svk_blocks_plain(op, u)
@@ -465,7 +647,7 @@ def contrib(op: FemOperator, packed: torch.Tensor) -> torch.Tensor:
         return contrib_plain(op, packed)
     fe = torch.empty((op.S * 3, op.E), dtype=packed.dtype, device=packed.device)
     _launch("contrib", op, packed, packed, op.conn_t, op.gN_t, op.dV_t, op.Me_t, fe, op.E,
-            op.lam, op.mu, op.eta, op.lam_d)
+            *op.mat_args)
     return fe
 
 
@@ -478,7 +660,7 @@ def contrib_tangent(op: FemOperator, packed: torch.Tensor, dpacked: torch.Tensor
         return contrib_tangent_plain(op, packed, dpacked)
     out = torch.empty((op.S * 3, op.E), dtype=packed.dtype, device=packed.device)
     _launch("contrib_tangent", op, packed, packed, dpacked, op.conn_t, op.gN_t, op.dV_t,
-            op.Me_t, out, op.E, op.lam, op.mu, op.eta, op.lam_d)
+            op.Me_t, out, op.E, *op.mat_args)
     return out
 
 

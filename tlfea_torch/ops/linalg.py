@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["det3x3", "inv3x3"]
+__all__ = ["det3x3", "inv3x3", "inv_transpose3x3"]
 
 
 def det3x3(a: torch.Tensor) -> torch.Tensor:
@@ -42,3 +42,15 @@ def inv3x3(a: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
         e = det.new_full((), eps)
         det = torch.where(det.abs() < eps, torch.where(det >= 0, e, -e), det)
     return _adjugate3x3(a) / det[..., None, None]
+
+
+def inv_transpose3x3(a: torch.Tensor, det: torch.Tensor | None = None,
+                     eps: float = 1e-12) -> torch.Tensor:
+    """Inverse-transpose of (..., 3, 3) with a sign-preserving clamp of |det|
+    to at least eps (`tlfea/ops/linalg.py:68`, after the reference's
+    `mr_invT3x3`). det, when given, is used in place of det3x3(a)."""
+    if det is None:
+        det = det3x3(a)
+    e = det.new_full((), eps)
+    safe = torch.where(det.abs() < eps, torch.where(det >= 0, e, -e), det)
+    return _adjugate3x3(a).transpose(-1, -2) / safe[..., None, None]

@@ -14,10 +14,13 @@ the composed Newton loop on the element twins) for a tensor on the CPU or
 when `system.plain` is set, and launches the kernel for a CUDA tensor,
 raising if the launch fails; it never falls back.
 
-A deliberate difference from the JAX kernel: `hist` is the full
+Two deliberate differences from the JAX kernel: `hist` is the full
 per-iteration ||g|| history, not only its first entry
 (`pallas_resident.py:274-279`), so `_step`'s `norm_g_history` is the same on
-every path.
+every path; and the kernel is instantiated for SVK only, so the gate is shut
+to any other material (the JAX kernel takes `_MRTile` too,
+`pallas_resident.py:326`): a Mooney-Rivlin system runs the composed K1-K4
+loop.
 """
 
 from __future__ import annotations
@@ -41,12 +44,13 @@ STAT_FIELDS = ("iters", "cg_total", "norm_g", "grad_evals", "hv_evals", "barrier
 def eligible(system, coarse) -> bool:
     """The resident gate (`pallas_resident.eligible`, `newton.py:245-259`):
     at most MAX_ELEMS elements, no coarse correction, no constraints or
-    `FixedCoefs`, and a family with a resident kernel. It depends only on
-    the problem, never on whether the kernel builds or launches."""
+    `FixedCoefs`, a family with a resident kernel, and SVK, the one
+    material the kernel is instantiated for. It depends only on the
+    problem, never on whether the kernel builds or launches."""
     cons = system.constraints
     return (system.fem.E <= MAX_ELEMS and coarse is None
             and (cons is None or isinstance(cons, FixedCoefs))
-            and system.fem.family in fk.RESIDENT_SOURCES)
+            and system.fem.family in fk.RESIDENT_SOURCES and system.fem.kind == "svk")
 
 
 def launch(v0, u_prev, v_prev, f_ext, params, system, inv_blocks, pin_terms):
@@ -55,6 +59,8 @@ def launch(v0, u_prev, v_prev, f_ext, params, system, inv_blocks, pin_terms):
     followed by the ||g|| history (max_inner + 1 entries, NaN where no
     iteration ran)."""
     op = system.fem
+    if op.kind != "svk":
+        raise ValueError(f"newton_resident takes SVK only, not {type(op.material).__name__}")
     dtype, dev = v0.dtype, v0.device
     if pin_terms is None:  # no constraints: zero pin fields
         pin_terms = (torch.zeros((op.n, 3), dtype=dtype, device=dev),
@@ -68,7 +74,7 @@ def launch(v0, u_prev, v_prev, f_ext, params, system, inv_blocks, pin_terms):
     inv = inv_blocks.to(dtype).contiguous()
     op._check("newton_resident pin_lin", pin_lin, (op.n, 1))
     op._check("newton_resident inv_blocks", inv, (op.n, 3, 3))
-    words = 9 * op.n + op.S * 3 * op.E + op.Q * fk.PREP_ROWS * op.E + 18 * op.n
+    words = 9 * op.n + op.S * 3 * op.E + op.Q * op.prep_rows * op.E + 18 * op.n
     scratch = torch.empty(words, dtype=dtype, device=dev)
     partials = torch.empty(2 * -(-op.E // 32) * 3, dtype=dtype, device=dev)
     v = torch.empty_like(ins["v0"])

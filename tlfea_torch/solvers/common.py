@@ -21,8 +21,10 @@ import torch
 
 from tlfea_torch.constraints import FixedCoefs
 from tlfea_torch.elements.assembly import ElementBatch, node_ref
+from tlfea_torch.materials.mooney_rivlin import MooneyRivlin
 from tlfea_torch.materials.svk import SVK
-from tlfea_torch.ops.fem_kernels import ElementContrib, FemOperator, element_fns, unpack_sym6
+from tlfea_torch.ops.fem_kernels import (ElementContrib, FemOperator, element_fns,
+                                         node_reduce_plain, tangent_blocks_plain, unpack_sym6)
 
 __all__ = [
     "System", "StepState", "grad_L", "grad_fn", "constraint_values", "precond_blocks",
@@ -32,13 +34,14 @@ __all__ = [
 
 @dataclass
 class System:
-    """Static problem definition: elements, material, constraints, and the
-    element operator `fem` that holds the kernels' tables on the elements'
-    device. plain=True routes the element work through the plain PyTorch
-    twins on any device (the on-card reference for the kernels)."""
+    """Static problem definition: elements, material (SVK, or Mooney-Rivlin
+    with FEAT10 elements), constraints, and the element operator `fem` that
+    holds the kernels' tables on the elements' device. plain=True routes the
+    element work through the plain PyTorch twins on any device (the on-card
+    reference for the kernels)."""
 
     elems: ElementBatch
-    material: SVK
+    material: SVK | MooneyRivlin
     constraints: FixedCoefs | None = None
     plain: bool = False
     fem: FemOperator = field(init=False, repr=False)
@@ -142,7 +145,11 @@ def precond_blocks(v, x_prev, dt, rho, system: System, u_prev=None) -> torch.Ten
         H_aa ~= m_aa/h I + h sum_(e,q) K_block(F_eq, gradN_eqa) dV
                 + h^2 rho (J^T J)_aa,
 
-    the elastic part from K3 + K4, scaled by the Kelvin-Voigt factor, then
+    the elastic part from K3 + K4 for SVK; for Mooney-Rivlin, which has no
+    blocks kernel here or in the JAX package, the exact blocks of
+    `MooneyRivlin.tangent_diag_block` in plain tensor code, summed onto the
+    nodes in a fixed order (the XLA branch, `common.py:263-270`). Then the
+    Kelvin-Voigt factor, from the material's small-strain `lam` and `mu`;
     symmetrised and shifted by its Gershgorin deficit so PCG gets an SPD
     preconditioner (`common.py:284-320`)."""
     elems = system.elems
@@ -150,8 +157,11 @@ def precond_blocks(v, x_prev, dt, rho, system: System, u_prev=None) -> torch.Ten
     if u_prev is None:
         u_prev = x_prev - node_ref(elems)
     u = (u_prev + dt * v).to(v.dtype).contiguous()
-    fns = element_fns(system.plain)
-    blocks = unpack_sym6(dt * fns["node_reduce"](op, fns["svk_blocks"](op, u)))
+    if op.kind == "svk":
+        fns = element_fns(system.plain)
+        blocks = unpack_sym6(dt * fns["node_reduce"](op, fns["svk_blocks"](op, u)))
+    else:
+        blocks = dt * node_reduce_plain(op, tangent_blocks_plain(op, u)).view(op.n, 3, 3)
 
     # Kelvin-Voigt tangent: same lam*A + mu*B structure as the elastic one
     # with (lam_d, eta) for (dt*lam, dt*mu), folded in as a scalar factor.
