@@ -13,11 +13,12 @@ non-zero:
    pins, and the nvcc build of the FEM kernels from `tlfea_torch/csrc/`
    (one nvcc per source, all at once; seconds, registers and spills per
    kernel).
-2. kernels: each kernel of each element family against its plain PyTorch
-   twin on the card, on inputs made from a seed (float64 within 1e-12
-   relative, float32 within 1e-5), at the shapes of the 10,584-element
-   FEAT10 flagship mesh, of the 5,184-element ANCF3443 shell plate and of a
-   64-element ANCF3243 beam; each timed beside its twin (device time per
+2. kernels: each kernel of each element family, with SVK and with
+   Mooney-Rivlin, against its plain PyTorch twin on the card, on inputs
+   made from a seed (float64 within 1e-12 relative, float32 within 1e-5),
+   at the shapes of the 10,584-element FEAT10 flagship mesh, of the
+   5,184-element ANCF3443 shell plate and of a 64-element ANCF3243 beam
+   (Mooney-Rivlin at a strained state, J - 1 within about +-0.4); each timed beside its twin (device time per
    launch from CUDA events, host time per wrapper call), beside its bound
    (bytes over 3.35 TB/s or flops over 67 TFLOP/s, whichever is larger) and,
    for the node reduce, beside `Tensor.index_add_`. K5 `contrib` must equal
@@ -41,25 +42,39 @@ non-zero:
    float64 kernels' Newton and CG medians over the same steps.
 5. resident: the `bench.py` "1k" problem (FEAT10 box 12x4x3, 864
    elements, the same material and solver settings, no coarse
-   correction, 250 steps) through the persistent Newton-PCG kernel: the
-   rollout as in 4, with one kernel launch per inner solve, K1/K2 never
-   launched and K3/K4 only at the preconditioner refreshes; one float64
+   correction, 250 steps) through the persistent Newton-PCG kernel
+   (`newton_resident[feat10]`): the rollout as in 4, with one kernel launch
+   per inner solve, K1/K2 never launched and K3/K4 only at the
+   preconditioner refreshes; one float64
    inner solve from the 10th step's state, kernel against its plain
    version (the same Newton count, CG within 2, positions within 1e-10
    relative); the same in float32, the rollout's dtype (CG within 2, v
-   within 1e-3 of the solve's update), and bitwise repeatability; the
+   within 1e-3 of the solve's update, or within twice the float32 plain
+   version's distance from the float64 one where that is larger, as for
+   Mooney-Rivlin, whose isochoric terms cancel to O(strain)), and bitwise
+   repeatability; the
    device time per launch beside its bound (`resident_bound_ms`: inputs
    read once, the launch's operations) and the plain version's time; then
    the same inner solve and rollout through the composed K1-K4 path (the
    gate patched off) for comparison.
+   resident_mr: the same with the material of 13 (Mooney-Rivlin), through
+   `newton_resident[feat10_mr]`; K3/K4 never launched (its blocks are plain
+   tensor code).
 6. shell: the same as 4 for `bench.py`'s `run_ancf_shell` (ANCF3443 plate
    72x72, 5,184 elements, 21,316 coefficient rows, the x=0 edge clamped,
    the same solver settings, 40 steps).
+   shell_mr: the same plate with the material of 13, through the
+   `[ancf3443_mr]` kernels, the exact Mooney-Rivlin blocks and the coarse
+   correction (ANCF3443 never runs resident, in neither package).
 7. shell_theory: the cantilever plate of `tests/test_shell_validation.py`
    (8 ANCF3443 elements, E 2e10, nu 0) in float64 on the card, 150 steps:
    tip deflection within 5 % of q L^4 / (8 E I).
-8. ancf_beam: a clamped 64-element ANCF3243 beam under gravity, 20 steps
-   through the kernels (launch counts), then 5 steps kernels against twins.
+8. ancf_beam, ancf_beam_1024: a clamped 64-element ANCF3243 beam under
+   gravity (the bench.py solver settings, no coarse correction), 20 steps
+   through `newton_resident[ancf3243]` with the checks of 5; then the same
+   beam of 1,024 elements, one element block whose grid is 32 tiles.
+   ancf_beam_mr, ancf_beam_mr_1024: both in the material of 13, through
+   `newton_resident[ancf3243_mr]`.
 9. adamw, nesterov, vbd: the first-order solvers on the 10k flagship with
    `examples/_common.make_solver`'s parameter sets (rho 1e7): a warm step,
    then timed steps (ms/step, ms per inner iteration or sweep, outer and
@@ -73,7 +88,8 @@ non-zero:
    size: AdamW and Nesterov (30,000 iterations a step, two steps) within
    10 % of the deformation from Newton's positions.
 12. first_order_ancf: one capped AdamW step and the jvp on the shell plate
-   and the ANCF3243 beam (K5, K5t in those families).
+   and the ANCF3243 beam, with SVK and with the material of 13 (K5, K5t in
+   those families).
 13. mr_flagship: the 10k problem of 4 with its material swapped for
    Mooney-Rivlin (mapped from E 1e7, nu 0.3 as `examples/bunny_deform.py`
    maps it, damping 1e3): the same rollout, trace and check as 4, through
@@ -113,6 +129,7 @@ ROLLOUT = 60  # bench.py's ROLLOUT["10k"]
 SHELL_ROLLOUT = 40  # bench.py run_ancf_shell's rollout
 THEORY_STEPS = 150  # tests/test_shell_validation.py
 ANCF_BEAM_STEPS = 20
+BIG_BEAM = 1024  # the largest ANCF3243 beam of one element block: 32 tiles
 RESIDENT_ROLLOUT = 250  # bench.py's ROLLOUT["1k"]
 RESIDENT_DIMS = (1.0, 0.25, 0.25, 12, 4, 3)  # bench.py's CONFIGS["1k"]: 864 elements
 JAX_1K = (2, 22)  # median Newton / CG per step the JAX package recorded at 1k (BENCH_r04.json)
@@ -124,6 +141,13 @@ CHECK_STEPS = 5  # kernels against twins, from rest
 # counts, Newton 2 / CG 22, and moves v by 1.1e-5..2.2e-5); a kernel that
 # computes a wrong gradient or product moves it by order 1.
 F32_RESIDENT_TOL = 1e-3
+# Mooney-Rivlin's float32 resolution is coarser: its isochoric terms cancel
+# to O(strain), so at the 1k problem's strains (about 1e-3) and the ANCF
+# beams' first steps the float32 plain version lies 7.5e-3 (1k) and 3.3e-3
+# (64-element beam) of the update from the float64 plain version on the same
+# inputs (SVK: 1.1e-5 and 2.6e-5; CPU, the plain version). Two float32
+# evaluations each within r of the float64 answer differ by at most 2 r, so
+# the bar is the larger of F32_RESIDENT_TOL and 2 r, r measured in the run.
 TRACE_STEPS = 16  # profiled window
 
 # H100 SXM data sheet, at the full 700 W: HBM bytes/s, float32 flop/s
@@ -166,6 +190,11 @@ BUNNY_DIMS = (1.0, 1.0, 2.0, 2, 2, 4)  # its fallback mesh, box_t10_mesh
 # displacement: both solve each step to rtol 1e-4 and CG to 1e-3, so they
 # stop at different iterates; a wrong kernel moves the result by order 1.
 BUNNY_TOL = 5e-2
+# The [kernels] phase's u scaled up for Mooney-Rivlin at the ANCF shapes so
+# that J - 1 spans about +-0.4, as at FEAT10 (the isochoric terms cancel to
+# O(strain) in float32): [-0.359, 0.403] on the shell, [-0.371, 0.394] on the
+# beam (float64 twins, this seed).
+STRAIN_SCALE = {"ancf3443_mr": 2.5, "ancf3243_mr": 4.0}
 TRACE_ITERS = 200  # inner iterations (VBD: gradients) in a first-order [trace] window
 CHECK_INNER = 500  # the capped step of kernels against twins (VBD: 20 sweeps)
 JVP_DIRECTIONS = 8
@@ -270,28 +299,30 @@ def _clamp_rows(edge_nodes):
     return (4 * np.asarray(edge_nodes)[:, None] + np.arange(4)[None, :]).reshape(-1)
 
 
-def shell_problem(device, dtype, nx=72, ny=72):
+def shell_problem(device, dtype, nx=72, ny=72, material=None):
     """bench.py run_ancf_shell: an ANCF3443 plate of nx x ny elements of
     0.05 x 0.05 x 0.01 m, the x=0 edge clamped (all 4 coefficient rows of
-    its nodes): (system, state, f_ext, params)."""
+    its nodes): (system, state, f_ext, params); damped SVK unless another
+    material is given."""
     from tlfea_torch.elements import ancf3443
 
     coefs, conn = ancf3443.shell_grid(nx, ny, L=0.05, W=0.05)
     elems_cpu = ancf3443.build(coefs, conn, 0.05, 0.05, 0.01, rho=1000.0, dtype=dtype,
                                device="cpu")
     edge = np.nonzero(coefs[0::4, 0] < 1e-12)[0]
-    return _pinned_problem(elems_cpu, coefs, _clamp_rows(edge), device, _svk())
+    return _pinned_problem(elems_cpu, coefs, _clamp_rows(edge), device, material or _svk())
 
 
-def ancf_beam_problem(device, dtype, n_elem=64):
+def ancf_beam_problem(device, dtype, n_elem=64, material=None):
     """A cantilever of n_elem ANCF3243 beams (0.05 m each, 0.01 x 0.01 m
-    section), node 0 clamped: (system, state, f_ext, params)."""
+    section), node 0 clamped: (system, state, f_ext, params); damped SVK
+    unless another material is given."""
     from tlfea_torch.elements import ancf3243
 
     coefs, conn = ancf3243.straight_beam(n_elem, L=0.05, origin=(0.0, 0.0, 0.0))
     elems_cpu = ancf3243.build(coefs, conn, 0.05, 0.01, 0.01, rho=1000.0, dtype=dtype,
                                device="cpu")
-    return _pinned_problem(elems_cpu, coefs, _clamp_rows([0]), device, _svk())
+    return _pinned_problem(elems_cpu, coefs, _clamp_rows([0]), device, material or _svk())
 
 
 def _device_ms(fn, n):
@@ -386,6 +417,7 @@ def phase_kernels(device, tag, system):
                                        rng.normal(size=(n, 3))], axis=1),
                 p=rng.normal(size=(n, 3)), u=rng.normal(size=(n, 3)) * 1e-3,
                 dpacked=rng.normal(size=(n, 9)))
+    host["packed"][:, :3] *= STRAIN_SCALE.get(tag, 1.0)
     E, S = system.elems.n_elem, system.elems.n_shape
     host["vals"] = rng.normal(size=(S * 6, E))
     out = {}
@@ -589,9 +621,11 @@ def rollout_phase(tag, device, problem, n_steps, traced=True, coarse=True):
         desc = (f"coarse: {co.n_agg} aggregates x 6 modes, built in "
                 f"{time.perf_counter() - t0:.2f} s")
     on_resident = resident.eligible(system, co)
-    path = ("newton_resident", "svk_blocks", "node_reduce") if on_resident else KERNELS
-    if op.kind != "svk":  # no K3: the blocks are plain tensor code
-        path = ("primal_prep", "hv", "node_reduce")
+    # Mooney-Rivlin has no K3: its blocks are plain tensor code, summed
+    # without K4.
+    blocks = ("svk_blocks", "node_reduce") if op.kind == "svk" else ()
+    path = (("newton_resident",) + blocks if on_resident
+            else ("primal_prep", "hv", "node_reduce") + blocks[:1])
     log(tag, f"{system.elems.n_elem} elems ({op.tag}, {type(op.material).__name__}), "
         f"{system.n_coef} nodes, "
         f"{int(system.constraints.idx.numel())} pinned; {desc}; inner solves "
@@ -607,7 +641,7 @@ def rollout_phase(tag, device, problem, n_steps, traced=True, coarse=True):
     s, (nit, cgit) = roll(s, f_ext)
     sync()
     wall = time.perf_counter() - t0
-    names = KERNELS + (("newton_resident",) if family in fk.RESIDENT_SOURCES else ())
+    names = KERNELS + (("newton_resident",) if (family, op.kind) in fk.RESIDENT_SOURCES else ())
     launches = {k: fk.LAUNCHES[fk.launch_key(k, op)] for k in names}
     if not bool(torch.isfinite(s.x).all()) or s.x.shape != state0.x.shape:
         raise AssertionError(f"{tag} rollout state is not finite")
@@ -755,34 +789,47 @@ def _wall_ms(fn, reps=3):
     return best
 
 
-def resident_phase(device, n_steps=RESIDENT_ROLLOUT):
-    """bench.py's "1k" rollout through the persistent Newton-PCG kernel, its
-    checks and times, and the same rollout through the composed K1-K4 path
-    for comparison. Returns (the kernel's JSON record fields, its launches
-    in the timed rollout)."""
+def resident_phase(tag, device, make_problem, n_steps, composed_tag, jax_counts=None):
+    """A problem that passes the resident gate, rolled out through the
+    persistent Newton-PCG kernel, its checks and times, and the same rollout
+    through the composed K1-K4 path for comparison. make_problem(dtype) ->
+    (system, state, f_ext, params); jax_counts: the median Newton / CG per
+    step the JAX package recorded for it, if any. Checks: one launch per
+    inner solve, K1/K2 never (K3/K4 only at the SVK preconditioner
+    refreshes); one float64 inner solve from the 10th step's state, kernel
+    against its plain version (the same Newton count, CG within 2,
+    positions within 1e-10 relative); the same in float32, the rollout's
+    dtype (CG within 2, v within F32_RESIDENT_TOL of the solve's update, or
+    twice the plain version's own float32 distance from float64 where that
+    is larger), and bitwise repeatability. Returns (the kernel's JSON record fields, its
+    launches in the timed rollout, the composed rollout's launches)."""
     import torch
 
+    from tlfea_torch.ops import fem_kernels as fk
     from tlfea_torch.ops import resident
     from tlfea_torch.solvers import newton
 
-    tag = "resident"
-    problem = flagship_problem(device, torch.float32, RESIDENT_DIMS)
+    problem = make_problem(torch.float32)
     system, state0, f_ext, params = problem
+    key = fk.launch_key("newton_resident", system.fem)
     if not resident.eligible(system, None) or params.max_outer != 1:
-        raise AssertionError("the 1k problem must pass the resident gate, one inner solve a step")
+        raise AssertionError(f"{tag}: the problem must pass the resident gate, one inner solve "
+                             f"a step")
     out = rollout_phase(tag, device, problem, n_steps, coarse=False)
-    refreshes = -(-n_steps // 8)
+    refreshes = -(-n_steps // 8) if system.fem.kind == "svk" else 0
     want = {"primal_prep": 0, "hv": 0, "svk_blocks": refreshes, "node_reduce": refreshes,
             "newton_resident": n_steps}
     if out["launches"] != want:
         raise AssertionError(f"launches {out['launches']}, expected {want}")
-    log(tag, f"launches as expected: one persistent kernel per inner solve, K1/K2 never, "
-        f"K3/K4 at the {refreshes} preconditioner refreshes; median Newton "
-        f"{np.median(out['newton']):g} / CG {np.median(out['cg']):g} per step beside the JAX "
-        f"package's recorded {JAX_1K[0]} / {JAX_1K[1]} (BENCH_r04.json)")
+    log(tag, f"launches as expected: {key} once per inner solve, K1/K2 never, "
+        + (f"K3/K4 at the {refreshes} preconditioner refreshes" if refreshes else
+           "K3/K4 never (the Mooney-Rivlin blocks are plain tensor code)")
+        + f"; median Newton {np.median(out['newton']):g} / CG {np.median(out['cg']):g} per step"
+        + ("" if jax_counts is None else f" beside the JAX package's recorded {jax_counts[0]} / "
+           f"{jax_counts[1]} (BENCH_r04.json)"))
 
     # float64, one inner solve from the 10th step's state: kernel vs plain.
-    p64 = flagship_problem(device, torch.float64, RESIDENT_DIMS)
+    p64 = make_problem(torch.float64)
     st64, _ = newton.make_rollout(p64[0], p64[3], 10, precond_refresh=8)(p64[1], p64[2])
     args = newton.inner_solve_args(p64[0], st64, p64[2], p64[3])
     v_k, stats = resident.launch(*args)
@@ -796,7 +843,7 @@ def resident_phase(device, n_steps=RESIDENT_ROLLOUT):
         f"CG {sk['cg_total']} vs {cg_p} (bar +-2), positions max abs err {err64:.3e}, "
         f"{rel64:.3e} relative (bar 1e-10)")
     if sk["iters"] != it_p or abs(sk["cg_total"] - cg_p) > 2 or not rel64 < 1e-10:
-        raise AssertionError("the resident kernel disagrees with its plain version in float64")
+        raise AssertionError(f"{key} disagrees with its plain version in float64")
 
     # float32, the main path's dtype, at the 10th step's state: kernel vs
     # plain, repeatability, then times.
@@ -806,17 +853,27 @@ def resident_phase(device, n_steps=RESIDENT_ROLLOUT):
     v2, _ = resident.launch(*args)
     torch.cuda.synchronize()
     if not torch.equal(v1, v2):
-        raise AssertionError("the float32 resident kernel is not bitwise repeatable")
+        raise AssertionError(f"the float32 {key} is not bitwise repeatable")
     st = resident.read_stats(s1)
     v_p, it_p, _, cg_p, _ = resident.newton_inner_resident_plain(*args)
+    update = float((v_p - args[0]).abs().max())
     err32 = float((v1 - v_p).abs().max())
-    rel32 = err32 / float((v_p - args[0]).abs().max())
+    rel32 = err32 / update
+    # float32's resolution here: the plain version on the same inputs in
+    # float64 (the float64 system's tables, everything else widened).
+    args64 = [a.double() if torch.is_tensor(a) else a for a in args]
+    args64[5] = p64[0]
+    args64[7] = None if args[7] is None else tuple(t.double() for t in args[7])
+    res32 = float((v_p.double() - resident.newton_inner_resident_plain(*args64)[0])
+                  .abs().max()) / update
+    f32_tol = max(F32_RESIDENT_TOL, 2.0 * res32)
     log(tag, f"float32 inner solve at step 10, kernel vs plain: Newton {st['iters']} vs {it_p}, "
         f"CG {st['cg_total']} vs {cg_p} (bar +-2), v max abs err {err32:.3e} = {rel32:.3e} of "
-        f"the solve's update max |v - v0| (bar {F32_RESIDENT_TOL:g}), "
-        f"{err32 / float(v_p.abs().max()):.3e} of max |v|")
-    if st["iters"] != it_p or abs(st["cg_total"] - cg_p) > 2 or not rel32 < F32_RESIDENT_TOL:
-        raise AssertionError("the resident kernel disagrees with its plain version in float32")
+        f"the solve's update max |v - v0| (bar {f32_tol:.3e}: the plain version's float32 "
+        f"v is {res32:.3e} of it from its float64 v), {err32 / float(v_p.abs().max()):.3e} "
+        f"of max |v|")
+    if st["iters"] != it_p or abs(st["cg_total"] - cg_p) > 2 or not rel32 < f32_tol:
+        raise AssertionError(f"{key} disagrees with its plain version in float32")
     ms, host_ms = _device_ms(lambda: resident.launch(*args), 64)
     b_ms, b_by, pass_ms = resident_bound_ms(system.fem, st)
     plain_ms = _wall_ms(lambda: resident.newton_inner_resident_plain(*args))
@@ -841,19 +898,19 @@ def resident_phase(device, n_steps=RESIDENT_ROLLOUT):
 
         comp = composed()
         comp_wall = _wall_ms(composed)
-        comp_out = rollout_phase("composed_1k", device, problem, n_steps, coarse=False)
+        comp_out = rollout_phase(composed_tag, device, problem, n_steps, coarse=False)
     finally:
         resident.eligible = orig
     log(tag, f"wall ms per inner solve: resident {res_wall:.3f} (stats read included), plain "
         f"version {plain_ms:.3f}, composed K1-K4 path {comp_wall:.3f} (Newton {comp[1]}, CG "
         f"{comp[3]})")
-    log(tag, f"1k rollout ms/step: resident {out['ms']:.3f}, composed K1-K4 {comp_out['ms']:.3f} "
-        f"({comp_out['ms'] / out['ms']:.1f}x)")
-    record = dict(max_abs_err=err32, max_rel_err=rel32, tol=F32_RESIDENT_TOL,
+    log(tag, f"{system.elems.n_elem}-element rollout ms/step: resident {out['ms']:.3f}, composed "
+        f"K1-K4 {comp_out['ms']:.3f} ({comp_out['ms'] / out['ms']:.1f}x)")
+    record = dict(max_abs_err=err32, max_rel_err=rel32, tol=f32_tol, f32_vs_f64_plain=res32,
                   max_abs_err_f64=err64, max_rel_err_f64=rel64, tol_f64=1e-10, ms=ms,
                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                   per_pass_bound_ms=pass_ms, barriers=st["barriers"], grid=st["grid"])
-    return record, out["launches"]["newton_resident"]
+    return record, out["launches"]["newton_resident"], comp_out["launches"]
 
 
 def shell_theory(device, steps=THEORY_STEPS):
@@ -1078,18 +1135,21 @@ def jvp_phase(tag, device, problem, state, n_dirs=JVP_DIRECTIONS):
 
 
 def first_order_ancf(device):
-    """The ANCF families through the first-order path: on the bench.py
-    shell plate and the 64-element ANCF3243 beam, one AdamW step of
-    make_solver's parameters capped at TRACE_ITERS iterations (K5 + K4),
-    then the jvp of its gradient (K5t + K4). Returns {family: launches}."""
+    """The ANCF families through the first-order path, with SVK and with
+    Mooney-Rivlin: on the bench.py shell plate and the 64-element ANCF3243
+    beam, one AdamW step of make_solver's parameters capped at TRACE_ITERS
+    iterations (K5 + K4), then the jvp of its gradient (K5t + K4). Returns
+    {tag: launches}."""
     import torch
 
     from tlfea_torch.ops import fem_kernels as fk
     from tlfea_torch.solvers import adamw
 
     out = {}
-    for family, problem in (("ancf3443", shell_problem(device, torch.float32)),
-                            ("ancf3243", ancf_beam_problem(device, torch.float32))):
+    for tag, make in (("ancf3443", shell_problem), ("ancf3243", ancf_beam_problem),
+                      ("ancf3443_mr", shell_problem), ("ancf3243_mr", ancf_beam_problem)):
+        material = mooney_rivlin() if tag.endswith("_mr") else None
+        problem = make(device, torch.float32, material=material)
         system, state0, f_ext, _ = problem
         params = _capped("adamw", first_order_params("adamw"), TRACE_ITERS)
         fk.reset_launch_counts()
@@ -1097,14 +1157,14 @@ def first_order_ancf(device):
         s, d = adamw.make_step(system, params)(state0, f_ext)
         torch.cuda.synchronize()
         launches = {k: fk.LAUNCHES[fk.launch_key(k, system.fem)] for k in KERNELS + FIRST_ORDER}
-        log("first_order_ancf", f"{family}: {system.elems.n_elem} elements, one AdamW step of "
+        log("first_order_ancf", f"{tag}: {system.elems.n_elem} elements, one AdamW step of "
             f"{d['inner_iters']} iterations in {time.perf_counter() - t0:.3f} s, max |u| "
             f"{float(s.u.abs().max()):.3e}; launches {launches}")
         if not bool(torch.isfinite(s.x).all()) or min(launches[k] for k in
                                                        ("contrib", "node_reduce")) <= 0:
-            raise AssertionError(f"{family}: the first-order step did not run through K5 + K4")
+            raise AssertionError(f"{tag}: the first-order step did not run through K5 + K4")
         jl = jvp_phase("first_order_ancf", device, problem, s, n_dirs=2)
-        out[family] = {k: launches[k] + jl[k] for k in launches}
+        out[tag] = {k: launches[k] + jl[k] for k in launches}
     return out
 
 
@@ -1266,7 +1326,11 @@ def main():
         "feat10_mr": phase_kernels(device, "feat10_mr", flagship_problem(
             "cpu", torch.float64, material=mooney_rivlin())[0]),
         "ancf3443": phase_kernels(device, "ancf3443", shell_problem("cpu", torch.float64)[0]),
+        "ancf3443_mr": phase_kernels(device, "ancf3443_mr", shell_problem(
+            "cpu", torch.float64, material=mooney_rivlin())[0]),
         "ancf3243": phase_kernels(device, "ancf3243", ancf_beam_problem("cpu", torch.float64)[0]),
+        "ancf3243_mr": phase_kernels(device, "ancf3243_mr", ancf_beam_problem(
+            "cpu", torch.float64, material=mooney_rivlin())[0]),
     }
     done("kernels")
 
@@ -1279,10 +1343,24 @@ def main():
 
     launches = {"feat10": flagship(device)}
     done("flagship")
-    res_record, res_launches = resident_phase(device)
+    # The persistent kernel, one record per (family, material); launches
+    # from each phase's timed rollout.
+    resident_runs = {}
+    resident_runs["feat10"] = resident_phase(
+        "resident", device, lambda dt: flagship_problem(device, dt, RESIDENT_DIMS),
+        RESIDENT_ROLLOUT, "composed_1k", JAX_1K)
     done("resident")
+    resident_runs["feat10_mr"] = resident_phase(
+        "resident_mr", device,
+        lambda dt: flagship_problem(device, dt, RESIDENT_DIMS, mooney_rivlin()),
+        RESIDENT_ROLLOUT, "composed_1k_mr")
+    done("resident_mr")
     launches["ancf3443"] = shell(device)
     done("shell")
+    launches["ancf3443_mr"] = rollout_phase(
+        "shell_mr", device, shell_problem(device, torch.float32, material=mooney_rivlin()),
+        SHELL_ROLLOUT)["launches"]
+    done("shell_mr")
 
     rel, tz, w, secs, nt, ct = shell_theory(device)
     log("shell_theory", f"float64 cantilever plate, {THEORY_STEPS} steps in {secs:.2f} s "
@@ -1292,10 +1370,26 @@ def main():
         raise AssertionError(f"shell tip is {rel:.1%} off plate theory")
     done("shell_theory")
 
-    launches["ancf3243"] = rollout_phase(
-        "ancf_beam", device, ancf_beam_problem(device, torch.float32), ANCF_BEAM_STEPS,
-        traced=False)["launches"]
-    done("ancf_beam")
+    # The ANCF3243 cantilever through the persistent kernel, at 64 elements
+    # and at 1,024 (one element block, 32 tiles), with SVK and Mooney-Rivlin;
+    # K1-K4 from the composed comparison of the 64-element beam.
+    for tag, material in (("ancf3243", None), ("ancf3243_mr", mooney_rivlin())):
+        phase = "ancf_beam" + tag[8:]
+        for n_elem in (64, BIG_BEAM):
+            record, res_launches, comp = resident_phase(
+                phase + ("" if n_elem == 64 else f"_{n_elem}"), device,
+                lambda dt, n_elem=n_elem, material=material: ancf_beam_problem(
+                    device, dt, n_elem, material),
+                ANCF_BEAM_STEPS, f"composed_{phase}" + ("" if n_elem == 64 else f"_{n_elem}"))
+            if n_elem == 64:
+                resident_runs[tag] = (record, res_launches, comp)
+                launches[tag] = comp
+            else:
+                run = resident_runs[tag]
+                run[0].update({f"{k}_e{n_elem}": record[k] for k in
+                               ("ms", "bound_ms", "max_rel_err_f64", "grid")})
+                resident_runs[tag] = (run[0], run[1] + res_launches, run[2])
+            done(phase + ("" if n_elem == 64 else f"_{n_elem}"))
 
     # The first-order path: K5 + K4 for every gradient, K5t + K4 for its jvp.
     problem = flagship_problem(device, torch.float32)
@@ -1326,8 +1420,8 @@ def main():
     launches["feat10"]["contrib_tangent"] = jvp_launches["contrib_tangent"]
     launches["feat10_mr"]["contrib"] = mr_first["launches"]["contrib"]
     launches["feat10_mr"]["contrib_tangent"] = mr_jvp["contrib_tangent"]
-    for family, fl in ancf_first.items():
-        launches[family].update({k: fl[k] for k in FIRST_ORDER})
+    for tag, fl in ancf_first.items():
+        launches[tag].update({k: fl[k] for k in FIRST_ORDER})
 
     def src(tag, name):
         family, kind = (tag[:-3], "mr") if tag.endswith("_mr") else (tag, "svk")
@@ -1340,16 +1434,22 @@ def main():
 
     entries = [(f"{name}[{tag}]", src(tag, name), replaces(tag, name),
                 launches[tag][name], timings[tag][name])
-               for tag in ("feat10", "ancf3443", "ancf3243", "feat10_mr")
+               for tag in ("feat10", "ancf3443", "ancf3243", "feat10_mr", "ancf3443_mr",
+                           "ancf3243_mr")
                for name in (fk.MATERIAL_KERNELS["mr"] if tag.endswith("_mr")
                             else KERNELS + FIRST_ORDER)]
-    entries.append(("newton_resident[feat10]", "tlfea_torch/csrc/" + fk.RESIDENT_SOURCES["feat10"],
-                    "tlfea/ops/pallas_resident.py:64", res_launches, res_record))
+    for (family, kind), source in fk.RESIDENT_SOURCES.items():
+        tag = family if kind == "svk" else f"{family}_{kind}"
+        record, res_launches, _ = resident_runs[tag]
+        entries.append((f"newton_resident[{tag}]", "tlfea_torch/csrc/" + source,
+                        "tlfea/ops/pallas_resident.py:64", res_launches, record))
     # The contract's keys and max_rel_err (the bar), and the resident
-    # kernel's float64 errors, barriers and per-pass bound; numbers to four
-    # digits.
+    # kernel's float64 errors, barriers, per-pass bound and its 1,024-element
+    # beam figures; numbers to four digits.
     keys = ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "max_abs_err_f64", "max_rel_err_f64", "per_pass_bound_ms", "barriers")
+            "library_ms", "max_abs_err_f64", "max_rel_err_f64", "per_pass_bound_ms", "barriers",
+            "grid", "f32_vs_f64_plain", f"ms_e{BIG_BEAM}", f"bound_ms_e{BIG_BEAM}", f"max_rel_err_f64_e{BIG_BEAM}",
+            f"grid_e{BIG_BEAM}")
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": sr, "replaces": rp, "launches": la,
          **{k: (float(f"{r[k]:.4g}") if isinstance(r[k], float) else r[k])

@@ -66,8 +66,9 @@ def _box_system(device, dtype, dims=(1.0, 0.2, 0.2, 3, 1, 1), material=None):
     return system, x0, f_ext.to(device)
 
 
-def _ancf_system(device, dtype, family, n=(4, 3)):
-    """A clamped ANCF plate (ANCF3443) or cantilever (ANCF3243) under gravity."""
+def _ancf_system(device, dtype, family, n=(4, 3), material=None):
+    """A clamped ANCF plate (ANCF3443) or cantilever (ANCF3243) under gravity;
+    damped SVK unless another material is given."""
     if family == "ancf3443":
         coefs, conn = ancf3443.shell_grid(*n, L=0.05, W=0.05)
         elems = ancf3443.build(coefs, conn, 0.05, 0.05, 0.01, rho=1000.0, dtype=dtype,
@@ -83,7 +84,7 @@ def _ancf_system(device, dtype, family, n=(4, 3)):
     pos = coefs[0::4, 0]
     edge = np.nonzero(pos < pos.min() + 1e-12)[0]
     fixed = (4 * edge[:, None] + np.arange(4)[None, :]).reshape(-1)
-    system = System(elems=elems.to(device), material=SVK(lam, mu, 1e3, 1e3),
+    system = System(elems=elems.to(device), material=material or SVK(lam, mu, 1e3, 1e3),
                     constraints=FixedCoefs.from_indices(fixed, x0))
     return system, x0, f_ext.to(device)
 
@@ -532,14 +533,188 @@ def test_mr_rollout_is_bitwise_repeatable_and_matches_twins(cuda_dev):
 
 @pytest.mark.cuda
 def test_mr_raises_on_ancf_and_has_no_k3(cuda_dev):
-    """No Mooney-Rivlin instantiation exists for the ANCF families (nor a
-    JAX path that pairs them), and K3 is SVK only: both raise on the card,
-    launching nothing."""
-    system, _, _ = _ancf_system(cuda_dev, torch.float32, "ancf3443")
-    with pytest.raises(ValueError, match="MooneyRivlin with ancf3443"):
-        fk.FemOperator(system.elems, _mooney_rivlin())
+    """Mooney-Rivlin has element kernels in every family, but no persistent
+    kernel for the ANCF3443 shell (nor a JAX resident path), and K3 is SVK
+    only: both raise on the card, launching nothing."""
+    system, _, _ = _ancf_system(cuda_dev, torch.float32, "ancf3443", material=_mooney_rivlin())
+    assert system.fem.tag == "ancf3443_mr" and not resident.eligible(system, None)
+    params = newton.NewtonParams(dt=DT, rho=1e7)
+    args = newton.inner_solve_args(system, StepState.rest(system, system.elems.x_ref),
+                                   torch.zeros_like(system.elems.x_ref), params)
     mr, _, _ = _box_system(cuda_dev, torch.float32, material=_mooney_rivlin())
     fk.reset_launch_counts()
+    with pytest.raises(ValueError, match="no newton_resident kernel for MooneyRivlin with "
+                                         "ancf3443"):
+        resident.launch(*args)
     with pytest.raises(ValueError, match="takes no MooneyRivlin"):
         fk.svk_blocks(mr.fem, torch.zeros((mr.n_coef, 3), device=cuda_dev))
     assert sum(fk.LAUNCHES.values()) == 0
+
+
+# The displacement scale of the strained Mooney-Rivlin state on the small
+# ANCF structures of `_ancf_system`: J - 1 spans [-0.32, 0.35] on the beam
+# and [-0.30, 0.45] on the plate (float64 twins, seed 21).
+ANCF_MR_STRAIN = {"ancf3243": 1e-2, "ancf3443": 5e-3}
+
+
+def _mr_ancf_case(device, dtype, family):
+    """The strained Mooney-Rivlin state on a small ANCF structure, with
+    random velocities, increments, directions and tangents."""
+    system, _, _ = _ancf_system(device, dtype, family, material=_mooney_rivlin())
+    op = system.fem
+    rng = np.random.default_rng(21)
+    n = op.n
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+
+    packed = dev(np.concatenate([rng.normal(size=(n, 3)) * ANCF_MR_STRAIN[family],
+                                 rng.normal(size=(n, 6))], 1))
+    return system, packed, dev(rng.normal(size=(n, 3))), dev(rng.normal(size=(n, 9)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["ancf3243", "ancf3443"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("kernel", MR_KERNELS)
+def test_mr_ancf_kernel_matches_twin_on_card(cuda_dev, kernel, dtype, tol, family):
+    """K1, K2, K5 and K5t `[<family>_mr]` (`_MRTile` in the ANCF bodies:
+    the unchunked ones at ANCF3243, the QP-chunked ones at ANCF3443) against
+    their twins at a strained state, one launch each."""
+    system, packed, p, dpacked = _mr_ancf_case(cuda_dev, dtype, family)
+    op = system.fem
+    assert (op.tag, op.source) == (f"{family}_mr", f"fem_{family}_mr.cu")
+    _, prep = fk.primal_prep_plain(op, packed)
+    jm1 = prep.view(op.Q, op.prep_rows, op.E)[:, 18]
+    assert 0.25 < float(jm1.abs().max()) < 0.5
+    args = {"primal_prep": (packed,), "hv": (p, prep, DT), "contrib": (packed,),
+            "contrib_tangent": (packed, dpacked)}[kernel]
+    fk.reset_launch_counts()
+    got = getattr(fk, kernel)(op, *args)
+    want = getattr(fk, kernel + "_plain")(op, *args)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES[f"{kernel}[{family}_mr]"] == 1 and sum(fk.LAUNCHES.values()) == 1
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert bool(torch.isfinite(g).all()) and _rel(g, w) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["ancf3243", "ancf3443"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_mr_ancf_contrib_is_k1_and_its_tangent_is_k2(cuda_dev, dtype, tol, family):
+    """K5 `[<family>_mr]` is K1's fe bit for bit, and K5t + K4 along the
+    Newton chain (dt p, p, p/dt) is K2 + K4 along p."""
+    system, packed, p, _ = _mr_ancf_case(cuda_dev, dtype, family)
+    op = system.fem
+    fe, prep = fk.primal_prep(op, packed)
+    assert torch.equal(fk.contrib(op, packed), fe)
+    chain = torch.cat([DT * p, p, p / DT], dim=1).contiguous()
+    h5 = fk.node_reduce(op, fk.contrib_tangent(op, packed, chain))
+    h2 = fk.node_reduce(op, fk.hv(op, p, prep, DT))
+    assert _rel(h5, h2) < tol
+
+
+@pytest.mark.cuda
+def test_mr_coefs_match_k1_at_an_inverted_point(cuda_dev):
+    """At det F < 0 (the box mirrored in x, F ~ diag(-1, 1, 1) plus a random
+    strain) K1 `[feat10_mr]` takes CUDA's real `cbrt`; its twin, through
+    `_mr_coefs`' sign-preserving cube root, is finite and equal (float64,
+    1e-12), prep cache included."""
+    system, packed, _, _ = _mr_case(cuda_dev, torch.float64, 1e2)
+    op = system.fem
+    packed = packed.clone()
+    packed[:, 0] -= 2.0 * system.elems.x_ref[:, 0]  # x -> -x
+    fe, prep = fk.primal_prep(op, packed)
+    fe_p, prep_p = fk.primal_prep_plain(op, packed)
+    torch.cuda.synchronize()
+    J = 1.0 + prep_p.view(op.Q, op.prep_rows, op.E)[:, 18]
+    assert float(J.max()) < 0.0
+    t1, t2, t3 = fk._mr_coefs(J - 1.0, op.material)
+    assert all(bool(torch.isfinite(t).all()) for t in (t1, t2, t3))
+    assert bool(torch.isfinite(fe_p).all()) and bool(torch.isfinite(prep_p).all())
+    assert _rel(fe, fe_p) < 1e-12 and _rel(prep, prep_p) < 1e-12
+
+
+def _resident_pair(device, dtype, pair):
+    """One inner solve's inputs, three steps from rest, for a (family,
+    material) pair of the persistent kernel: the 192-element box of
+    `_resident_case` in Mooney-Rivlin, or a clamped ANCF3243 cantilever
+    under gravity of 12 or 1,024 elements (one element block, 32 tiles) in
+    SVK or Mooney-Rivlin."""
+    tag, n_elem = pair
+    material = _mooney_rivlin() if tag.endswith("_mr") else None
+    if tag.startswith("feat10"):
+        system, x0, f_ext = _box_system(device, dtype, dims=(1.0, 0.3, 0.3, 8, 2, 2),
+                                        material=material)
+    else:
+        system, x0, f_ext = _ancf_system(device, dtype, "ancf3243", n=(n_elem, 1),
+                                         material=material)
+    assert system.fem.tag == tag and system.fem.E == n_elem
+    params = newton.NewtonParams(dt=DT, rho=1e7, inner_atol=1e-3 * float(f_ext.norm()),
+                                 outer_tol=0.0, max_outer=1, max_inner=6, cg_rtol=1e-3,
+                                 cg_max_iter=50)
+    state, _ = newton.make_rollout(system, params, 3, precond_refresh=2)(
+        StepState.rest(system, x0), f_ext)
+    return system, newton.inner_solve_args(system, state, f_ext, params)
+
+
+RESIDENT_PAIRS = [("feat10_mr", 192), ("ancf3243", 12), ("ancf3243_mr", 12), ("ancf3243", 1024),
+                  ("ancf3243_mr", 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", RESIDENT_PAIRS, ids=[f"{t}-{e}" for t, e in RESIDENT_PAIRS])
+def test_resident_pair_matches_plain(cuda_dev, pair):
+    """The persistent kernel at FEAT10 x MR and ANCF3243 x SVK/MR against its
+    plain version in float64: the same Newton count, CG within 2, positions
+    within 1e-10 relative, one launch."""
+    system, args = _resident_pair(cuda_dev, torch.float64, pair)
+    fk.reset_launch_counts()
+    v, stats = resident.launch(*args)
+    st = resident.read_stats(stats)
+    assert fk.LAUNCHES[f"newton_resident[{pair[0]}]"] == 1 and sum(fk.LAUNCHES.values()) == 1
+    want = resident.newton_inner_resident_plain(*args)
+    assert st["iters"] == want[1] and abs(st["cg_total"] - want[3]) <= 2 and st["cg_total"] > 0
+    x_ref, u_prev = system.elems.x_ref, args[1]
+    assert _rel(x_ref + u_prev + DT * v, x_ref + u_prev + DT * want[0]) < 1e-10
+    assert 1 <= st["grid"] <= -(-pair[1] // 32) and st["hv_evals"] == st["cg_total"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", RESIDENT_PAIRS[:3], ids=[t for t, _ in RESIDENT_PAIRS[:3]])
+def test_resident_pair_float32_matches_plain_and_repeats(cuda_dev, pair):
+    """The float32 instantiations: the same Newton count, CG within 2, v
+    within 1e-3 of the solve's update, bitwise repeatable."""
+    _, args = _resident_pair(cuda_dev, torch.float32, pair)
+    v, stats = resident.launch(*args)
+    v2, _ = resident.launch(*args)
+    st = resident.read_stats(stats)
+    want = resident.newton_inner_resident_plain(*args)
+    assert torch.equal(v, v2)
+    assert st["iters"] == want[1] and abs(st["cg_total"] - want[3]) <= 2
+    assert float((v - want[0]).abs().max()) < 1e-3 * float((want[0] - args[0]).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag", ["feat10_mr", "ancf3243", "ancf3243_mr"])
+def test_resident_pair_rollout_launches_once_per_inner_solve(cuda_dev, tag):
+    """Four float32 steps through the gate: one persistent launch per inner
+    solve, K1 and K2 never; K3 + K4 at the SVK refreshes only (the
+    Mooney-Rivlin blocks are plain tensor code)."""
+    system, x0, f_ext = (_box_system(cuda_dev, torch.float32, dims=(1.0, 0.3, 0.3, 8, 2, 2),
+                                     material=_mooney_rivlin()) if tag == "feat10_mr" else
+                         _ancf_system(cuda_dev, torch.float32, "ancf3243", n=(12, 1),
+                                      material=_mooney_rivlin() if tag.endswith("_mr") else None))
+    params = newton.NewtonParams(dt=DT, rho=1e7, inner_atol=1e-3 * float(f_ext.norm()),
+                                 outer_tol=0.0, max_outer=1, max_inner=6, cg_rtol=1e-3,
+                                 cg_max_iter=50)
+    fk.reset_launch_counts()
+    state, (nit, _) = newton.make_rollout(system, params, 4, precond_refresh=2)(
+        StepState.rest(system, x0), f_ext)
+    assert bool(torch.isfinite(state.x).all()) and sum(nit) > 0
+    svk = not tag.endswith("_mr")
+    got = {k: fk.LAUNCHES[fk.launch_key(k, system.fem)] for k in KERNELS + ["newton_resident"]}
+    assert got == {"primal_prep": 0, "hv": 0, "svk_blocks": 2 * svk, "node_reduce": 2 * svk,
+                   "newton_resident": 4}
+    assert fk.launch_key("newton_resident", system.fem) == f"newton_resident[{tag}]"

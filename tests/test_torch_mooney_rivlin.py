@@ -344,10 +344,11 @@ def test_first_order_steps_match_jax(solver):
 # --- the faults of the port this material showed ---------------------------
 
 
-def test_fem_operator_takes_svk_and_mr_only():
+def test_fem_operator_takes_svk_and_mr_only(monkeypatch):
     """FemOperator reads the material's type, not its attributes: an object
-    with SVK's attribute names is refused, and Mooney-Rivlin with an ANCF
-    family (no kernel, no JAX path) raises; MR has no K3."""
+    with SVK's attribute names is refused. Mooney-Rivlin builds with every
+    family (the JAX `tile_material` is family-agnostic), a (family,
+    material) pair without a CUDA source raises, and MR has no K3."""
     from dataclasses import dataclass
 
     from tlfea_torch.elements import ancf3243
@@ -365,6 +366,9 @@ def test_fem_operator_takes_svk_and_mr_only():
         fk.FemOperator(tsys.elems, LooksLikeSVK())
     coefs, conn = ancf3243.straight_beam(2, L=0.1)
     beam = ancf3243.build(coefs, conn, 0.1, 0.02, 0.02, rho=1000.0, device="cpu")
+    op = fk.FemOperator(beam, tsys.material)
+    assert (op.tag, op.source, op.prep_rows) == ("ancf3243_mr", "fem_ancf3243_mr.cu", 30)
+    monkeypatch.delitem(fk.SOURCES, ("ancf3243", "mr"))
     with pytest.raises(ValueError, match="MooneyRivlin with ancf3243"):
         fk.FemOperator(beam, tsys.material)
     u = torch.zeros((tsys.n_coef, 3), dtype=torch.float64)
@@ -374,17 +378,28 @@ def test_fem_operator_takes_svk_and_mr_only():
 
 
 def test_resident_gate_is_shut_for_mr():
-    """The persistent kernel is SVK only: a small pinned MR box that would
-    pass every other condition of the gate runs the composed loop, and
-    `resident.launch` refuses it."""
+    """The persistent kernel takes Mooney-Rivlin where it has an
+    instantiation (FEAT10, ANCF3243): a small pinned MR box passes the gate.
+    The gate stays shut for MR on the ANCF3443 shell, which has none (nor a
+    JAX resident path), and `resident.launch` refuses it."""
+    from tlfea_torch.constraints import FixedCoefs
+    from tlfea_torch.elements import ancf3443
     from tlfea_torch.ops import resident
-    from tlfea_torch.solvers.common import StepState
+    from tlfea_torch.solvers.common import StepState, System
 
     _, _, tsys, _ = _box_mr(True, box=(1.0, 0.3, 0.3, 2, 1, 1))
     assert tsys.fem.E <= resident.MAX_ELEMS
-    assert not resident.eligible(tsys, None)
+    assert resident.eligible(tsys, None)
+    coefs, conn = ancf3443.shell_grid(2, 2, L=0.05, W=0.05)
+    x0 = torch.as_tensor(coefs)
+    shell = System(elems=ancf3443.build(coefs, conn, 0.05, 0.05, 0.01, rho=1000.0,
+                                        device="cpu"),
+                   material=tsys.material, constraints=FixedCoefs.from_indices([0, 1, 2, 3], x0))
+    assert shell.fem.tag == "ancf3443_mr" and shell.fem.E <= resident.MAX_ELEMS
+    assert not resident.eligible(shell, None)
     params = newton.NewtonParams(dt=DT, rho=1e6)
-    state = StepState.rest(tsys, tsys.elems.x_ref.clone())
-    args = newton.inner_solve_args(tsys, state, torch.zeros_like(state.x), params)
-    with pytest.raises(ValueError, match="SVK only"):
+    state = StepState.rest(shell, x0)
+    args = newton.inner_solve_args(shell, state, torch.zeros_like(state.x), params)
+    with pytest.raises(ValueError, match="no newton_resident kernel for MooneyRivlin with "
+                                         "ancf3443"):
         resident.launch(*args)

@@ -1,0 +1,18 @@
+// ANCF3243 x Mooney-Rivlin instantiation of the element kernels K1
+// primal_prep, K2 hv, K5 contrib and K5t contrib_tangent (templates in
+// fem_kernels.cuh, material algebra in mr.cuh): `pallas_fem._MRTile` (:282)
+// inside the unchunked `_primal_prep_body` (:888), `_hv_body` (:956) and
+// `_body` (:519, its tangent :830) at the beam's shapes, as the
+// family-agnostic `tile_material` (:466-480) hands it to them. No K3: the JAX
+// package builds the Pallas blocks kernel for SVK only, so the Mooney-Rivlin
+// blocks stay plain tensor code, as on FEAT10. K4 is in fem_kernels.cu.
+//
+// The same family as fem_ancf3243.cu: S = 8 slots, translation slots 0 and
+// 4, Q = 12, NG = 4 groups of 3 quadrature points, partial sums (24 a
+// thread) in registers.
+
+#include "fem_kernels.cuh"
+
+using Ancf3243 = tlfea::Family<8, 12, 0x11u, 4>;
+TLFEA_MR_ENTRY_POINTS(ancf3243, Ancf3243, f32, float)
+TLFEA_MR_ENTRY_POINTS(ancf3243, Ancf3243, f64, double)

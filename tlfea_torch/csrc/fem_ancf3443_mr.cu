@@ -1,0 +1,17 @@
+// ANCF3443 x Mooney-Rivlin instantiation of the element kernels K1
+// primal_prep, K2 hv, K5 contrib and K5t contrib_tangent (templates in
+// fem_kernels.cuh, material algebra in mr.cuh): `pallas_fem._MRTile` (:282)
+// inside the QP-chunked `_primal_prep_chunked_body` (:1018) and
+// `_hv_chunked_body` (:1054), and in `_body` (:519, its tangent :830) at the
+// shell's shapes. No K3 (the Mooney-Rivlin blocks are plain tensor code);
+// K4 is in fem_kernels.cu.
+//
+// The same family as fem_ancf3443.cu: S = 16 slots, translation slots 0, 4,
+// 8 and 12, Q = 48, NG = 4 groups of 12 quadrature points whose partial sums
+// meet in shared memory in a fixed order.
+
+#include "fem_kernels.cuh"
+
+using Ancf3443 = tlfea::Family<16, 48, 0x1111u, 4>;
+TLFEA_MR_ENTRY_POINTS(ancf3443, Ancf3443, f32, float)
+TLFEA_MR_ENTRY_POINTS(ancf3443, Ancf3443, f64, double)

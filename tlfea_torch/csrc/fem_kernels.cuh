@@ -1,8 +1,8 @@
 // Element kernels of the implicit Newton-PCG step (Hopper, sm_90a), templated
 // on the element family (the number of slots S, of stiffness quadrature
 // points Q, and the mask of translation slots) and, for K1, K2, K5 and K5t,
-// on the material: `SvkMat` (svk.cuh) or `MrMat` (mr.cuh, FEAT10 only, in
-// fem_feat10_mr.cu), which carries its prep-row count PR, its constants and
+// on the material: `SvkMat` (svk.cuh) or `MrMat` (mr.cuh, in every family:
+// fem_<family>_mr.cu), which carries its prep-row count PR, its constants and
 // its stress, Hv and tangent algebra. K3 is SVK only, as in the JAX package.
 //
 // Six kernels replace the Pallas TPU kernels of the Newton-PCG path and of the

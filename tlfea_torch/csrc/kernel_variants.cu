@@ -18,3 +18,14 @@ using S8smem = tlfea::Family<16, 48, 0x1111u, 8, 0>;
 TLFEA_FAMILY_ENTRY_POINTS(s8smem, S8smem, f32, float)
 using S8regs = tlfea::Family<16, 48, 0x1111u, 8, 240>;
 TLFEA_FAMILY_ENTRY_POINTS(s8regs, S8regs, f32, float)
+
+// Mooney-Rivlin at the ANCF shapes: the shipped instantiations keep the SVK
+// families' NG and partial sums (fem_ancf3243_mr.cu, fem_ancf3443_mr.cu);
+// these put the partials in shared memory, or split the shell's points
+// into 8 groups.
+using S4smemMr = tlfea::Family<16, 48, 0x1111u, 4, 0>;
+TLFEA_MR_ENTRY_POINTS(s4smem, S4smemMr, f32, float)
+using S8smemMr = tlfea::Family<16, 48, 0x1111u, 8, 0>;
+TLFEA_MR_ENTRY_POINTS(s8smem, S8smemMr, f32, float)
+using B4smemMr = tlfea::Family<8, 12, 0x11u, 4, 0>;
+TLFEA_MR_ENTRY_POINTS(b4smem, B4smemMr, f32, float)

@@ -1,7 +1,9 @@
 // Compressible Mooney-Rivlin + Kelvin-Voigt material algebra for the FEM
 // element kernels, as per-thread __device__ functions on 3x3 register arrays,
-// and `MrMat`, the material parameter that K1 primal_prep, K2 hv, K5 contrib
-// and K5t contrib_tangent are instantiated with (fem_feat10_mr.cu).
+// and `MrMat`, the material parameter that K1 primal_prep, K2 hv, K5 contrib,
+// K5t contrib_tangent (fem_feat10_mr.cu, fem_ancf3243_mr.cu,
+// fem_ancf3443_mr.cu) and the persistent Newton-PCG kernel (resident.cuh) are
+// instantiated with.
 //
 // The CUDA form of `pallas_fem._MRTile` (tlfea/ops/pallas_fem.py:282-463):
 //
@@ -285,6 +287,10 @@ template <typename T>
 struct MrMat {
   static constexpr int PR = 30;
   T mu10, mu01, kappa, eta, lam_d;
+
+  static MrMat from(const double* c) {
+    return MrMat{(T)c[0], (T)c[1], (T)c[2], (T)c[3], (T)c[4]};
+  }
 
   // P at (Du, Fd); with PREP, the quadrature point's prep rows at pq (row r
   // at pq[r * sE]): Du, G, [J - 1, I1, I2], Fd.

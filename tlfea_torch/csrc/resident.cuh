@@ -1,5 +1,6 @@
 // The whole inner Newton-PCG solve of one implicit step in one persistent
-// cooperative kernel (Hopper, sm_90a), templated on the element family.
+// cooperative kernel (Hopper, sm_90a), templated on the element family and
+// on the material (`SvkMat`, svk.cuh; `MrMat`, mr.cuh), as K1 and K2 are.
 //
 // Replaces tlfea/ops/pallas_resident.py `_kernel` (:64; its `pallas_call` is
 // at :373): for a mesh of at most 1,024 elements, without the coarse
@@ -16,7 +17,13 @@
 //     t = 1, 1/2, ... for ls_max trials, keeping the best t (which starts
 //     at 0).
 // The element work is the K1/K2 tile code and K4's node sum of
-// fem_kernels.cuh, run in grid-stride loops.
+// fem_kernels.cuh, run in grid-stride loops; the JAX kernel takes the
+// material's tile algebra the same way (`bnd.mops`, pallas_resident.py:326),
+// and S and Q from the family (:300-302). Instantiations: FEAT10 x SVK and
+// MR in fem_resident.cu, ANCF3243 x SVK and MR in fem_resident_ancf3243.cu.
+// ANCF3443 has none: the JAX package builds no banded handle for it (the
+// VMEM estimate of pallas_banded.build_banded refuses every 48-point shell
+// block), so it never runs resident there either.
 //
 // Why one kernel: at 864 elements a CG iteration is a few microseconds of
 // device work, but the composed path spends about thirty host operations
@@ -60,7 +67,7 @@ namespace tlfea {
 constexpr int RES_NV = 3;     // values per reduction
 constexpr int RES_STATS = 7;  // iters, cg_total, ||g||, grads, Hvs, barriers, grid; then history
 
-template <typename T>
+template <typename T, class M>
 struct ResidentArgs {
   const T *v0, *u_prev, *v_prev, *f_ext, *pin_aff, *pin_lin, *inv_blocks;
   const int* conn_t;
@@ -71,7 +78,8 @@ struct ResidentArgs {
   T* v;                                             // (n, 3) out
   double* stats;                                    // (RES_STATS + max_inner + 1) out
   int n, E;
-  T lam, mu, eta, lam_d, dt;
+  M mat;  // the material's constants
+  T dt;
   double inner_atol, inner_rtol, cg_rtol, ew_eta_max;
   int max_inner, cg_max, ls_max;
 };
@@ -82,8 +90,8 @@ __device__ __forceinline__ void block_jacobi(const T* inv, const T r[3], T z[3])
   for (int i = 0; i < 3; ++i) z[i] = inv[i * 3] * r[0] + inv[i * 3 + 1] * r[1] + inv[i * 3 + 2] * r[2];
 }
 
-template <typename T, class F>
-__global__ void __launch_bounds__(EX * F::NG) newton_resident_kernel(ResidentArgs<T> a) {
+template <typename T, class F, class M>
+__global__ void __launch_bounds__(EX * F::NG) newton_resident_kernel(ResidentArgs<T, M> a) {
   namespace cg = cooperative_groups;
   constexpr int NT = EX * F::NG, NW = NT / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -145,7 +153,7 @@ __global__ void __launch_bounds__(EX * F::NG) newton_resident_kernel(ResidentArg
     sync();
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       primal_prep_tile<T, F>(a.packed, a.conn_t, a.gN_t, a.dV_t, a.Me_t, a.fe, a.prep, E,
-                             tile * EX, SvkMat<T>{a.lam, a.mu, a.eta, a.lam_d}, smem);
+                             tile * EX, a.mat, smem);
       __syncthreads();
     }
     sync();
@@ -167,7 +175,7 @@ __global__ void __launch_bounds__(EX * F::NG) newton_resident_kernel(ResidentArg
   auto hessian_p = [&]() -> T {
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       hv_tile<T, F>(a.p, a.conn_t, a.prep, a.gN_t, a.dV_t, a.Me_t, a.fe, E, tile * EX, dt,
-                    SvkMat<T>{a.lam, a.mu, a.eta, a.lam_d}, smem);
+                    a.mat, smem);
       __syncthreads();
     }
     sync();
@@ -305,25 +313,25 @@ __global__ void __launch_bounds__(EX * F::NG) newton_resident_kernel(ResidentArg
 
 namespace {
 
-template <typename T, class F>
-int launch_newton_resident(const ResidentArgs<T>& args, void* stream) {
+template <typename T, class F, class M>
+int launch_newton_resident(const ResidentArgs<T, M>& args, void* stream) {
   constexpr size_t smem = smem_bytes<T, F, 9, 3>();
   static_assert(smem_bytes<T, F, 9, 3>() >= smem_bytes<T, F, 3, 3>(), "K1's tile is the larger");
-  static const cudaError_t attr = allow_smem(newton_resident_kernel<T, F>, smem);
+  static const cudaError_t attr = allow_smem(newton_resident_kernel<T, F, M>, smem);
   if (attr != cudaSuccess) return (int)attr;
   if (args.E <= 0 || args.n <= 0) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, newton_resident_kernel<T, F>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, newton_resident_kernel<T, F, M>,
                                                         EX * F::NG, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   const int grid = per_sm * sms < n_tiles(args.E) ? per_sm * sms : n_tiles(args.E);
-  ResidentArgs<T> a = args;
+  ResidentArgs<T, M> a = args;
   void* params[] = {(void*)&a};
-  err = cudaLaunchCooperativeKernel((const void*)newton_resident_kernel<T, F>, dim3(grid),
+  err = cudaLaunchCooperativeKernel((const void*)newton_resident_kernel<T, F, M>, dim3(grid),
                                     dim3(EX, F::NG), params, smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -333,21 +341,23 @@ int launch_newton_resident(const ResidentArgs<T>& args, void* stream) {
 
 }  // namespace tlfea
 
-// Plain C interface of one family's resident kernel, bound with ctypes
-// (tlfea_torch/ops/resident.py): tlfea_newton_resident_<NAME>_<SUFFIX>.
-// scratch holds 9 n + S 3 E + Q 27 E + 6 * 3 n words of T (packed, fe,
-// prep, then g, x, r, z, p, hp), partials 2 * ceil(E / 32) * 3 words, stats
-// 7 + max_inner + 1 doubles (the history slots NaN on entry).
-#define TLFEA_RESIDENT_ENTRY_POINTS(NAME, FAM, SUFFIX, T)                                     \
+// Plain C interface of one (family, material)'s resident kernel, bound with
+// ctypes (tlfea_torch/ops/resident.py): tlfea_newton_resident_<NAME>_<SUFFIX>,
+// NAME the kernels' tag (the family, with "_mr" for Mooney-Rivlin). MAT is
+// the material template (tlfea::SvkMat or tlfea::MrMat); mat points to its
+// constants as doubles (MAT<T>::from). scratch holds 9 n + S 3 E + Q PR E +
+// 6 * 3 n words of T (packed, fe, prep with the material's PR rows, then g,
+// x, r, z, p, hp), partials 2 * ceil(E / 32) * 3 words, stats 7 + max_inner
+// + 1 doubles (the history slots NaN on entry).
+#define TLFEA_RESIDENT_ENTRY_POINTS(NAME, FAM, MAT, SUFFIX, T)                                \
   extern "C" int tlfea_newton_resident_##NAME##_##SUFFIX(                                     \
       const void* v0, const void* u_prev, const void* v_prev, const void* f_ext,              \
       const void* pin_aff, const void* pin_lin, const void* inv_blocks, const void* conn_t,   \
       const void* gN_t, const void* dV_t, const void* Me_t, const void* inc_ptr,              \
       const void* inc, void* scratch, void* partials, void* v, void* stats, int n, int E,     \
-      double lam, double mu, double eta, double lam_d, double dt, double inner_atol,          \
-      double inner_rtol, double cg_rtol, double ew_eta_max, int max_inner, int cg_max,        \
-      int ls_max, void* stream) {                                                             \
-    tlfea::ResidentArgs<T> a;                                                                 \
+      const double* mat, double dt, double inner_atol, double inner_rtol, double cg_rtol,     \
+      double ew_eta_max, int max_inner, int cg_max, int ls_max, void* stream) {               \
+    tlfea::ResidentArgs<T, MAT<T>> a;                                                         \
     a.v0 = (const T*)v0;                                                                      \
     a.u_prev = (const T*)u_prev;                                                              \
     a.v_prev = (const T*)v_prev;                                                              \
@@ -367,7 +377,7 @@ int launch_newton_resident(const ResidentArgs<T>& args, void* stream) {
     a.fe = w;                                                                                 \
     w += (long long)FAM::S * 3 * E;                                                           \
     a.prep = w;                                                                               \
-    w += (long long)FAM::Q * tlfea::SvkMat<T>::PR * E;                                        \
+    w += (long long)FAM::Q * MAT<T>::PR * E;                                                  \
     T** vecs[6] = {&a.g, &a.x, &a.r, &a.z, &a.p, &a.hp};                                      \
     for (int i = 0; i < 6; ++i) {                                                             \
       *vecs[i] = w;                                                                           \
@@ -378,10 +388,7 @@ int launch_newton_resident(const ResidentArgs<T>& args, void* stream) {
     a.stats = (double*)stats;                                                                 \
     a.n = n;                                                                                  \
     a.E = E;                                                                                  \
-    a.lam = (T)lam;                                                                           \
-    a.mu = (T)mu;                                                                             \
-    a.eta = (T)eta;                                                                           \
-    a.lam_d = (T)lam_d;                                                                       \
+    a.mat = MAT<T>::from(mat);                                                                \
     a.dt = (T)dt;                                                                             \
     a.inner_atol = inner_atol;                                                                \
     a.inner_rtol = inner_rtol;                                                                \
@@ -390,5 +397,5 @@ int launch_newton_resident(const ResidentArgs<T>& args, void* stream) {
     a.max_inner = max_inner;                                                                  \
     a.cg_max = cg_max;                                                                        \
     a.ls_max = ls_max;                                                                        \
-    return tlfea::launch_newton_resident<T, FAM>(a, stream);                                  \
+    return tlfea::launch_newton_resident<T, FAM, MAT<T>>(a, stream);                          \
   }

@@ -186,7 +186,8 @@ __device__ __forceinline__ void svk_diag_block(const T F[3][3], const T FFT[3][3
 // The SVK material parameter of the element kernels. A material parameter
 // M of K1 primal_prep, K2 hv, K5 contrib and K5t contrib_tangent
 // (fem_kernels.cuh) has PR, its prep rows per quadrature point, its
-// constants (passed to the kernels by value), and
+// constants (passed to the kernels by value; `from` takes them from the
+// doubles of the C interface, in the order of fem_kernels.MATERIALS), and
 //   primal<PREP>(Du, Fd, P, pq, sE)  P at (Du, Fd); with PREP, the prep rows
 //                                    at pq (row r at pq[r * sE])
 //   hv(G, pq, sE, dt, dP)            dP along the Newton direction from them
@@ -197,6 +198,8 @@ template <typename T>
 struct SvkMat {
   static constexpr int PR = 27;
   T lam, mu, eta, lam_d;
+
+  static SvkMat from(const double* c) { return SvkMat{(T)c[0], (T)c[1], (T)c[2], (T)c[3]}; }
 
   template <bool PREP>
   __device__ __forceinline__ void primal(const T Du[3][3], const T Fd[3][3], T P[3][3], T* pq,

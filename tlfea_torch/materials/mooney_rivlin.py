@@ -8,9 +8,10 @@ whose first Piola-Kirchhoff stress is
     + 2 mu01 J^{-4/3} (I1 F - F C - 2 I2/3 F^{-T})
     + kappa (J - 1) J F^{-T}.
 
-PyTorch has no cube root, so J^{1/3} is `J.pow(1/3)`: these functions take
-J > 0 (an inverted element gives NaN where the JAX package's `jnp.cbrt`
-gives a negative root). The CUDA form of the same algebra, with the exact
+PyTorch has no cube root, so J^{1/3} is `ops.linalg.cbrt`, sign(J)
+|J|^{1/3}: the real root, negative at an inverted point (J < 0) as the JAX
+package's `jnp.cbrt` and the kernels' CUDA `cbrt` give it, so the stress
+stays finite there. The CUDA form of the same algebra, with the exact
 J - 1 and a hand-derived directional tangent, is `tlfea_torch/csrc/mr.cuh`;
 its plain twins are in `tlfea_torch/ops/fem_kernels.py`.
 """
@@ -21,11 +22,9 @@ from dataclasses import dataclass
 
 import torch
 
-from tlfea_torch.ops.linalg import det3x3, inv_transpose3x3
+from tlfea_torch.ops.linalg import cbrt, det3x3, inv_transpose3x3
 
 __all__ = ["MooneyRivlin"]
-
-_THIRD = 1.0 / 3.0
 
 
 def _invariants(F: torch.Tensor):
@@ -67,7 +66,7 @@ class MooneyRivlin:
     def _piola(self, F, J, Jm1):
         C, I1, I2 = _invariants(F)
         FinvT = inv_transpose3x3(F, det=J)
-        Jm23 = J.pow(_THIRD).pow(-2.0)
+        Jm23 = cbrt(J).pow(-2.0)
         FC = F @ C
         t1 = (2.0 * self.mu10 * Jm23)[..., None, None]
         t2 = (2.0 * self.mu01 * Jm23 * Jm23)[..., None, None]
@@ -98,7 +97,7 @@ class MooneyRivlin:
         """W = mu10 (I1bar - 3) + mu01 (I2bar - 3) + kappa/2 (J - 1)^2."""
         _, I1, I2 = _invariants(F)
         J = det3x3(F)
-        Jm23 = J.pow(_THIRD).pow(-2.0)
+        Jm23 = cbrt(J).pow(-2.0)
         return (self.mu10 * (I1 * Jm23 - 3.0) + self.mu01 * (I2 * Jm23 * Jm23 - 3.0)
                 + 0.5 * self.kappa * (J - 1.0) ** 2)
 

@@ -26,25 +26,27 @@ autograd Function whose forward-mode derivative is K5t + K4, so that
 `torch.func.jvp` of `grad_L` runs through the kernels too.
 
 A fifth kernel, the persistent Newton-PCG solve of `tlfea_torch.ops.resident`
-(csrc/resident.cuh, sources in `RESIDENT_SOURCES`), runs the K1/K2 tile code
-and K4's node sums inside one cooperative launch; it is built and launched
-through this module too.
+(csrc/resident.cuh, sources in `RESIDENT_SOURCES`, one per (family,
+material) pair that the JAX package runs resident: FEAT10 and ANCF3243,
+each with SVK and Mooney-Rivlin), runs the K1/K2 tile code and K4's node
+sums inside one cooperative launch; it is built and launched through this
+module too.
 
 K1-K3, K5 and K5t are templates instantiated for the element families in
 `FAMILIES` (FEAT10, ANCF3243, ANCF3443) and, K1, K2, K5 and K5t, for the
-material: one CUDA source per (family, material) in `SOURCES`. SVK runs in
-every family (`svk.cuh`); Mooney-Rivlin (`mr.cuh`, the port of
-`pallas_fem._MRTile`) in FEAT10 only, and has no K3: as in the JAX package,
-its preconditioner blocks are plain tensor code
+material: one CUDA source per (family, material) in `SOURCES`. SVK
+(`svk.cuh`) and Mooney-Rivlin (`mr.cuh`, the port of `pallas_fem._MRTile`)
+run in every family; Mooney-Rivlin has no K3: as in the JAX package, its
+preconditioner blocks are plain tensor code
 (`solvers.common.precond_blocks`). `FemOperator` refuses any other (Q, S,
-translation mask), any other material and Mooney-Rivlin with an ANCF
-family. Each wrapper takes the plain twin
+translation mask), any other material and a (family, material) pair
+without a source. Each wrapper takes the plain twin
 (`*_plain`, same module) for a tensor on the CPU, and launches its kernel
 for a tensor on a CUDA device, raising if the launch fails; it never falls
 back. Every launch adds one to `LAUNCHES["<kernel>[<tag>]"]`, the tag being
 the family for SVK and "<family>_mr" for Mooney-Rivlin (K4, which knows no
-material, counts under the family), so a run can show which kernels it went
-through.
+material, counts under the family; the persistent kernel under the tag), so
+a run can show which kernels it went through.
 
 The prep cache K1 writes and K2 reads holds `op.prep_rows` rows per
 quadrature point: SVK 27 (Du, the total second Piola S, Fd), Mooney-Rivlin
@@ -77,7 +79,7 @@ from torch.fx.experimental.proxy_tensor import get_proxy_mode
 from tlfea_torch.elements.assembly import ElementBatch, mass_diag
 from tlfea_torch.materials.mooney_rivlin import MooneyRivlin
 from tlfea_torch.materials.svk import SVK
-from tlfea_torch.ops.linalg import _adjugate3x3, det3x3
+from tlfea_torch.ops.linalg import _adjugate3x3, cbrt, det3x3
 from tlfea_torch.ops.segment import coef_scatter_add
 
 __all__ = [
@@ -102,14 +104,18 @@ MATERIALS = {SVK: ("svk", 27, ("lam", "mu", "eta_damp", "lam_damp")),
 # (family, material kind) -> the CUDA source that instantiates its kernels
 # (csrc/*.cu).
 SOURCES = {("feat10", "svk"): "fem_kernels.cu", ("ancf3243", "svk"): "fem_ancf3243.cu",
-           ("ancf3443", "svk"): "fem_ancf3443.cu", ("feat10", "mr"): "fem_feat10_mr.cu"}
+           ("ancf3443", "svk"): "fem_ancf3443.cu", ("feat10", "mr"): "fem_feat10_mr.cu",
+           ("ancf3243", "mr"): "fem_ancf3243_mr.cu", ("ancf3443", "mr"): "fem_ancf3443_mr.cu"}
 KERNEL_NAMES = ("primal_prep", "hv", "svk_blocks", "node_reduce", "contrib", "contrib_tangent")
 # The kernels that read the material; K3 exists for SVK only.
 MATERIAL_KERNELS = {"svk": ("primal_prep", "hv", "svk_blocks", "contrib", "contrib_tangent"),
                     "mr": ("primal_prep", "hv", "contrib", "contrib_tangent")}
-# family -> CUDA source of its persistent Newton-PCG kernel (csrc/resident.cuh,
-# wrapped in tlfea_torch/ops/resident.py).
-RESIDENT_SOURCES = {"feat10": "fem_resident.cu"}
+# (family, material kind) -> CUDA source of its persistent Newton-PCG kernel
+# (csrc/resident.cuh, wrapped in tlfea_torch/ops/resident.py). No ANCF3443:
+# the JAX package never runs it resident (see `resident.eligible`).
+RESIDENT_SOURCES = {("feat10", "svk"): "fem_resident.cu", ("feat10", "mr"): "fem_resident.cu",
+                    ("ancf3243", "svk"): "fem_resident_ancf3243.cu",
+                    ("ancf3243", "mr"): "fem_resident_ancf3243.cu"}
 
 
 def _tag(family: str, kind: str) -> str:
@@ -119,7 +125,7 @@ def _tag(family: str, kind: str) -> str:
 LAUNCHES = {f"{k}[{fam}]": 0 for fam in FAMILIES.values() for k in KERNEL_NAMES}
 LAUNCHES.update({f"{k}[{_tag(fam, kind)}]": 0 for fam, kind in SOURCES if kind != "svk"
                  for k in MATERIAL_KERNELS[kind]})
-LAUNCHES.update({f"newton_resident[{fam}]": 0 for fam in RESIDENT_SOURCES})
+LAUNCHES.update({f"newton_resident[{_tag(fam, kind)}]": 0 for fam, kind in RESIDENT_SOURCES})
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(os.path.dirname(_CSRC), "_build")
@@ -144,12 +150,15 @@ def _nvcc() -> str:
 
 
 def _bind(lib, family: str | None, kind: str = "svk", resident: bool = False) -> None:
+    """Set the ctypes signatures of a library's entry points: K4 (family
+    None), the persistent kernel of (family, kind) (resident), or the
+    element kernels of (family, kind)."""
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     if family is None:
         sigs = {"tlfea_node_reduce_{}": [P] * 4 + [I] * 3 + [P]}
     elif resident:
-        sigs = {f"tlfea_newton_resident_{family}_{{}}": [P] * 17 + [I] * 2 + [D] * 9 + [I] * 3
-                + [P]}
+        sigs = {f"tlfea_newton_resident_{_tag(family, kind)}_{{}}":
+                [P] * 17 + [I] * 2 + [ctypes.POINTER(D)] + [D] * 5 + [I] * 3 + [P]}
     else:
         nm = len(next(names for k, _, names in MATERIALS.values() if k == kind))
         args = {"primal_prep": [P] * 7 + [I] + [D] * nm, "hv": [P] * 7 + [I] + [D] * (1 + nm),
@@ -177,13 +186,12 @@ def build_kernels() -> dict:
     of the build and, per source, its seconds and ptxas report."""
     if _libs:
         return _libs
-    with_family = {src: key for key, src in SOURCES.items()}
-    with_family.update({src: (fam, "svk") for fam, src in RESIDENT_SOURCES.items()})
+    sources = set(SOURCES.values()) | set(RESIDENT_SOURCES.values())
     headers = b"".join(_read(h) for h in _HEADERS)
     os.makedirs(_BUILD, exist_ok=True)
     t0 = time.perf_counter()
     jobs = {}
-    for src in sorted(with_family):
+    for src in sorted(sources):
         digest = hashlib.sha1(_read(src) + headers + " ".join(_NVCC_FLAGS).encode())
         so = os.path.join(_BUILD, f"lib{src[:-3]}_{digest.hexdigest()[:12]}.so")
         proc = None
@@ -211,7 +219,9 @@ def build_kernels() -> dict:
     libs = {}
     for src, info in per_src.items():
         lib = ctypes.CDLL(info["path"])
-        _bind(lib, *with_family[src], resident=src in RESIDENT_SOURCES.values())
+        for table, resident in ((SOURCES, False), (RESIDENT_SOURCES, True)):
+            for fam, kind in (key for key, s in table.items() if s == src):
+                _bind(lib, fam, kind, resident=resident)
         if src == "fem_kernels.cu":
             _bind(lib, None)
         libs[src] = lib
@@ -238,7 +248,7 @@ def _launch(name: str, op: "FemOperator", x: torch.Tensor, *args) -> None:
     if name == "node_reduce":
         fn = getattr(libs["fem_kernels.cu"], f"tlfea_node_reduce_{sfx}")
     elif name == "newton_resident":
-        fn = getattr(libs[RESIDENT_SOURCES[op.family]], f"tlfea_{name}_{op.family}_{sfx}")
+        fn = getattr(libs[RESIDENT_SOURCES[(op.family, op.kind)]], f"tlfea_{name}_{op.tag}_{sfx}")
     else:
         fn = getattr(libs[op.source], f"tlfea_{name}_{op.tag}_{sfx}")
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
@@ -250,8 +260,10 @@ def _launch(name: str, op: "FemOperator", x: torch.Tensor, *args) -> None:
 
 def launch_key(name: str, op: "FemOperator") -> str:
     """The LAUNCHES key of kernel `name` on op: "<name>[<op.tag>]" for the
-    kernels that read the material, "<name>[<op.family>]" for the others."""
-    return f"{name}[{op.tag if name in MATERIAL_KERNELS[op.kind] else op.family}]"
+    kernels that read the material (and the persistent kernel),
+    "<name>[<op.family>]" for the others."""
+    reads_material = name in MATERIAL_KERNELS[op.kind] or name == "newton_resident"
+    return f"{name}[{op.tag if reads_material else op.family}]"
 
 
 class FemOperator(torch.nn.Module):
@@ -291,7 +303,7 @@ class FemOperator(torch.nn.Module):
         self.kind, self.prep_rows, names = MATERIALS[type(material)]
         if (self.family, self.kind) not in SOURCES:
             raise ValueError(f"no FEM kernel is instantiated for {type(material).__name__} "
-                             f"with {self.family} elements (the JAX package pairs it with none)")
+                             f"with {self.family} elements")
         self.source = SOURCES[(self.family, self.kind)]
         self.tag = _tag(self.family, self.kind)
         self.material = material
@@ -404,10 +416,10 @@ def _mr_viscous_S(F, Fd, eta, lam_d):
 
 
 def _mr_coefs(Jm1, m):
-    """t1 = 2 mu10 J^{-2/3}, t2 = 2 mu01 J^{-4/3}, t3 = kappa (J - 1) J; J > 0
-    (`J.pow(1/3)`: PyTorch has no cube root)."""
+    """t1 = 2 mu10 J^{-2/3}, t2 = 2 mu01 J^{-4/3}, t3 = kappa (J - 1) J, with
+    the real cube root of J (negative at an inverted point, as CUDA `cbrt`)."""
     J = 1.0 + Jm1
-    J13 = J.pow(1.0 / 3.0)
+    J13 = cbrt(J)
     Jm23 = 1.0 / (J13 * J13)
     return ((2.0 * m.mu10) * Jm23)[..., None, None], \
         ((2.0 * m.mu01) * (Jm23 * Jm23))[..., None, None], (m.kappa * Jm1 * J)[..., None, None]

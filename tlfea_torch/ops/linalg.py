@@ -1,10 +1,19 @@
-"""Closed-form batched 3x3 linear algebra (port of `tlfea/ops/linalg.py`)."""
+"""Closed-form batched 3x3 linear algebra (port of `tlfea/ops/linalg.py`), and
+the real cube root that PyTorch lacks."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["det3x3", "inv3x3", "inv_transpose3x3"]
+__all__ = ["cbrt", "det3x3", "inv3x3", "inv_transpose3x3"]
+
+
+def cbrt(x: torch.Tensor) -> torch.Tensor:
+    """The real cube root, negative for x < 0, as `jnp.cbrt` and CUDA `cbrt`
+    (`x.pow(1/3)` is NaN there): sign(x) |x|^(1/3). Equal to `x.pow(1/3)`
+    bit for bit where x > 0; its derivative under `torch.func.jvp` is finite
+    wherever x != 0 (sign's is zero)."""
+    return torch.sign(x) * x.abs().pow(1.0 / 3.0)
 
 
 def det3x3(a: torch.Tensor) -> torch.Tensor:

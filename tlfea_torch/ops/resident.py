@@ -3,27 +3,28 @@
 Port of `tlfea/ops/pallas_resident.py`: its `_kernel` (:64, `pallas_call`
 :373) runs the whole inner solve of `newton._newton_inner` with no coarse
 correction in one call, for meshes of one banded element block and one
-node window. Here the kernel is `newton_resident` (csrc/resident.cuh,
-instantiated in csrc/fem_resident.cu): one cooperative launch per inner
-solve, grid barriers between its phases, the K1/K2 tile code and K4's node
-sums inside (design notes at the top of resident.cuh). The host launches it
-and reads its stats tensor once.
+node window, with the material's tile algebra (`bnd.mops`, :326). Here the
+kernel is `newton_resident` (csrc/resident.cuh, instantiated per (family,
+material) in `fem_kernels.RESIDENT_SOURCES`: FEAT10 and ANCF3243, each with
+SVK and Mooney-Rivlin): one cooperative launch per inner solve, grid
+barriers between its phases, the K1/K2 tile code and K4's node sums inside
+(design notes at the top of resident.cuh). The host launches it and reads
+its stats tensor once.
 
 `newton_inner_resident` takes the plain version (`newton_inner_resident_plain`,
 the composed Newton loop on the element twins) for a tensor on the CPU or
 when `system.plain` is set, and launches the kernel for a CUDA tensor,
 raising if the launch fails; it never falls back.
 
-Two deliberate differences from the JAX kernel: `hist` is the full
+One deliberate difference from the JAX kernel: `hist` is the full
 per-iteration ||g|| history, not only its first entry
 (`pallas_resident.py:274-279`), so `_step`'s `norm_g_history` is the same on
-every path; and the kernel is instantiated for SVK only, so the gate is shut
-to any other material (the JAX kernel takes `_MRTile` too,
-`pallas_resident.py:326`): a Mooney-Rivlin system runs the composed K1-K4
-loop.
+every path.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -44,13 +45,18 @@ STAT_FIELDS = ("iters", "cg_total", "norm_g", "grad_evals", "hv_evals", "barrier
 def eligible(system, coarse) -> bool:
     """The resident gate (`pallas_resident.eligible`, `newton.py:245-259`):
     at most MAX_ELEMS elements, no coarse correction, no constraints or
-    `FixedCoefs`, a family with a resident kernel, and SVK, the one
-    material the kernel is instantiated for. It depends only on the
-    problem, never on whether the kernel builds or launches."""
+    `FixedCoefs`, and a (family, material) pair with a resident kernel
+    (`fk.RESIDENT_SOURCES`: FEAT10 and ANCF3243, each with SVK and
+    Mooney-Rivlin). ANCF3443 never passes: the JAX gate needs a banded
+    handle, and `pallas_banded.build_banded`'s VMEM estimate refuses every
+    ANCF3443 mesh (the 48-point block's Q*S*3 and prep rows alone exceed
+    8 MB at any E), so the JAX package never runs the shell resident
+    either. It depends only on the problem, never on whether the kernel
+    builds or launches."""
     cons = system.constraints
     return (system.fem.E <= MAX_ELEMS and coarse is None
             and (cons is None or isinstance(cons, FixedCoefs))
-            and system.fem.family in fk.RESIDENT_SOURCES and system.fem.kind == "svk")
+            and (system.fem.family, system.fem.kind) in fk.RESIDENT_SOURCES)
 
 
 def launch(v0, u_prev, v_prev, f_ext, params, system, inv_blocks, pin_terms):
@@ -59,8 +65,9 @@ def launch(v0, u_prev, v_prev, f_ext, params, system, inv_blocks, pin_terms):
     followed by the ||g|| history (max_inner + 1 entries, NaN where no
     iteration ran)."""
     op = system.fem
-    if op.kind != "svk":
-        raise ValueError(f"newton_resident takes SVK only, not {type(op.material).__name__}")
+    if (op.family, op.kind) not in fk.RESIDENT_SOURCES:
+        raise ValueError(f"no newton_resident kernel for {type(op.material).__name__} with "
+                         f"{op.family} elements")
     dtype, dev = v0.dtype, v0.device
     if pin_terms is None:  # no constraints: zero pin fields
         pin_terms = (torch.zeros((op.n, 3), dtype=dtype, device=dev),
@@ -80,10 +87,11 @@ def launch(v0, u_prev, v_prev, f_ext, params, system, inv_blocks, pin_terms):
     v = torch.empty_like(ins["v0"])
     stats = torch.full((len(STAT_FIELDS) + params.max_inner + 1,), float("nan"),
                        dtype=torch.float64, device=dev)
+    mat = (ctypes.c_double * len(op.mat_args))(*op.mat_args)  # the material's constants
     fk._launch("newton_resident", op, v0, ins["v0"], ins["u_prev"], ins["v_prev"],
                ins["f_ext"], ins["pin_aff"], pin_lin, inv, op.conn_t, op.gN_t, op.dV_t, op.Me_t,
-               op.inc_ptr, op.inc, scratch, partials, v, stats, op.n, op.E, op.lam, op.mu,
-               op.eta, op.lam_d, float(params.dt), float(params.inner_atol),
+               op.inc_ptr, op.inc, scratch, partials, v, stats, op.n, op.E, mat,
+               float(params.dt), float(params.inner_atol),
                float(params.inner_rtol), float(params.cg_rtol), float(params.ew_eta_max),
                int(params.max_inner), int(params.cg_max_iter), int(params.ls_max))
     return v, stats
