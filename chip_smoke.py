@@ -106,6 +106,25 @@ non-zero:
 15. mr_first_order: one AdamW step of make_solver's parameters (inner cap
    2,000) on the Mooney-Rivlin flagship through K5 `[feat10_mr]` + K4, as in
    9; then the jvp of 10 through K5t `[feat10_mr]`.
+16. hv_phases (after 2): `python -m tlfea_torch.tools.ablate_hv`, the port of
+   `benchmarks/ablate_banded_hv.py`, at its default box (bench.py "100k",
+   96 x 16 x 11 cells, 101,376 elements) and at the flagship's (10,584): the
+   seven phase variants of K2 + K4 (`tlfea_torch.ops.hv_phases`:
+   dma_win, dma_wininv, dma, gather, gfe, scat, full) and the production
+   Hv, each timed beside its bound and its twin (the phase table, with the
+   card's name and power limit), every variant launched; then each held to
+   its twin: gfe equal to K2's output and full to the production Hv's bit
+   for bit, scat to K4's on the same buffer, the touch variants' sums of
+   each table's raw words equal to their twins' bit for bit, table by
+   table. At 100k also `Tensor.index_add_` beside scat; at 10k gfe's time
+   within 2x of K2's in 2, and the touch check must refuse each touch
+   variant run on its tables with one of them zeroed, wholly or every other
+   row (a planted skip), naming that table.
+17. linearize (after 10): `torch.func.linearize(grad_L)` on the 10k
+   flagship at the AdamW state, float64 and float32, against
+   `torch.func.jvp` along 3 directions (bars 1e-12 and 1e-5 relative); each
+   call of the linearized function must launch K5t once (its graph holds
+   the `tlfea.contrib_tangent` and `tlfea.node_reduce` operators).
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 `{"ok": true, "device": {...}}`.
@@ -198,10 +217,19 @@ STRAIN_SCALE = {"ancf3443_mr": 2.5, "ancf3243_mr": 4.0}
 TRACE_ITERS = 200  # inner iterations (VBD: gradients) in a first-order [trace] window
 CHECK_INNER = 500  # the capped step of kernels against twins (VBD: 20 sweeps)
 JVP_DIRECTIONS = 8
+LIN_DIRECTIONS = 3
+HV_SCALES = ("100k", "10k")  # [hv_phases]: the script's default box, then the flagship's
 
 
 def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
 
 
 def _solver_params(f_ext):
@@ -1279,6 +1307,115 @@ def mr_first_order(device, problem):
     return first_order_phase("adamw", device, problem, 1, params=params, tag="mr_first_order")
 
 
+def hv_phases(device, k2_ms):
+    """[hv_phases]: `tlfea_torch.tools.ablate_hv` at each of HV_SCALES: the
+    tool's run (every variant of `ops.hv_phases` and prod timed, the phase
+    table printed) between a reset and a read of the launch counts, each of
+    which must be above 0; then `ablate_hv.check` holds each variant to its
+    twin. At 100k `index_add_` is timed beside scat (K4's library call); at
+    10k gfe must take within 2x of k2_ms, [kernels]' K2 at the same shapes,
+    and `ablate_hv.check_refuses_skips` must refuse every planted skip.
+    Returns {variant: record} (100k's figures, 10k's as *_10k)."""
+    import torch
+
+    from tlfea_torch.ops import fem_kernels as fk
+    from tlfea_torch.ops import hv_phases as hp
+    from tlfea_torch.tools import ablate_hv
+
+    rec = {v: {"launches": 0} for v in hp.VARIANTS}
+    for scale in HV_SCALES:
+        t0 = time.perf_counter()
+        op, p, prep, dt = ablate_hv.problem(scale, device)
+        torch.cuda.synchronize()
+        log("hv_phases", f"{scale}: built in {time.perf_counter() - t0:.2f} s: {op.E} elements, "
+            f"{op.n} nodes (CONFIGS: {ablate_hv.elements(scale)})")
+        if op.E != ablate_hv.elements(scale):
+            raise AssertionError(f"hv_phases: {scale} box has {op.E} elements")
+        fk.reset_launch_counts()
+        rows = ablate_hv.profile(op, p, prep, dt, log=lambda m: log("hv_phases", f"{scale}: {m}"))
+        launches = {v: fk.LAUNCHES[f"hv_phase[{v}]"] for v in hp.VARIANTS}
+        log("hv_phases", f"{scale}: launches in the profiled run: {launches}")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"hv_phases: a variant was never launched: {launches}")
+        errs = ablate_hv.check(op, p, prep, dt, log=lambda m: log("hv_phases", f"{scale}: {m}"))
+        sfx = "" if scale == "100k" else f"_{scale}"
+        for v in hp.VARIANTS:
+            r = rec[v]
+            r["launches"] += launches[v]
+            r.update({k + sfx: rows[v][k] for k in ("ms", "plain_ms", "bound_ms")})
+            if not sfx:
+                r.update(max_abs_err=errs[v][0], max_rel_err=errs[v][1],
+                         bound_by=rows[v]["bound_by"], library_ms=None)
+        if scale == "100k":
+            # The one PyTorch call that computes scat's node sums.
+            fes = hp.scat_buffer(op, p)
+            vals_l = fes.view(op.S, 3, op.E).permute(2, 0, 1).reshape(op.E * op.S, 3).contiguous()
+            idx = op.conn.reshape(-1)
+            acc = torch.zeros((op.n, 3), dtype=fes.dtype, device=device)
+            lib_ms, _ = _device_ms(lambda: acc.index_add_(0, idx, vals_l), 256)
+            rec["scat"]["library_ms"] = lib_ms
+            log("hv_phases", f"{scale}: index_add_ of scat's values {lib_ms:.4f} ms against scat "
+                f"{rows['scat']['ms']:.4f} ms")
+        if scale == "10k":
+            ratio = rows["gfe"]["ms"] / k2_ms
+            log("hv_phases", f"10k: gfe {rows['gfe']['ms']:.4f} ms against [kernels]' K2 "
+                f"{k2_ms:.4f} ms: {ratio:.3f}x (bar 0.5-2)")
+            if not 0.5 <= ratio <= 2.0:
+                raise AssertionError(f"hv_phases: gfe at 10k takes {ratio:.2f}x K2's time")
+            ablate_hv.check_refuses_skips(op, p, prep, dt,
+                                          log=lambda m: log("hv_phases", f"10k: {m}"))
+    return rec
+
+
+def linearize_phase(device, problem, state, dims=(2.0, 0.35, 0.3, 42, 7, 6)):
+    """[linearize]: torch.func.linearize of grad_L at `state` on the 10k
+    flagship (`problem`, float32, and the float64 problem at `dims`), against
+    torch.func.jvp along LIN_DIRECTIONS directions, relative error within
+    1e-12 (float64) and 1e-5 (float32). The linearized function is a graph
+    of operators (make_fx); each call must launch K5t once, so the kernels
+    ran at the new direction, not constants of the trace. Returns the K5t
+    launches of the float32 calls."""
+    import torch
+
+    from tlfea_torch.ops import fem_kernels as fk
+    from tlfea_torch.solvers.common import grad_L
+
+    dt, rho = 1e-3, 1e7
+    rng = np.random.default_rng(SEED)
+    dirs = [rng.normal(size=tuple(state.v.shape)) for _ in range(LIN_DIRECTIONS)]
+    lin_launches = 0
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        system, _, f_ext, _ = (problem if dtype == torch.float32
+                               else flagship_problem(device, torch.float64, dims))
+        x, v, lam, u = (getattr(state, k).to(dtype) for k in ("x", "v", "lam", "u"))
+
+        def g_of(w, system=system, x=x, v=v, lam=lam, u=u, f_ext=f_ext):
+            return grad_L(w, x, v, lam, f_ext, dt, rho, system, u_prev=u)
+
+        t0 = time.perf_counter()
+        _, lin = torch.func.linearize(g_of, v)
+        torch.cuda.synchronize()
+        t_lin = time.perf_counter() - t0
+        key = fk.launch_key("contrib_tangent", system.fem)
+        worst, per_call = 0.0, []
+        for d in dirs:
+            p = torch.as_tensor(d, dtype=dtype, device=device)
+            before = fk.LAUNCHES[key]
+            got = lin(p)
+            torch.cuda.synchronize()
+            per_call.append(fk.LAUNCHES[key] - before)
+            want = torch.func.jvp(g_of, (v,), (p,))[1]
+            worst = max(worst, float((got - want).abs().max() / want.abs().max()))
+        log("linearize", f"{str(dtype)[6:]}: torch.func.linearize(grad_L) traced in {t_lin:.2f} s; "
+            f"{LIN_DIRECTIONS} directions against torch.func.jvp: max rel err {worst:.3e} (tol "
+            f"{tol:g}); {key} launches per call {per_call}")
+        if per_call != [1] * LIN_DIRECTIONS or not worst <= tol:
+            raise AssertionError(f"linearize: K5t launches per call {per_call}, rel err {worst:.3e}")
+        if dtype == torch.float32:
+            lin_launches = sum(per_call)
+    return lin_launches
+
+
 def main():
     import torch
 
@@ -1291,6 +1428,7 @@ def main():
     sys.path.insert(0, ROOT)
     import tlfea_torch
     from tlfea_torch.ops import fem_kernels as fk
+    from tlfea_torch.ops import hv_phases as hp
 
     device = torch.device("cuda")
     t_phase = time.perf_counter()
@@ -1300,9 +1438,7 @@ def main():
         log(phase, f"phase took {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card_line()
     log("setup", f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
     log("setup", f"precision pins: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
@@ -1333,6 +1469,8 @@ def main():
             "cpu", torch.float64, material=mooney_rivlin())[0]),
     }
     done("kernels")
+    phases = hv_phases(device, timings["feat10"]["hv"]["ms"])
+    done("hv_phases")
 
     dev, secs = beam_sag(device, torch.float32)
     log("beam", f"float32 beam sag, {BEAM_STEPS} steps in {secs:.2f} s: max tip deviation from the "
@@ -1399,6 +1537,8 @@ def main():
         done(name)
     jvp_launches = jvp_phase("jvp", device, problem, first["adamw"]["state"])
     done("jvp")
+    lin_launches = linearize_phase(device, problem, first["adamw"]["state"])
+    done("linearize")
     first_order_vs_newton(device)
     done("first_order_vs_newton")
     ancf_first = first_order_ancf(device)
@@ -1417,7 +1557,7 @@ def main():
     done("jvp (Mooney-Rivlin)")
 
     launches["feat10"]["contrib"] = sum(r["launches"]["contrib"] for r in first.values())
-    launches["feat10"]["contrib_tangent"] = jvp_launches["contrib_tangent"]
+    launches["feat10"]["contrib_tangent"] = jvp_launches["contrib_tangent"] + lin_launches
     launches["feat10_mr"]["contrib"] = mr_first["launches"]["contrib"]
     launches["feat10_mr"]["contrib_tangent"] = mr_jvp["contrib_tangent"]
     for tag, fl in ancf_first.items():
@@ -1443,13 +1583,16 @@ def main():
         record, res_launches, _ = resident_runs[tag]
         entries.append((f"newton_resident[{tag}]", "tlfea_torch/csrc/" + source,
                         "tlfea/ops/pallas_resident.py:64", res_launches, record))
-    # The contract's keys and max_rel_err (the bar), and the resident
-    # kernel's float64 errors, barriers, per-pass bound and its 1,024-element
-    # beam figures; numbers to four digits.
+    for v, r in phases.items():
+        entries.append((f"hv_phase[{v}]", "tlfea_torch/csrc/" + hp.SOURCE, hp.REPLACES[v],
+                        r["launches"], r))
+    # The contract's keys and max_rel_err (the bar), the resident kernel's
+    # float64 errors, barriers, per-pass bound and its 1,024-element beam
+    # figures, and the phase variants' 10k figures; numbers to four digits.
     keys = ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "max_abs_err_f64", "max_rel_err_f64", "per_pass_bound_ms", "barriers",
             "grid", "f32_vs_f64_plain", f"ms_e{BIG_BEAM}", f"bound_ms_e{BIG_BEAM}", f"max_rel_err_f64_e{BIG_BEAM}",
-            f"grid_e{BIG_BEAM}")
+            f"grid_e{BIG_BEAM}", "ms_10k", "plain_ms_10k", "bound_ms_10k")
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": sr, "replaces": rp, "launches": la,
          **{k: (float(f"{r[k]:.4g}") if isinstance(r[k], float) else r[k])

@@ -398,8 +398,9 @@ def test_adamw_flagship_step_is_bitwise_repeatable(cuda_dev):
 @pytest.mark.cuda
 def test_grad_L_jvp_runs_through_k5t(cuda_dev):
     """torch.func.jvp(grad_L) on the card launches K5 and K5t (each with K4)
-    and equals the Newton path's product; torch.func.linearize, which would
-    record a launch's output as a constant, raises."""
+    and equals the Newton path's product; torch.func.linearize records the
+    kernels as operators and launches K5t + K4 again at each call of the
+    linearized function, equal to the jvp at two directions."""
     from tlfea_torch.solvers.common import _pin_terms, grad_L
 
     system, x0, f_ext = _box_system(cuda_dev, torch.float64)
@@ -419,8 +420,14 @@ def test_grad_L_jvp_runs_through_k5t(cuda_dev):
     pins = _pin_terms(system, state.lam, DT, 1e7, torch.float64)
     g2, hvp = fk.g_and_hvp(v, state.u, state.v, f_ext, DT, system.fem, pins)
     assert _rel(g, g2) < 1e-12 and _rel(dg, hvp(p)) < 1e-12
-    with pytest.raises(RuntimeError, match="cannot be traced"):
-        torch.func.linearize(g_of, v)
+    _, lin = torch.func.linearize(g_of, v)
+    lin(p)  # the first call also evaluates the graph's folded constants (K5 + K4)
+    for q in (p, torch.flip(p, (0,)) * 2.0 + 1.0):
+        before = {k: fk.LAUNCHES[f"{k}[feat10]"] for k in ("contrib_tangent", "node_reduce")}
+        got = lin(q)
+        assert {k: fk.LAUNCHES[f"{k}[feat10]"] - n for k, n in before.items()} == {
+            "contrib_tangent": 1, "node_reduce": 1}
+        assert _rel(got, torch.func.jvp(g_of, (v,), (q,))[1]) < 1e-12
 
 
 @pytest.mark.cuda
@@ -718,3 +725,105 @@ def test_resident_pair_rollout_launches_once_per_inner_solve(cuda_dev, tag):
     assert got == {"primal_prep": 0, "hv": 0, "svk_blocks": 2 * svk, "node_reduce": 2 * svk,
                    "newton_resident": 4}
     assert fk.launch_key("newton_resident", system.fem) == f"newton_resident[{tag}]"
+
+
+def _op_samples(device, dtype):
+    """(name, arguments) of each element operator on the 3 x 1 x 1 box."""
+    system, _, _ = _box_system(device, dtype)
+    op = system.fem
+    rng = np.random.default_rng(5)
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+
+    packed, p = dev(rng.normal(size=(op.n, 9)) * 1e-2), dev(rng.normal(size=(op.n, 3)))
+    _, prep = fk.primal_prep_plain(op, packed)
+    mat = list(op.mat_args)
+    return {"primal_prep": (packed, op.conn_t, op.gN_t, op.dV_t, op.Me_t, op.tag, mat),
+            "hv": (p, op.conn_t, prep, op.gN_t, op.dV_t, op.Me_t, DT, op.tag, mat),
+            "svk_blocks": (p, op.conn_t, op.gN_t, op.dV_t, op.tag, [op.lam, op.mu]),
+            "node_reduce": (dev(rng.normal(size=(op.S * 3, op.E))), op.conn, op.inc_ptr,
+                            op.inc, op.family),
+            "contrib": (packed, op.conn_t, op.gN_t, op.dV_t, op.Me_t, op.tag, mat),
+            "contrib_tangent": (packed, dev(rng.normal(size=(op.n, 9))), op.conn_t, op.gN_t,
+                                op.dV_t, op.Me_t, op.tag, mat)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", fk.KERNEL_NAMES)
+def test_operator_passes_opcheck_on_card(cuda_dev, name):
+    """torch.library.opcheck of each element operator's CUDA kernel (schema,
+    fake tensor, AOT dispatch) on float64 card tensors."""
+    args = _op_samples(cuda_dev, torch.float64)[name]
+    torch.library.opcheck(getattr(torch.ops.tlfea, name).default, args)
+
+
+def _phase_case(device):
+    """The 6 x 2 x 2 box (144 elements) in float32 on `device`: (op, p, K1's
+    prep cache at [0 | v | 0], dt)."""
+    system, _, _ = _box_system(device, torch.float32, dims=(1.0, 0.25, 0.25, 6, 2, 2))
+    op = system.fem
+    rng = np.random.default_rng(9)
+    v = 0.1 * rng.normal(size=(op.n, 3))
+    zero = np.zeros_like(v)
+    packed = torch.as_tensor(np.concatenate([zero, v, zero], 1), dtype=torch.float32,
+                             device=device)
+    p = torch.as_tensor(rng.normal(size=(op.n, 3)), dtype=torch.float32, device=device)
+    return op, p, fk.primal_prep(op, packed)[1], DT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["dma_win", "dma_wininv", "dma", "gather", "gfe", "scat",
+                                     "full"])
+def test_hv_phase_matches_twin_on_card(cuda_dev, variant):
+    """Each phase variant of the Hv kernel (`ops.hv_phases`) launches once
+    and matches its twin: gfe equals K2's output and full the production
+    K2 + K4 bit for bit, scat K4's on the same buffer; the touch variants'
+    word sums equal their twins' bit for bit."""
+    from tlfea_torch.ops import hv_phases as hp
+
+    op, p, prep, dt = _phase_case(cuda_dev)
+    fes = hp.scat_buffer(op, p)
+    args = {"dma_win": (p,), "dma_wininv": (p,), "dma": (prep,), "gather": (p,),
+            "gfe": (p, prep, dt), "scat": (fes,), "full": (p, prep, dt)}[variant]
+    fk.reset_launch_counts()
+    got = getattr(hp, variant)(op, *args)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES[f"hv_phase[{variant}]"] == 1
+    if variant in ("gfe", "scat", "full"):
+        want = {"gfe": lambda: fk.hv(op, p, prep, dt), "scat": lambda: fk.node_reduce(op, fes),
+                "full": lambda: fk.node_reduce(op, fk.hv(op, p, prep, dt))}[variant]()
+        assert torch.equal(got, want)
+        assert _rel(got, getattr(hp, variant + "_plain")(op, *args)) < 1e-5
+    else:
+        assert torch.equal(got, getattr(hp, variant + "_plain")(op, *args))
+
+
+@pytest.mark.cuda
+def test_hv_phase_touch_check_refuses_planted_skips_on_card(cuda_dev):
+    """Each touch variant's kernel, run on its tables with one of them
+    zeroed wholly or every other row (what a kernel that skipped those
+    loads would sum), is refused by the check, which names that table."""
+    from tlfea_torch.tools import ablate_hv
+
+    op, p, prep, dt = _phase_case(cuda_dev)
+    fk.reset_launch_counts()
+    n = ablate_hv.check_refuses_skips(op, p, prep, dt, log=lambda m: None)
+    assert n == 20 and sum(fk.LAUNCHES[f"hv_phase[{v}]"] for v in ("dma_win", "dma_wininv",
+                                                                    "dma", "gather")) == n
+
+
+@pytest.mark.cuda
+def test_hv_phases_take_float32_feat10_svk_only(cuda_dev):
+    """The phase kernels exist for FEAT10 with SVK in float32: other dtypes
+    and materials raise on the card."""
+    from tlfea_torch.ops import hv_phases as hp
+
+    system, _, _ = _box_system(cuda_dev, torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        hp.gfe(system.fem, torch.zeros((system.n_coef, 3), dtype=torch.float64, device=cuda_dev),
+               torch.zeros((system.fem.Q * 27, system.fem.E), dtype=torch.float64,
+                           device=cuda_dev), DT)
+    mr, _, _ = _box_system(cuda_dev, torch.float32, material=_mooney_rivlin())
+    with pytest.raises(ValueError, match="FEAT10 with SVK"):
+        hp.dma_win(mr.fem, torch.zeros((mr.n_coef, 3), device=cuda_dev))

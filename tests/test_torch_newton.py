@@ -168,7 +168,8 @@ def test_import_leaves_jax_out():
             "tlfea_torch.elements.ancf3443, tlfea_torch.solvers.coarse, "
             "tlfea_torch.ops.resident, tlfea_torch.solvers.adamw, tlfea_torch.solvers.nesterov, "
             "tlfea_torch.solvers.vbd, tlfea_torch.utils.coloring, "
-            "tlfea_torch.materials.mooney_rivlin; "
+            "tlfea_torch.materials.mooney_rivlin, tlfea_torch.ops.hv_phases, "
+            "tlfea_torch.tools.ablate_hv; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tlfea.'))); "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -40,13 +40,23 @@ run in every family; Mooney-Rivlin has no K3: as in the JAX package, its
 preconditioner blocks are plain tensor code
 (`solvers.common.precond_blocks`). `FemOperator` refuses any other (Q, S,
 translation mask), any other material and a (family, material) pair
-without a source. Each wrapper takes the plain twin
-(`*_plain`, same module) for a tensor on the CPU, and launches its kernel
-for a tensor on a CUDA device, raising if the launch fails; it never falls
-back. Every launch adds one to `LAUNCHES["<kernel>[<tag>]"]`, the tag being
-the family for SVK and "<family>_mr" for Mooney-Rivlin (K4, which knows no
-material, counts under the family; the persistent kernel under the tag), so
-a run can show which kernels it went through.
+without a source.
+
+Each of the six element kernels is a `torch.library` operator,
+`torch.ops.tlfea.<kernel>`, that takes the tensors the kernel reads, the
+kernel's tag (a str) and the material's constants (a float[]); the wrapper
+of the same name checks its arguments against the `FemOperator` and calls
+it. The dispatcher routes the call by the inputs' device: the CPU kernel is
+the plain twin (`*_plain`, same module) on tables rebuilt from those
+tensors and the tag (`_Tables`; K4 also takes conn, which only its CPU
+kernel reads), the CUDA kernel the launch, which raises
+if the launch fails; a CUDA tensor never reaches the twin, and nothing
+falls back. Being operators, the calls are recorded by `make_fx`, so
+`torch.func.linearize` of `grad_L` replays K5t + K4 at every call of the
+linearized function. Every launch adds one to `LAUNCHES["<kernel>[<tag>]"]`,
+the tag being the family for SVK and "<family>_mr" for Mooney-Rivlin (K4,
+which knows no material, counts under the family; the persistent kernel
+under the tag), so a run can show which kernels it went through.
 
 The prep cache K1 writes and K2 reads holds `op.prep_rows` rows per
 quadrature point: SVK 27 (Du, the total second Piola S, Fd), Mooney-Rivlin
@@ -74,7 +84,6 @@ import numpy as np
 import torch
 from torch._C._functorch import get_unwrapped, is_functorch_wrapped_tensor
 from torch._functorch.pyfunctorch import temporarily_pop_interpreter_stack
-from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
 from tlfea_torch.elements.assembly import ElementBatch, mass_diag
 from tlfea_torch.materials.mooney_rivlin import MooneyRivlin
@@ -83,7 +92,7 @@ from tlfea_torch.ops.linalg import _adjugate3x3, cbrt, det3x3
 from tlfea_torch.ops.segment import coef_scatter_add
 
 __all__ = [
-    "FemOperator", "FAMILIES", "SOURCES", "RESIDENT_SOURCES", "LAUNCHES",
+    "FemOperator", "FAMILIES", "SOURCES", "RESIDENT_SOURCES", "PROFILING_SOURCES", "LAUNCHES",
     "reset_launch_counts",
     "build_kernels",
     "primal_prep", "primal_prep_plain", "hv", "hv_plain",
@@ -116,10 +125,18 @@ MATERIAL_KERNELS = {"svk": ("primal_prep", "hv", "svk_blocks", "contrib", "contr
 RESIDENT_SOURCES = {("feat10", "svk"): "fem_resident.cu", ("feat10", "mr"): "fem_resident.cu",
                     ("ancf3243", "svk"): "fem_resident_ancf3243.cu",
                     ("ancf3243", "mr"): "fem_resident_ancf3243.cu"}
+# Sources of profiling kernels, built and launched with the others: the
+# phase ablation of K2 + K4 (`tlfea_torch.ops.hv_phases`).
+PROFILING_SOURCES = ("hv_phases.cu",)
 
 
 def _tag(family: str, kind: str) -> str:
     return family if kind == "svk" else f"{family}_{kind}"
+
+
+def _untag(tag: str) -> tuple:
+    """(family, material kind) of a kernel tag."""
+    return (tag[:-3], "mr") if tag.endswith("_mr") else (tag, "svk")
 
 
 LAUNCHES = {f"{k}[{fam}]": 0 for fam in FAMILIES.values() for k in KERNEL_NAMES}
@@ -151,9 +168,14 @@ def _nvcc() -> str:
 
 def _bind(lib, family: str | None, kind: str = "svk", resident: bool = False) -> None:
     """Set the ctypes signatures of a library's entry points: K4 (family
-    None), the persistent kernel of (family, kind) (resident), or the
-    element kernels of (family, kind)."""
+    None), the phase ablation (family "hv_phase", float32 only), the
+    persistent kernel of (family, kind) (resident), or the element kernels
+    of (family, kind)."""
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    if family == "hv_phase":
+        fn = lib.tlfea_hv_phase_f32
+        fn.argtypes, fn.restype = [I] + [P] * 10 + [I] * 2 + [D] * 5 + [P], ctypes.c_int
+        return
     if family is None:
         sigs = {"tlfea_node_reduce_{}": [P] * 4 + [I] * 3 + [P]}
     elif resident:
@@ -179,14 +201,15 @@ def _read(name: str) -> bytes:
 
 
 def build_kernels() -> dict:
-    """Compile the CUDA source of every (family, material) in SOURCES and of
-    every persistent kernel in RESIDENT_SOURCES for sm_90a into a shared library
-    (once per source content; all nvcc processes run at once) and load
-    them. Returns {source: ctypes library}; BUILD_INFO gets the wall seconds
-    of the build and, per source, its seconds and ptxas report."""
+    """Compile the CUDA source of every (family, material) in SOURCES, of
+    every persistent kernel in RESIDENT_SOURCES and of PROFILING_SOURCES for
+    sm_90a into a shared library (once per source content; all nvcc
+    processes run at once) and load them. Returns {source: ctypes library};
+    BUILD_INFO gets the wall seconds of the build and, per source, its
+    seconds and ptxas report."""
     if _libs:
         return _libs
-    sources = set(SOURCES.values()) | set(RESIDENT_SOURCES.values())
+    sources = set(SOURCES.values()) | set(RESIDENT_SOURCES.values()) | set(PROFILING_SOURCES)
     headers = b"".join(_read(h) for h in _HEADERS)
     os.makedirs(_BUILD, exist_ok=True)
     t0 = time.perf_counter()
@@ -224,35 +247,38 @@ def build_kernels() -> dict:
                 _bind(lib, fam, kind, resident=resident)
         if src == "fem_kernels.cu":
             _bind(lib, None)
+        if src == "hv_phases.cu":
+            _bind(lib, "hv_phase")
         libs[src] = lib
     _libs.update(libs)
     return _libs
 
 
-def _launch(name: str, op: "FemOperator", x: torch.Tensor, *args) -> None:
-    """Launch kernel `name` of op's family in x's dtype on the current stream
-    of x's card; args are tensors (passed as device pointers) and numbers."""
+def _launch(name: str, tag: str, x: torch.Tensor, *args) -> None:
+    """Launch kernel `name` of `tag` (the bracket of its LAUNCHES key) in x's
+    dtype on the current stream of x's card; args are tensors (passed as
+    device pointers), None (a null pointer) and numbers (passed as they
+    are). name "hv_phase" is the phase ablation's entry, tag its variant."""
     sfx = {torch.float32: "f32", torch.float64: "f64"}.get(x.dtype)
     if sfx is None:
         raise TypeError(f"{name}: kernels take float32 or float64, got {x.dtype}")
     if x.device.index != torch.cuda.current_device():
         raise ValueError(f"{name}: tensor on {x.device}, but the current CUDA device is "
                          f"{torch.cuda.current_device()} (torch.cuda.set_device)")
-    if get_proxy_mode() is not None:
-        # make_fx (torch.func.linearize, export) records torch operations
-        # only: a graph would keep this launch's output as a constant.
-        raise RuntimeError(f"{name}: a kernel launch cannot be traced into a graph; use "
-                           f"torch.func.jvp, or the plain path (system.plain=True)")
+    if any(isinstance(a, torch.Tensor) and (a.device != x.device or not a.is_contiguous())
+           for a in args):
+        raise ValueError(f"{name}: the kernel takes contiguous tensors on {x.device}")
     libs = build_kernels()
-    key = launch_key(name, op)
-    if name == "node_reduce":
+    if name == "hv_phase":
+        fn = getattr(libs["hv_phases.cu"], f"tlfea_hv_phase_{sfx}")
+    elif name == "node_reduce":
         fn = getattr(libs["fem_kernels.cu"], f"tlfea_node_reduce_{sfx}")
-    elif name == "newton_resident":
-        fn = getattr(libs[RESIDENT_SOURCES[(op.family, op.kind)]], f"tlfea_{name}_{op.tag}_{sfx}")
     else:
-        fn = getattr(libs[op.source], f"tlfea_{name}_{op.tag}_{sfx}")
+        table = RESIDENT_SOURCES if name == "newton_resident" else SOURCES
+        fn = getattr(libs[table[_untag(tag)]], f"tlfea_{name}_{tag}_{sfx}")
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     err = fn(*conv, torch.cuda.current_stream().cuda_stream)
+    key = f"{name}[{tag}]"
     if err != 0:
         raise RuntimeError(f"{key} kernel launch failed: CUDA error {err}")
     LAUNCHES[key] += 1
@@ -598,6 +624,151 @@ def node_reduce_plain(op: FemOperator, vals: torch.Tensor) -> torch.Tensor:
     return coef_scatter_add(vals.view(op.S, C, op.E).permute(2, 0, 1), op.conn, op.n)
 
 
+# --- operators: CPU kernel (the twin), CUDA kernel (the launch), fake ------
+
+
+class _Tables:
+    """What a twin reads of a `FemOperator`, rebuilt from an operator's
+    tensors, its tag and its constants: conn from conn_t, the translation
+    mask from `FAMILIES`, the material from the tag's kind (K3 passes SVK's
+    lam and mu only)."""
+
+    def __init__(self, tag, mat, n, conn_t, gN_t, dV_t, Me_t=None):
+        family, self.kind = _untag(tag)
+        bits = next(b for (_, _, b), f in FAMILIES.items() if f == family)
+        self.S, self.E = conn_t.shape
+        self.Q, self.n = dV_t.shape[0], n
+        self.conn = conn_t.t().to(torch.int64).contiguous()
+        self.tmask = torch.tensor([bool(bits >> a & 1) for a in range(self.S)],
+                                  device=conn_t.device)
+        self.gN_t, self.dV_t, self.Me_t = gN_t, dV_t, Me_t
+        cls = next(c for c, (k, _, _) in MATERIALS.items() if k == self.kind)
+        self.prep_rows = _prep_rows(tag)
+        self.material = cls(*mat)
+        self.lam, self.mu = float(self.material.lam), float(self.material.mu)
+        self.eta, self.lam_d = float(self.material.eta_damp), float(self.material.lam_damp)
+
+
+def _primal_prep_cpu(packed, conn_t, gN_t, dV_t, Me_t, tag, mat):
+    return primal_prep_plain(_Tables(tag, mat, packed.shape[0], conn_t, gN_t, dV_t, Me_t),
+                             packed)
+
+
+def _hv_cpu(p, conn_t, prep, gN_t, dV_t, Me_t, dt, tag, mat):
+    return hv_plain(_Tables(tag, mat, p.shape[0], conn_t, gN_t, dV_t, Me_t), p, prep, dt)
+
+
+def _svk_blocks_cpu(u, conn_t, gN_t, dV_t, tag, mat):
+    return svk_blocks_plain(_Tables(tag, mat, u.shape[0], conn_t, gN_t, dV_t), u)
+
+
+def _node_reduce_cpu(vals, conn, inc_ptr, inc, tag):
+    E, S = conn.shape
+    return coef_scatter_add(vals.view(S, -1, E).permute(2, 0, 1), conn, inc_ptr.numel() - 1)
+
+
+def _contrib_cpu(packed, conn_t, gN_t, dV_t, Me_t, tag, mat):
+    return contrib_plain(_Tables(tag, mat, packed.shape[0], conn_t, gN_t, dV_t, Me_t), packed)
+
+
+def _contrib_tangent_cpu(packed, dpacked, conn_t, gN_t, dV_t, Me_t, tag, mat):
+    return contrib_tangent_plain(_Tables(tag, mat, packed.shape[0], conn_t, gN_t, dV_t, Me_t),
+                                 packed, dpacked)
+
+
+def _prep_rows(tag: str) -> int:
+    return next(pr for k, pr, _ in MATERIALS.values() if k == _untag(tag)[1])
+
+
+def _primal_prep_cuda(packed, conn_t, gN_t, dV_t, Me_t, tag, mat):
+    (S, E), Q = conn_t.shape, dV_t.shape[0]
+    fe = packed.new_empty((S * 3, E))
+    prep = packed.new_empty((Q * _prep_rows(tag), E))
+    _launch("primal_prep", tag, packed, packed, conn_t, gN_t, dV_t, Me_t, fe, prep, E, *mat)
+    return fe, prep
+
+
+def _hv_cuda(p, conn_t, prep, gN_t, dV_t, Me_t, dt, tag, mat):
+    S, E = conn_t.shape
+    out = p.new_empty((S * 3, E))
+    _launch("hv", tag, p, p, conn_t, prep, gN_t, dV_t, Me_t, out, E, dt, *mat)
+    return out
+
+
+def _svk_blocks_cuda(u, conn_t, gN_t, dV_t, tag, mat):
+    S, E = conn_t.shape
+    out = u.new_empty((S * 6, E))
+    _launch("svk_blocks", tag, u, u, conn_t, gN_t, dV_t, out, E, *mat)
+    return out
+
+
+def _node_reduce_cuda(vals, conn, inc_ptr, inc, tag):
+    E, n = vals.shape[1], inc_ptr.numel() - 1
+    C = vals.shape[0] * E // inc.numel()
+    out = vals.new_empty((n, C))
+    _launch("node_reduce", tag, vals, vals, inc_ptr, inc, out, n, E, C)
+    return out
+
+
+def _contrib_cuda(packed, conn_t, gN_t, dV_t, Me_t, tag, mat):
+    S, E = conn_t.shape
+    fe = packed.new_empty((S * 3, E))
+    _launch("contrib", tag, packed, packed, conn_t, gN_t, dV_t, Me_t, fe, E, *mat)
+    return fe
+
+
+def _contrib_tangent_cuda(packed, dpacked, conn_t, gN_t, dV_t, Me_t, tag, mat):
+    S, E = conn_t.shape
+    out = packed.new_empty((S * 3, E))
+    _launch("contrib_tangent", tag, packed, packed, dpacked, conn_t, gN_t, dV_t, Me_t, out, E,
+            *mat)
+    return out
+
+
+def _slots_fake(C, conn_at=1):
+    """The fake kernel of an operator that returns (S*C, E) values like its
+    first argument, conn_t (S, E) being argument conn_at."""
+    def fake(x, *args):
+        S, E = args[conn_at - 1].shape
+        return x.new_empty((S * C, E))
+    return fake
+
+
+def _primal_prep_fake(packed, conn_t, gN_t, dV_t, Me_t, tag, mat):
+    S, E = conn_t.shape
+    return packed.new_empty((S * 3, E)), packed.new_empty((dV_t.shape[0] * _prep_rows(tag), E))
+
+
+def _node_reduce_fake(vals, conn, inc_ptr, inc, tag):
+    return vals.new_empty((inc_ptr.shape[0] - 1, vals.shape[0] * vals.shape[1] // inc.shape[0]))
+
+
+# name -> (schema, CPU kernel, CUDA kernel, fake)
+_OPS = {
+    "primal_prep": ("(Tensor packed, Tensor conn_t, Tensor gN_t, Tensor dV_t, Tensor Me_t, "
+                    "str tag, float[] mat) -> (Tensor, Tensor)",
+                    _primal_prep_cpu, _primal_prep_cuda, _primal_prep_fake),
+    "hv": ("(Tensor p, Tensor conn_t, Tensor prep, Tensor gN_t, Tensor dV_t, Tensor Me_t, "
+           "float dt, str tag, float[] mat) -> Tensor", _hv_cpu, _hv_cuda, _slots_fake(3)),
+    "svk_blocks": ("(Tensor u, Tensor conn_t, Tensor gN_t, Tensor dV_t, str tag, float[] mat) "
+                   "-> Tensor", _svk_blocks_cpu, _svk_blocks_cuda, _slots_fake(6)),
+    "node_reduce": ("(Tensor vals, Tensor conn, Tensor inc_ptr, Tensor inc, str tag) -> Tensor",
+                    _node_reduce_cpu, _node_reduce_cuda, _node_reduce_fake),
+    "contrib": ("(Tensor packed, Tensor conn_t, Tensor gN_t, Tensor dV_t, Tensor Me_t, "
+                "str tag, float[] mat) -> Tensor", _contrib_cpu, _contrib_cuda, _slots_fake(3)),
+    "contrib_tangent": ("(Tensor packed, Tensor dpacked, Tensor conn_t, Tensor gN_t, "
+                        "Tensor dV_t, Tensor Me_t, str tag, float[] mat) -> Tensor",
+                        _contrib_tangent_cpu, _contrib_tangent_cuda, _slots_fake(3, conn_at=2)),
+}
+_LIB = torch.library.Library("tlfea", "DEF")
+for _name, (_schema, _cpu, _cuda, _fake) in _OPS.items():
+    _LIB.define(_name + _schema)
+    _LIB.impl(_name, _cpu, "CPU")
+    _LIB.impl(_name, _cuda, "CUDA")
+    torch.library.register_fake(f"tlfea::{_name}", _fake, lib=_LIB)
+del _name, _schema, _cpu, _cuda, _fake
+
+
 # --- wrappers --------------------------------------------------------------
 
 
@@ -605,13 +776,8 @@ def primal_prep(op: FemOperator, packed: torch.Tensor):
     """K1: element ALM contribution f_int + Me dv/dt per (element, slot),
     (S*3, E), and the per-QP prep cache (Q*prep_rows, E) that K2 reads."""
     op._check("primal_prep", packed, (op.n, 9))
-    if packed.device.type == "cpu":
-        return primal_prep_plain(op, packed)
-    fe = torch.empty((op.S * 3, op.E), dtype=packed.dtype, device=packed.device)
-    prep = torch.empty((op.Q * op.prep_rows, op.E), dtype=packed.dtype, device=packed.device)
-    _launch("primal_prep", op, packed, packed, op.conn_t, op.gN_t, op.dV_t, op.Me_t,
-            fe, prep, op.E, *op.mat_args)
-    return fe, prep
+    return torch.ops.tlfea.primal_prep.default(packed, op.conn_t, op.gN_t, op.dV_t, op.Me_t,
+                                               op.tag, op.mat_args)
 
 
 def hv(op: FemOperator, p: torch.Tensor, prep: torch.Tensor, dt: float) -> torch.Tensor:
@@ -619,24 +785,16 @@ def hv(op: FemOperator, p: torch.Tensor, prep: torch.Tensor, dt: float) -> torch
     per (element, slot), (S*3, E)."""
     op._check("hv", p, (op.n, 3))
     op._check("hv", prep, (op.Q * op.prep_rows, op.E))
-    if p.device.type == "cpu":
-        return hv_plain(op, p, prep, dt)
-    out = torch.empty((op.S * 3, op.E), dtype=p.dtype, device=p.device)
-    _launch("hv", op, p, p, op.conn_t, prep, op.gN_t, op.dV_t, op.Me_t, out, op.E,
-            float(dt), *op.mat_args)
-    return out
+    return torch.ops.tlfea.hv.default(p, op.conn_t, prep, op.gN_t, op.dV_t, op.Me_t, float(dt),
+                                      op.tag, op.mat_args)
 
 
 def svk_blocks(op: FemOperator, u: torch.Tensor) -> torch.Tensor:
     """K3: SVK diagonal tangent blocks per (element, slot), SYM6, (S*6, E)."""
     _require_svk("svk_blocks", op)
     op._check("svk_blocks", u, (op.n, 3))
-    if u.device.type == "cpu":
-        return svk_blocks_plain(op, u)
-    out = torch.empty((op.S * 6, op.E), dtype=u.dtype, device=u.device)
-    _launch("svk_blocks", op, u, u, op.conn_t, op.gN_t, op.dV_t, out, op.E,
-            op.lam, op.mu)
-    return out
+    return torch.ops.tlfea.svk_blocks.default(u, op.conn_t, op.gN_t, op.dV_t, op.tag,
+                                              (op.lam, op.mu))
 
 
 def node_reduce(op: FemOperator, vals: torch.Tensor) -> torch.Tensor:
@@ -644,23 +802,15 @@ def node_reduce(op: FemOperator, vals: torch.Tensor) -> torch.Tensor:
     in a fixed order (bitwise repeatable)."""
     C = vals.shape[0] // op.S
     op._check("node_reduce", vals, (op.S * C, op.E))
-    if vals.device.type == "cpu":
-        return node_reduce_plain(op, vals)
-    out = torch.empty((op.n, C), dtype=vals.dtype, device=vals.device)
-    _launch("node_reduce", op, vals, vals, op.inc_ptr, op.inc, out, op.n, op.E, C)
-    return out
+    return torch.ops.tlfea.node_reduce.default(vals, op.conn, op.inc_ptr, op.inc, op.family)
 
 
 def contrib(op: FemOperator, packed: torch.Tensor) -> torch.Tensor:
     """K5: element ALM contribution f_int + Me dv/dt per (element, slot),
     (S*3, E): K1's fe without the prep cache."""
     op._check("contrib", packed, (op.n, 9))
-    if packed.device.type == "cpu":
-        return contrib_plain(op, packed)
-    fe = torch.empty((op.S * 3, op.E), dtype=packed.dtype, device=packed.device)
-    _launch("contrib", op, packed, packed, op.conn_t, op.gN_t, op.dV_t, op.Me_t, fe, op.E,
-            *op.mat_args)
-    return fe
+    return torch.ops.tlfea.contrib.default(packed, op.conn_t, op.gN_t, op.dV_t, op.Me_t, op.tag,
+                                           op.mat_args)
 
 
 def contrib_tangent(op: FemOperator, packed: torch.Tensor, dpacked: torch.Tensor) -> torch.Tensor:
@@ -668,12 +818,8 @@ def contrib_tangent(op: FemOperator, packed: torch.Tensor, dpacked: torch.Tensor
     d(dv/dt)], per (element, slot), (S*3, E)."""
     op._check("contrib_tangent", packed, (op.n, 9))
     op._check("contrib_tangent", dpacked, (op.n, 9))
-    if packed.device.type == "cpu":
-        return contrib_tangent_plain(op, packed, dpacked)
-    out = torch.empty((op.S * 3, op.E), dtype=packed.dtype, device=packed.device)
-    _launch("contrib_tangent", op, packed, packed, dpacked, op.conn_t, op.gN_t, op.dV_t,
-            op.Me_t, out, op.E, *op.mat_args)
-    return out
+    return torch.ops.tlfea.contrib_tangent.default(packed, dpacked, op.conn_t, op.gN_t, op.dV_t,
+                                                   op.Me_t, op.tag, op.mat_args)
 
 
 _KERNELS = {f.__name__: f for f in (primal_prep, hv, svk_blocks, node_reduce, contrib,
@@ -691,7 +837,10 @@ class ElementContrib(torch.autograd.Function):
     """Node sums of the element ALM contributions, K4(K5(packed)) -> (n, 3),
     with the forward-mode derivative K4(K5t(packed, dpacked)): the
     counterpart of `make_element_contrib`'s `jax.custom_jvp` (K4 is linear),
-    so `torch.func.jvp` of `grad_L` runs through the kernels.
+    so `torch.func.jvp` of `grad_L` runs through the kernels, and
+    `torch.func.linearize` (forward AD traced by make_fx) records the
+    `tlfea.contrib_tangent` and `tlfea.node_reduce` operators of the rule in
+    its graph, which replays them at every call.
 
         ElementContrib.apply(op, packed, plain)
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
 from tlfea_torch.constraints import FixedCoefs
 from tlfea_torch.ops import fem_kernels as fk
@@ -63,7 +64,15 @@ def launch(v0, u_prev, v_prev, f_ext, params, system, inv_blocks, pin_terms):
     """One launch of the kernel on v0's card, without synchronising.
     Returns (v (n, 3), stats): stats is a float64 tensor of STAT_FIELDS
     followed by the ||g|| history (max_inner + 1 entries, NaN where no
-    iteration ran)."""
+    iteration ran).
+
+    Unlike the element kernels it is no `torch.library` operator: it runs a
+    whole solve whose control flow reads its stats on the host, and nothing
+    differentiates or linearizes through it. So it raises under make_fx
+    tracing, whose graph would keep this launch's output as a constant."""
+    if get_proxy_mode() is not None:
+        raise RuntimeError("newton_resident: a kernel launch cannot be traced into a graph; "
+                           "use the plain path (system.plain=True)")
     op = system.fem
     if (op.family, op.kind) not in fk.RESIDENT_SOURCES:
         raise ValueError(f"no newton_resident kernel for {type(op.material).__name__} with "
@@ -88,7 +97,7 @@ def launch(v0, u_prev, v_prev, f_ext, params, system, inv_blocks, pin_terms):
     stats = torch.full((len(STAT_FIELDS) + params.max_inner + 1,), float("nan"),
                        dtype=torch.float64, device=dev)
     mat = (ctypes.c_double * len(op.mat_args))(*op.mat_args)  # the material's constants
-    fk._launch("newton_resident", op, v0, ins["v0"], ins["u_prev"], ins["v_prev"],
+    fk._launch("newton_resident", op.tag, v0, ins["v0"], ins["u_prev"], ins["v_prev"],
                ins["f_ext"], ins["pin_aff"], pin_lin, inv, op.conn_t, op.gN_t, op.dV_t, op.Me_t,
                op.inc_ptr, op.inc, scratch, partials, v, stats, op.n, op.E, mat,
                float(params.dt), float(params.inner_atol),
