@@ -168,6 +168,14 @@ F32_RESIDENT_TOL = 1e-3
 # evaluations each within r of the float64 answer differ by at most 2 r, so
 # the bar is the larger of F32_RESIDENT_TOL and 2 r, r measured in the run.
 TRACE_STEPS = 16  # profiled window
+# One cluster barrier (barrier.cluster.arrive.release / wait.acquire) of a
+# grid that is one cluster of 2, 8 or 16 blocks of 160 threads, us: 97 of
+# them against none, `python -m tlfea_torch.tools.kernel_variants barriers`
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md). The resident
+# phases log barriers x this beside the kernel's time, a diagnostic of
+# what its barriers alone take, not its bound; it stays out of the
+# `kernels` line, which holds only this run's measurements and bounds.
+CLUSTER_BARRIER_US = {2: 0.392, 8: 0.4195, 16: 0.4561}
 
 # H100 SXM data sheet, at the full 700 W: HBM bytes/s, float32 flop/s
 # outside the tensor cores.
@@ -904,14 +912,29 @@ def resident_phase(tag, device, make_problem, n_steps, composed_tag, jax_counts=
         raise AssertionError(f"{key} disagrees with its plain version in float32")
     ms, host_ms = _device_ms(lambda: resident.launch(*args), 64)
     b_ms, b_by, pass_ms = resident_bound_ms(system.fem, st)
+    op = system.fem
+    plan = resident.plan(op.family, op.kind, op.E, torch.float32,
+                         resident.max_cluster(op.tag, torch.float32))
+    kernel_smem = getattr(fk.build_kernels()[fk.RESIDENT_SOURCES[(op.family, op.kind)]],
+                          f"tlfea_newton_resident_{op.tag}_f32_smem")(op.E, plan.cluster)
+    if st["grid"] != plan.cluster or kernel_smem != plan.smem_bytes or st["grid"] > 16:
+        raise AssertionError(f"{key}: launched a cluster of {st['grid']} blocks with "
+                             f"{kernel_smem} B of shared memory, planned {plan}")
+    floor_ms = st["barriers"] * CLUSTER_BARRIER_US.get(plan.cluster, float("nan")) * 1e-3
     plain_ms = _wall_ms(lambda: resident.newton_inner_resident_plain(*args))
     res_wall = _wall_ms(lambda: resident.newton_inner_resident(*args))
     log(tag, f"float32 inner solve at step 10: bitwise repeatable; Newton {st['iters']}, CG "
         f"{st['cg_total']} ({st['grad_evals']} gradients, {st['hv_evals']} Hv products, "
-        f"{st['barriers']} grid barriers, grid {st['grid']} blocks); device {ms:.4f} ms per "
+        f"{st['barriers']} cluster barriers; one cluster of {st['grid']} blocks x "
+        f"{plan.threads} threads, {plan.n_tiles} virtual blocks, {plan.rounds} a block, "
+        f"{plan.smem_bytes} B of shared memory a block); device {ms:.4f} ms per "
         f"launch (bound {b_ms:.5f} ms by {b_by}, {b_ms / ms:.4f} of it; the same passes "
         f"launched one by one, each reading HBM: {pass_ms:.4f} ms); host {host_ms:.4f} ms "
         f"per launch call")
+    log(tag, f"diagnostic, not the bound: {st['barriers']} cluster barriers x "
+        f"{CLUSTER_BARRIER_US.get(plan.cluster, float('nan'))} us (one barrier of a "
+        f"{plan.cluster}-block cluster, the barrier probe) = {floor_ms:.4f} ms, "
+        f"{floor_ms / ms:.3f} of the launch's {ms:.4f} ms")
 
     # The same inner solve and rollout through the composed K1-K4 path: the
     # gate patched off, as the JAX package's resident test does.

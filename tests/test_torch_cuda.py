@@ -271,7 +271,8 @@ def test_resident_kernel_matches_plain(cuda_dev, start):
     # one, when the loop converged) show the backtracking branch.
     backtracked = st["grad_evals"] > st["iters"] + (st["iters"] < params.max_inner)
     assert backtracked == (start == "compressed")
-    assert st["hv_evals"] == st["cg_total"] and st["grid"] == 6
+    # grid: the launch's one cluster, the plan's for 6 tiles (8 blocks)
+    assert st["hv_evals"] == st["cg_total"] and st["grid"] == _cluster(system, torch.float64) == 8
 
 
 @pytest.mark.cuda
@@ -643,6 +644,13 @@ def test_mr_coefs_match_k1_at_an_inverted_point(cuda_dev):
     assert _rel(fe, fe_p) < 1e-12 and _rel(prep, prep_p) < 1e-12
 
 
+def _cluster(system, dtype):
+    """The cluster size of the persistent kernel's launch on `system`."""
+    op = system.fem
+    return resident.plan(op.family, op.kind, op.E, dtype,
+                         resident.max_cluster(op.tag, dtype)).cluster
+
+
 def _resident_pair(device, dtype, pair):
     """One inner solve's inputs, three steps from rest, for a (family,
     material) pair of the persistent kernel: the 192-element box of
@@ -685,7 +693,8 @@ def test_resident_pair_matches_plain(cuda_dev, pair):
     assert st["iters"] == want[1] and abs(st["cg_total"] - want[3]) <= 2 and st["cg_total"] > 0
     x_ref, u_prev = system.elems.x_ref, args[1]
     assert _rel(x_ref + u_prev + DT * v, x_ref + u_prev + DT * want[0]) < 1e-10
-    assert 1 <= st["grid"] <= -(-pair[1] // 32) and st["hv_evals"] == st["cg_total"]
+    assert st["grid"] == _cluster(system, torch.float64) <= 16
+    assert st["hv_evals"] == st["cg_total"]
 
 
 @pytest.mark.cuda
@@ -725,6 +734,76 @@ def test_resident_pair_rollout_launches_once_per_inner_solve(cuda_dev, tag):
     assert got == {"primal_prep": 0, "hv": 0, "svk_blocks": 2 * svk, "node_reduce": 2 * svk,
                    "newton_resident": 4}
     assert fk.launch_key("newton_resident", system.fem) == f"newton_resident[{tag}]"
+
+
+ALL_RESIDENT_PAIRS = [("feat10", 192), ("feat10_mr", 192), ("ancf3243", 1024),
+                      ("ancf3243_mr", 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", ALL_RESIDENT_PAIRS, ids=[t for t, _ in ALL_RESIDENT_PAIRS])
+def test_resident_cluster_kernel_matches_plain_in_every_pair(cuda_dev, pair):
+    """The persistent kernel as one thread-block cluster, every (family,
+    material) pair: in float64 the plain version's Newton and CG counts and
+    its ||g|| history; a cluster of at most 16 blocks, the plan's; as many
+    cluster barriers as the cooperative grid crossed (three a gradient, four
+    a CG iteration: each PCG here runs at least one); in float32 bitwise
+    repeatable, the stats included."""
+    system, args = _resident_pair(cuda_dev, torch.float64, pair)
+    v, stats = resident.launch(*args)
+    st = resident.read_stats(stats)
+    want = resident.newton_inner_resident_plain(*args)
+    assert st["iters"] == want[1] and st["cg_total"] == want[3] > 0
+    hist = want[4][:want[1] + 1]
+    np.testing.assert_allclose(st["hist"][:st["iters"] + 1], hist, rtol=1e-10, atol=1e-10 * hist[0])
+    assert st["grid"] == _cluster(system, torch.float64) <= 16
+    assert st["barriers"] == 3 * st["grad_evals"] + 4 * st["hv_evals"]
+    _, args32 = _resident_pair(cuda_dev, torch.float32, pair)
+    v1, s1 = resident.launch(*args32)
+    for _ in range(2):
+        v2, s2 = resident.launch(*args32)
+        assert torch.equal(v1, v2) and torch.equal(s1.nan_to_num(-1.0), s2.nan_to_num(-1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_resident_plan_matches_the_kernel(cuda_dev, dtype):
+    """`resident.plan` (the host's launch shape) against the kernel's own
+    count of shared memory, every pair and gate size, at the card's largest
+    cluster and at 8; the card schedules clusters of 8 or 16."""
+    sfx = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    for family, kind in fk.RESIDENT_SOURCES:
+        tag = family if kind == "svk" else f"{family}_{kind}"
+        lib = fk.build_kernels()[fk.RESIDENT_SOURCES[(family, kind)]]
+        smem = getattr(lib, f"tlfea_newton_resident_{tag}_{sfx}_smem")
+        top = resident.max_cluster(tag, dtype)
+        assert top in (8, 16)
+        for E in (1, 31, 32, 33, 64, 192, 864, 1024):
+            for cap in {top, 8}:
+                pl = resident.plan(family, kind, E, dtype, cap)
+                assert smem(E, pl.cluster) == pl.smem_bytes, (tag, E, cap)
+        assert smem(1025, 16) == 0 and smem(64, 3) == 0  # refused shapes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["feat10", "ancf3443", "ancf3243"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_node_reduce_matches_twin_and_repeats(cuda_dev, family, dtype, tol):
+    """K4 (three channels a thread, batched walk) at C = 3, 6 and 9: its
+    twin within the kernels' tolerance, and bitwise repeatable; a width that
+    is not a multiple of 3 is refused."""
+    system, _, _ = _family_system(cuda_dev, dtype, family)
+    op = system.fem
+    rng = np.random.default_rng(11)
+    for C in (3, 6, 9):
+        vals = torch.as_tensor(rng.normal(size=(op.S * C, op.E)), dtype=dtype, device=cuda_dev)
+        got = fk.node_reduce(op, vals)
+        assert got.shape == (op.n, C)
+        assert _rel(got, fk.node_reduce_plain(op, vals)) < tol
+        for _ in range(3):
+            assert torch.equal(fk.node_reduce(op, vals), got)
+    with pytest.raises(ValueError, match="multiple of 3"):
+        fk.node_reduce(op, torch.zeros(op.S * 4, op.E, dtype=dtype, device=cuda_dev))
 
 
 def _op_samples(device, dtype):

@@ -12,11 +12,16 @@ using Feat10 = tlfea::Family<10, 5, 0x3FFu, 5, 0>;
 TLFEA_FAMILY_ENTRY_POINTS(feat10, Feat10, f32, float)
 TLFEA_FAMILY_ENTRY_POINTS(feat10, Feat10, f64, double)
 
-#define TLFEA_NODE_REDUCE(SUFFIX, T)                                                   \
-  extern "C" int tlfea_node_reduce_##SUFFIX(const void* vals, const void* ptr,         \
-                                            const void* inc, void* out, int n, int E,  \
-                                            int C, void* stream) {                     \
-    return tlfea::launch_node_reduce<T>(vals, ptr, inc, out, n, E, C, stream);         \
+// K4, batch: the incidences a thread loads at once, 4 or 8 (the wrapper
+// takes 4 for the ANCF families, whose coefficient rows have at most 4).
+#define TLFEA_NODE_REDUCE(SUFFIX, T)                                                    \
+  extern "C" int tlfea_node_reduce_##SUFFIX(const void* vals, const void* ptr,          \
+                                            const void* inc, void* out, int n, int E,   \
+                                            int C, int batch, void* stream) {           \
+    if (batch == 4)                                                                     \
+      return tlfea::launch_node_reduce<T, 4>(vals, ptr, inc, out, n, E, C, stream);     \
+    if (batch != 8) return (int)cudaErrorInvalidValue;                                  \
+    return tlfea::launch_node_reduce<T, 8>(vals, ptr, inc, out, n, E, C, stream);       \
   }
 
 TLFEA_NODE_REDUCE(f32, float)

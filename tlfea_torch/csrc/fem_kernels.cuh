@@ -74,9 +74,9 @@
 // used raw. The mass terms use the raw, uncentred values.
 //
 // The per-tile bodies of K1 and K2 (`primal_prep_tile`, `hv_tile`) and K4's
-// per-(node, channel) sum (`node_sum`) are __device__ functions, so that the
-// persistent Newton-PCG kernel (resident.cuh) runs the same code in
-// grid-stride loops. Their pointers to data that the persistent kernel
+// ordered walk (`node_sums`, for a group of a node's channels) are __device__
+// functions, so that the persistent Newton-PCG kernel (resident.cuh) runs
+// the same code in its loops. Their pointers to data that the persistent kernel
 // writes during its run carry no __restrict__: a load through such a pointer
 // must not go through the non-coherent read-only cache.
 //
@@ -545,37 +545,66 @@ svk_blocks_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
   }
 }
 
-// K4's sum for one (node nd, channel c): over the node's incidences (a, e),
-// in the fixed order of the host-built CSR list, of vals[(a*C + c) * E + e];
-// inc[k] = a * E + e.
-template <typename T>
-__device__ __forceinline__ T node_sum(const T* vals, const int* __restrict__ ptr,
-                                      const int* __restrict__ inc, int nd, int c, int E,
-                                      int C) {
-  T acc = T(0);
-  for (int k = ptr[nd]; k < ptr[nd + 1]; ++k) {
-    const int i = inc[k];
-    const int a = i / E;
-    const int e = i - a * E;
-    acc += vals[((size_t)a * C + c) * E + e];
+// K4 walks a node's incidences in batches: the batch's indices are loaded
+// together, then all their values, and only then added in order.
+constexpr int K4_BATCH = 8;
+
+// K4's sums for G channels c0 .. c0 + G - 1 of node nd (acc[0..G)): over
+// the node's incidences (a, e), in the fixed order of the host-built CSR
+// list, of vals[(a*C + c) * E + e]; inc[k] = a * E + e. The adds run in CSR
+// order from T(0), as a one-by-one walk would, so the bits depend on neither
+// NB nor G; one index load serves the G value loads of an incidence.
+template <typename T, int G, int NB = K4_BATCH>
+__device__ __forceinline__ void node_sums(const T* vals, const int* __restrict__ ptr,
+                                          const int* __restrict__ inc, int nd, int c0, int E,
+                                          int C, T acc[G]) {
+#pragma unroll
+  for (int c = 0; c < G; ++c) acc[c] = T(0);
+  const int k1 = ptr[nd + 1];
+  for (int k0 = ptr[nd]; k0 < k1; k0 += NB) {
+    int i[NB];
+    T v[NB][G];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) i[j] = k0 + j < k1 ? inc[k0 + j] : -1;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int a = i[j] / E;
+      const T* src = vals + ((size_t)a * C + c0) * E + (i[j] - a * E);
+#pragma unroll
+      for (int c = 0; c < G; ++c) v[j][c] = i[j] >= 0 ? src[(size_t)c * E] : T(0);
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      if (k0 + j < k1) {
+#pragma unroll
+        for (int c = 0; c < G; ++c) acc[c] += v[j][c];
+      }
   }
-  return acc;
 }
 
-// K4: out[node, c] = node_sum(node, c). One thread per (node, channel). A
-// fixed order instead of atomics keeps float32 sums bitwise repeatable.
-// Bound by latency: each thread walks its node's dependent, uncoalesced
-// loads (about 20 for an interior FEAT10 node, at most 4 for a shell
-// coefficient row).
-template <typename T>
+// K4: out[node, c0 .. c0 + G) = node_sums(node, c0), one thread per node
+// and group of G channels (C / G threads a node). A fixed order instead of
+// atomics keeps float32 sums bitwise repeatable. Bound by latency and load
+// count, not bytes: each thread walks its node's dependent, uncoalesced
+// loads (inc[k], then the G values it points at); FEAT10 nodes have 5.5
+// (1k box) to 6.4 (10k) incidences on average and at most 24, an ANCF
+// coefficient row at most 4. With G = 3 one index load serves 3 channels,
+// and a third of the threads walk: on an H100 4.74 us at 10k (C = 3)
+// against 6.45-6.84 us for G = 1 at any batch, and 5.62 against 8.34 at C =
+// 6, where one thread for all six channels took 8.0 (tools/kernel_variants
+// k4, PERF.md).
+template <typename T, int G, int NB = K4_BATCH>
 __global__ void __launch_bounds__(THREADS)
 node_reduce_kernel(const T* __restrict__ vals, const int* __restrict__ ptr,
-                   const int* __restrict__ inc, T* __restrict__ out, int n,
-                   int E, int C) {
+                   const int* __restrict__ inc, T* __restrict__ out, int n, int E, int C) {
+  const int groups = C / G;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n * C) return;
-  const int nd = t / C;
-  out[t] = node_sum(vals, ptr, inc, nd, t - nd * C, E, C);
+  if (t >= n * groups) return;
+  const int nd = t / groups, c0 = (t - nd * groups) * G;
+  T acc[G];
+  node_sums<T, G, NB>(vals, ptr, inc, nd, c0, E, C, acc);
+#pragma unroll
+  for (int c = 0; c < G; ++c) out[(size_t)nd * C + c0 + c] = acc[c];
 }
 
 // Internal linkage for the launchers: the once-per-kernel guard of
@@ -668,16 +697,26 @@ int launch_svk_blocks(const void* u, const void* conn_t, const void* gN_t,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_node_reduce(const void* vals, const void* ptr, const void* inc,
-                       void* out, int n, int E, int C, void* stream) {
+// K4 with G channels a thread (C a multiple of G).
+template <typename T, int G, int NB>
+int launch_node_reduce_groups(const void* vals, const void* ptr, const void* inc, void* out,
+                              int n, int E, int C, void* stream) {
   if (n > 0) {
-    const long long work = (long long)n * C;
-    node_reduce_kernel<T><<<(int)((work + THREADS - 1) / THREADS), THREADS, 0,
-                            (cudaStream_t)stream>>>(
+    const long long work = (long long)n * (C / G);
+    node_reduce_kernel<T, G, NB><<<(int)((work + THREADS - 1) / THREADS), THREADS, 0,
+                                   (cudaStream_t)stream>>>(
         (const T*)vals, (const int*)ptr, (const int*)inc, (T*)out, n, E, C);
   }
   return (int)cudaGetLastError();
+}
+
+// K4: 3 channels a thread; C must be a multiple of 3 (the library reduces 3
+// and 6).
+template <typename T, int NB = K4_BATCH>
+int launch_node_reduce(const void* vals, const void* ptr, const void* inc, void* out, int n,
+                       int E, int C, void* stream) {
+  if (C <= 0 || C % 3 != 0) return (int)cudaErrorInvalidValue;
+  return launch_node_reduce_groups<T, 3, NB>(vals, ptr, inc, out, n, E, C, stream);
 }
 
 }  // namespace

@@ -29,8 +29,8 @@ A fifth kernel, the persistent Newton-PCG solve of `tlfea_torch.ops.resident`
 (csrc/resident.cuh, sources in `RESIDENT_SOURCES`, one per (family,
 material) pair that the JAX package runs resident: FEAT10 and ANCF3243,
 each with SVK and Mooney-Rivlin), runs the K1/K2 tile code and K4's node
-sums inside one cooperative launch; it is built and launched through this
-module too.
+sums inside one launch of one thread-block cluster; it is built and launched
+through this module too.
 
 K1-K3, K5 and K5t are templates instantiated for the element families in
 `FAMILIES` (FEAT10, ANCF3243, ANCF3443) and, K1, K2, K5 and K5t, for the
@@ -125,6 +125,11 @@ MATERIAL_KERNELS = {"svk": ("primal_prep", "hv", "svk_blocks", "contrib", "contr
 RESIDENT_SOURCES = {("feat10", "svk"): "fem_resident.cu", ("feat10", "mr"): "fem_resident.cu",
                     ("ancf3243", "svk"): "fem_resident_ancf3243.cu",
                     ("ancf3243", "mr"): "fem_resident_ancf3243.cu"}
+# K4's batch, by family: the incidences a thread loads at once. A FEAT10 node
+# has up to 24 (a mean of 5.5-6.9 on the box meshes), an ANCF coefficient row
+# at most 4 (a shell) or 2 (a beam); batches of 8 and 4 were the fastest
+# there (tools/kernel_variants k4, PERF.md). Any batch walks any degree.
+K4_BATCH = {"feat10": 8, "ancf3243": 4, "ancf3443": 4}
 # Sources of profiling kernels, built and launched with the others: the
 # phase ablation of K2 + K4 (`tlfea_torch.ops.hv_phases`).
 PROFILING_SOURCES = ("hv_phases.cu",)
@@ -177,10 +182,14 @@ def _bind(lib, family: str | None, kind: str = "svk", resident: bool = False) ->
         fn.argtypes, fn.restype = [I] + [P] * 10 + [I] * 2 + [D] * 5 + [P], ctypes.c_int
         return
     if family is None:
-        sigs = {"tlfea_node_reduce_{}": [P] * 4 + [I] * 3 + [P]}
+        sigs = {"tlfea_node_reduce_{}": [P] * 4 + [I] * 4 + [P]}
     elif resident:
-        sigs = {f"tlfea_newton_resident_{_tag(family, kind)}_{{}}":
-                [P] * 17 + [I] * 2 + [ctypes.POINTER(D)] + [D] * 5 + [I] * 3 + [P]}
+        name = f"tlfea_newton_resident_{_tag(family, kind)}_{{}}"
+        sigs = {name: [P] * 16 + [I] * 2 + [ctypes.POINTER(D)] + [D] * 5 + [I] * 4 + [P],
+                name + "_max_cluster": [ctypes.POINTER(I)]}
+        for sfx in ("f32", "f64"):
+            fn = getattr(lib, f"{name.format(sfx)}_smem")
+            fn.argtypes, fn.restype = [I, I], ctypes.c_longlong
     else:
         nm = len(next(names for k, _, names in MATERIALS.values() if k == kind))
         args = {"primal_prep": [P] * 7 + [I] + [D] * nm, "hv": [P] * 7 + [I] + [D] * (1 + nm),
@@ -705,8 +714,10 @@ def _svk_blocks_cuda(u, conn_t, gN_t, dV_t, tag, mat):
 def _node_reduce_cuda(vals, conn, inc_ptr, inc, tag):
     E, n = vals.shape[1], inc_ptr.numel() - 1
     C = vals.shape[0] * E // inc.numel()
+    if C % 3:
+        raise ValueError(f"node_reduce: the kernel reduces a multiple of 3 channels, got {C}")
     out = vals.new_empty((n, C))
-    _launch("node_reduce", tag, vals, vals, inc_ptr, inc, out, n, E, C)
+    _launch("node_reduce", tag, vals, vals, inc_ptr, inc, out, n, E, C, K4_BATCH[tag])
     return out
 
 
