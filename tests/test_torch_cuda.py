@@ -906,3 +906,73 @@ def test_hv_phases_take_float32_feat10_svk_only(cuda_dev):
     mr, _, _ = _box_system(cuda_dev, torch.float32, material=_mooney_rivlin())
     with pytest.raises(ValueError, match="FEAT10 with SVK"):
         hp.dma_win(mr.fem, torch.zeros((mr.n_coef, 3), device=cuda_dev))
+
+
+# The tile of the Mooney-Rivlin K1 and K5 (`fem_kernels.cuh`
+# `primal_prep_tile`, loading the shape gradients as fem_<family>_mr.cu's
+# `Hold` says): sizes that are a multiple of neither 4 nor 32 (a ragged last
+# tile, a row stride E * itemsize off 16 bytes), and the full sizes of
+# chip_smoke's [kernels] (the 10k flagship, the 72 x 72 shell).
+MR_TILE_CASES = [("feat10", 18), ("ancf3243", 13), ("ancf3443", 25), ("feat10", 10584),
+                 ("ancf3443", 5184)]
+
+
+def _mr_tile_case(device, dtype, family, E):
+    """(system, packed) at a strained random state: the small structures of
+    `_mr_case` / `_mr_ancf_case` (a 3 x 1 x 1 box, a 13-element beam, a 5 x
+    5 plate), or chip_smoke's full-size builders at its [kernels] state (u
+    1e-3, scaled by STRAIN_SCALE)."""
+    mr = _mooney_rivlin()
+    rng = np.random.default_rng(21)
+    if E in (10584, 5184):
+        import os
+        import sys
+
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        if root not in sys.path:
+            sys.path.insert(0, root)
+        import chip_smoke as cs
+
+        builder = cs.flagship_problem if family == "feat10" else cs.shell_problem
+        system = builder("cpu", torch.float64, material=mr)[0]
+        system = replace(system, elems=system.elems.to(device, dtype))
+        scale = 1e-3 * cs.STRAIN_SCALE.get(f"{family}_mr", 1.0)
+    elif family == "feat10":
+        system = _box_system(device, dtype, material=mr)[0]
+        scale = 1e-2
+    else:
+        system = _ancf_system(device, dtype, family, n=(13, 1) if family == "ancf3243" else (5, 5),
+                              material=mr)[0]
+        scale = ANCF_MR_STRAIN[family]
+    n = system.n_coef
+    packed = np.concatenate([rng.normal(size=(n, 3)) * scale, rng.normal(size=(n, 6))], 1)
+    return system, torch.as_tensor(packed, dtype=dtype, device=device).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("case", MR_TILE_CASES, ids=[f"{f}-{e}" for f, e in MR_TILE_CASES])
+def test_mr_tile_matches_twins_repeats_and_k5_is_k1(cuda_dev, case, dtype, tol):
+    """K1 `[<family>_mr]` (fe and the prep cache) and K5 against their twins,
+    one launch each; both bitwise repeatable; K5 equal to K1's fe bit for
+    bit."""
+    family, E = case
+    system, packed = _mr_tile_case(cuda_dev, dtype, family, E)
+    op = system.fem
+    assert (op.tag, op.E) == (f"{family}_mr", E)
+    fk.reset_launch_counts()
+    fe, prep = fk.primal_prep(op, packed)
+    fe5 = fk.contrib(op, packed)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES[f"primal_prep[{family}_mr]"] == 1
+    assert fk.LAUNCHES[f"contrib[{family}_mr]"] == 1 and sum(fk.LAUNCHES.values()) == 2
+    fe_p, prep_p = fk.primal_prep_plain(op, packed)
+    jm1 = prep_p.view(op.Q, op.prep_rows, op.E)[:, 18]
+    assert float(jm1.abs().max()) < 0.9  # strained, nothing inverted
+    assert bool(torch.isfinite(fe).all()) and bool(torch.isfinite(prep).all())
+    assert _rel(fe, fe_p) < tol and _rel(prep, prep_p) < tol
+    assert torch.equal(fe5, fe)
+    fe2, prep2 = fk.primal_prep(op, packed)
+    assert torch.equal(fe2, fe) and torch.equal(prep2, prep)
+    assert torch.equal(fk.contrib(op, packed), fe5)
+

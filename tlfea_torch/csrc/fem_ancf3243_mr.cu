@@ -9,10 +9,14 @@
 //
 // The same family as fem_ancf3243.cu: S = 8 slots, translation slots 0 and
 // 4, Q = 12, NG = 4 groups of 3 quadrature points, partial sums (24 a
-// thread) in registers.
+// thread) in registers. K1 and K5 load a quadrature point's shape
+// gradients (fem_kernels.cuh `Hold`) as timed fastest on an H100 (PERF.md,
+// Findings): K1 streams them through shared memory; K5 holds them in
+// registers, the first point's loaded before the gather, in float32, and
+// loads them where used in float64.
 
 #include "fem_kernels.cuh"
 
 using Ancf3243 = tlfea::Family<8, 12, 0x11u, 4>;
-TLFEA_MR_ENTRY_POINTS(ancf3243, Ancf3243, f32, float)
-TLFEA_MR_ENTRY_POINTS(ancf3243, Ancf3243, f64, double)
+TLFEA_MR_ENTRY_POINTS(ancf3243, Ancf3243, f32, float, stream, early)
+TLFEA_MR_ENTRY_POINTS(ancf3243, Ancf3243, f64, double, stream, none)

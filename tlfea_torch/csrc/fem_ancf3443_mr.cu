@@ -8,10 +8,13 @@
 //
 // The same family as fem_ancf3443.cu: S = 16 slots, translation slots 0, 4,
 // 8 and 12, Q = 48, NG = 4 groups of 12 quadrature points whose partial sums
-// meet in shared memory in a fixed order.
+// meet in shared memory in a fixed order. K1 and K5 load a quadrature
+// point's shape gradients (fem_kernels.cuh `Hold`) as timed fastest on an
+// H100 (PERF.md, Findings): held in registers, K5's first point in
+// float64 before the gather.
 
 #include "fem_kernels.cuh"
 
 using Ancf3443 = tlfea::Family<16, 48, 0x1111u, 4>;
-TLFEA_MR_ENTRY_POINTS(ancf3443, Ancf3443, f32, float)
-TLFEA_MR_ENTRY_POINTS(ancf3443, Ancf3443, f64, double)
+TLFEA_MR_ENTRY_POINTS(ancf3443, Ancf3443, f32, float, late, late)
+TLFEA_MR_ENTRY_POINTS(ancf3443, Ancf3443, f64, double, late, early)

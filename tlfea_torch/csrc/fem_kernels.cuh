@@ -175,25 +175,135 @@ struct Partial<T, N, false> {
 template <typename T, class F, int N>
 using PartialFor = Partial<T, N, (N * sizeof(T) <= (size_t)F::REG_BYTES)>;
 
+// Where K1 and K5 load a quadrature point's shape gradients and volume:
+// `none` from global memory where they are used (the contraction, then
+// again in the product after the material's chain); `late` once into
+// registers, at the top of the point; `early` the same, with the first
+// point's loads issued before the block gathers conn -> packed, so that they
+// are in flight during `stage`; `stream` through shared memory by cp.async
+// (below). The arithmetic and its order are the same in all four, so are
+// the bits. Mooney-Rivlin picks per kernel and instantiation
+// (TLFEA_MR_ENTRY_POINTS), since its chain (a division, a cube root, another
+// division) holds 168-255 registers around the reloads; each choice is the
+// one that timed fastest on an H100 (PERF.md, Findings). SVK and the
+// persistent kernel load where used.
+//
+// With `stream`, each thread issues at block start the copies of the rows
+// it will itself read (its element's column of its first STAGES rounds of
+// points: the point's S*3 gradient rows and its dV row; and its slots' Me
+// rows for the reduce), so that they arrive while `stage` gathers conn ->
+// packed, and holds no register for them. It walks its points through a
+// ring of STAGES stages, refilling a stage with the point STAGES rounds
+// ahead once it has read it. A thread reads only what it copied, so
+// completion is its own cp.async.wait_group and a stage is free again in
+// program order; a word a copy takes any row stride E * sizeof(T).
+enum class Hold { none, late, early, stream };
+
+// One word (4 or 8 bytes) from global into shared memory, asynchronously;
+// a commit closes this thread's group of copies, and cp_async_wait<N>
+// waits until at most N of its groups are pending.
+template <typename T>
+__device__ __forceinline__ void cp_async_word(T* dst, const T* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+               "n"((int)sizeof(T))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The shared memory of K1's and K5's tile, in rows of EX words: xs (S*9
+// staged slot channels); with `stream` the ring (STAGES * NG points of
+// QP_ROWS rows; STAGES at most 3 and the ROUNDS = Q / NG rounds of points a
+// thread walks); the NG*S*3 partial sums (with `stream`, the drained ring
+// when they live in registers until the flush: ALIAS); with `stream` Me
+// (S*S rows). Without `stream`, smem_bytes<T, F, 9, 3>().
+template <typename T, class F, Hold HOLD>
+struct TileSmem {
+  static constexpr bool STREAM = HOLD == Hold::stream;
+  static_assert(!STREAM || F::Q % F::NG == 0, "the stream walks whole rounds of NG points");
+  static constexpr int ROUNDS = F::Q / F::NG;
+  static constexpr int STAGES = ROUNDS < 3 ? ROUNDS : 3;
+  static constexpr int QP_ROWS = F::S * 3 + 1;  // a point's gradient rows, then its dV row
+  static constexpr int XS = F::S * 9;
+  static constexpr int RING = STREAM ? STAGES * F::NG * QP_ROWS : 0;
+  static constexpr int PART = F::NG * F::S * 3;
+  static constexpr bool ALIAS =
+      STREAM && F::S * 3 * sizeof(T) <= (size_t)F::REG_BYTES && RING >= PART;
+  static constexpr int ME = STREAM ? F::S * F::S : 0;
+  static constexpr size_t BYTES = (size_t)(XS + RING + (ALIAS ? 0 : PART) + ME) * EX * sizeof(T);
+  static_assert(BYTES <= 232448, "the tile exceeds an H100 block's 227 KB of shared memory");
+};
+
 // K1 on the tile of elements e0 .. e0 + EX - 1: f_e = sum_q P(Du, Fd) gradN
-// dV + Me dv/dt, and the per-QP prep cache. smem holds smem_bytes<T, F, 9,
-// 3>(); the caller separates two tiles that share it by __syncthreads().
-// PREP = false compiles the prep writes out (K5: `prep` is not touched), and
-// leaves f_e's arithmetic as it is, so K5's f_e equals K1's bit for bit. M is
-// the material (SvkMat or MrMat).
-template <typename T, class F, class M, bool PREP = true>
+// dV + Me dv/dt, and the per-QP prep cache. smem holds TileSmem<T, F,
+// HOLD>::BYTES; the caller separates two tiles that share it by
+// __syncthreads(). PREP = false compiles the prep writes out (K5: `prep` is
+// not touched), and leaves f_e's arithmetic as it is, so K5's f_e equals
+// K1's bit for bit. M is the material (SvkMat or MrMat); HOLD where the
+// shape gradients are loaded.
+template <typename T, class F, class M, bool PREP = true, Hold HOLD = Hold::none>
 __device__ __forceinline__ void primal_prep_tile(const T* packed, const int* __restrict__ conn_t,
                                                  const T* __restrict__ gN_t,
                                                  const T* __restrict__ dV_t,
                                                  const T* __restrict__ Me_t, T* fe, T* prep,
                                                  int E, int e0, const M& m, T* smem) {
+  using L = TileSmem<T, F, HOLD>;
   constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = EX * NG;
-  T* xs = smem;               // (S*9, EX): centred u | centred v | dv
-  T* part = xs + S * 9 * EX;  // (NG*S*3, EX)
+  constexpr int D = L::STAGES, R = L::QP_ROWS;
+  constexpr bool HELD = HOLD == Hold::late || HOLD == Hold::early;
+  constexpr bool STREAM = L::STREAM;
+  T* xs = smem;                                     // (S*9, EX): centred u | centred v | dv
+  T* ring = xs + L::XS * EX;                        // (STAGES, NG, QP_ROWS, EX)
+  T* part = L::ALIAS ? ring : ring + L::RING * EX;  // (NG*S*3, EX)
+  T* mes = ring + (L::RING + (L::ALIAS ? 0 : L::PART)) * EX;  // (S*S, EX)
   const int x = threadIdx.x, g = threadIdx.y;
   const int e = e0 + x;
   const size_t sE = (size_t)E;
   PartialFor<T, F, S * 3> f(part + g * S * 3 * EX + x);
+  T gq[S][3], w;  // HELD: point q's gradients and volume
+  auto load = [&](int q) {
+#pragma unroll
+    for (int a = 0; a < S; ++a)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) gq[a][j] = gN_t[((size_t)(q * S + a) * 3 + j) * sE + e];
+    w = dV_t[(size_t)q * sE + e];
+  };
+  T* mine = ring + (size_t)g * R * EX + x;  // this thread's column of stage 0
+  // STREAM: round k's point q = k NG + g into stage k % D, then one commit
+  // (empty past the last round or for a missing element), so that before
+  // round k exactly D - 1 younger groups exist.
+  auto issue = [&](int k) {
+    if (e < E && k < L::ROUNDS) {
+      const int q = k * NG + g;
+      T* dst = mine + (k % D) * (NG * R * EX);
+      const T* src = gN_t + (size_t)q * S * 3 * sE + e;
+#pragma unroll
+      for (int r = 0; r < S * 3; ++r) cp_async_word(dst + r * EX, src + r * sE);
+      cp_async_word(dst + S * 3 * EX, dV_t + (size_t)q * sE + e);
+    }
+    cp_async_commit();
+  };
+  if constexpr (HOLD == Hold::early) {
+    if (e < E) load(g);
+  }
+  if constexpr (STREAM) {  // the Me rows of the slots this thread reduces (a = g, g + NG, ...)
+    if (e < E)
+      for (int a = g; a < S; a += NG)
+#pragma unroll
+        for (int b = 0; b < S; ++b)
+          cp_async_word(mes + (a * S + b) * EX + x, Me_t + (size_t)(a * S + b) * sE + e);
+    cp_async_commit();
+#pragma unroll
+    for (int k = 0; k < D; ++k) issue(k);
+  }
   stage<T, F, 9, 6>(packed, conn_t, E, e0, xs);
   __syncthreads();
 
@@ -201,6 +311,12 @@ __device__ __forceinline__ void primal_prep_tile(const T* packed, const int* __r
     const T* xe = xs + x;
 #pragma unroll 1
     for (int q = g; q < Q; q += NG) {
+      const int k = (q - g) / NG;  // the round
+      const T* st = mine + (k % D) * (NG * R * EX);
+      if constexpr (HELD) {
+        if (HOLD == Hold::late || q != g) load(q);
+      }
+      if constexpr (STREAM) cp_async_wait<D - 1>();
       T Du[3][3], Fd[3][3];
 #pragma unroll
       for (int i = 0; i < 3; ++i)
@@ -216,7 +332,13 @@ __device__ __forceinline__ void primal_prep_tile(const T* packed, const int* __r
         }
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
-          const T gv = gN_t[((size_t)(q * S + a) * 3 + j) * sE + e];
+          T gv;
+          if constexpr (HELD)
+            gv = gq[a][j];
+          else if constexpr (STREAM)
+            gv = st[(a * 3 + j) * EX];
+          else
+            gv = gN_t[((size_t)(q * S + a) * 3 + j) * sE + e];
 #pragma unroll
           for (int i = 0; i < 3; ++i) {
             Du[i][j] += ua[i] * gv;
@@ -228,22 +350,38 @@ __device__ __forceinline__ void primal_prep_tile(const T* packed, const int* __r
       T* pq = nullptr;
       if constexpr (PREP) pq = prep + (size_t)q * M::PR * sE + e;
       m.template primal<PREP>(Du, Fd, P, pq, sE);
-      const T w = dV_t[q * sE + e];
+      if constexpr (STREAM)
+        w = st[S * 3 * EX];
+      else if constexpr (!HELD)
+        w = dV_t[q * sE + e];
 #pragma unroll
       for (int a = 0; a < S; ++a) {
-        const T* ga = gN_t + ((size_t)(q * S + a) * 3) * sE + e;
-        const T g0 = ga[0], g1 = ga[sE], g2 = ga[2 * sE];
+        T g0, g1, g2;
+        if constexpr (HELD) {
+          g0 = gq[a][0], g1 = gq[a][1], g2 = gq[a][2];
+        } else if constexpr (STREAM) {
+          g0 = st[(a * 3) * EX], g1 = st[(a * 3 + 1) * EX], g2 = st[(a * 3 + 2) * EX];
+        } else {
+          const T* ga = gN_t + ((size_t)(q * S + a) * 3) * sE + e;
+          g0 = ga[0], g1 = ga[sE], g2 = ga[2 * sE];
+        }
 #pragma unroll
         for (int i = 0; i < 3; ++i)
           f[a * 3 + i] += (P[i][0] * g0 + P[i][1] * g1 + P[i][2] * g2) * w;
       }
+      if constexpr (STREAM) issue(k + D);  // the stage is read: refill it
     }
+  }
+  if constexpr (STREAM) {
+    cp_async_wait<0>();                       // Me in place; no copy left in flight
+    if constexpr (L::ALIAS) __syncthreads();  // every thread done with the ring
   }
   f.flush();
   __syncthreads();
 
   // Fixed-order sum of the NG partials, plus the consistent mass on the
-  // (uncentred) dv/dt channel.
+  // (uncentred) dv/dt channel; with `stream` a thread reduces its own
+  // element's slots a = g, g + NG, ..., whose Me rows it copied.
   for (int t = g * EX + x; t < S * EX; t += NT) {
     const int a = t / EX, xx = t - a * EX, ee = e0 + xx;
     if (ee >= E) continue;
@@ -254,7 +392,7 @@ __device__ __forceinline__ void primal_prep_tile(const T* packed, const int* __r
     T m[3] = {T(0), T(0), T(0)};
 #pragma unroll
     for (int b = 0; b < S; ++b) {
-      const T me = Me_t[(a * S + b) * sE + ee];
+      const T me = STREAM ? mes[(a * S + b) * EX + xx] : Me_t[(a * S + b) * sE + ee];
 #pragma unroll
       for (int i = 0; i < 3; ++i) m[i] += me * xs[(b * 9 + 6 + i) * EX + xx];
     }
@@ -263,28 +401,28 @@ __device__ __forceinline__ void primal_prep_tile(const T* packed, const int* __r
   }
 }
 
-template <typename T, class F, class M>
+template <typename T, class F, class M, Hold HOLD = Hold::none>
 __global__ void __launch_bounds__(EX * F::NG)
 primal_prep_kernel(const T* __restrict__ packed, const int* __restrict__ conn_t,
                    const T* __restrict__ gN_t, const T* __restrict__ dV_t,
                    const T* __restrict__ Me_t, T* __restrict__ fe,
                    T* __restrict__ prep, int E, M m) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  primal_prep_tile<T, F, M>(packed, conn_t, gN_t, dV_t, Me_t, fe, prep, E, blockIdx.x * EX, m,
-                            reinterpret_cast<T*>(smem_raw));
+  primal_prep_tile<T, F, M, true, HOLD>(packed, conn_t, gN_t, dV_t, Me_t, fe, prep, E,
+                                        blockIdx.x * EX, m, reinterpret_cast<T*>(smem_raw));
 }
 
 // K5: K1's f_e without the prep cache, the port of `_body` with tangent=False
 // (pallas_fem.py:519, `pallas_call` :812), the element half of every ALM
 // gradient of the first-order solvers.
-template <typename T, class F, class M>
+template <typename T, class F, class M, Hold HOLD = Hold::none>
 __global__ void __launch_bounds__(EX * F::NG)
 contrib_kernel(const T* __restrict__ packed, const int* __restrict__ conn_t,
                const T* __restrict__ gN_t, const T* __restrict__ dV_t,
                const T* __restrict__ Me_t, T* __restrict__ fe, int E, M m) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  primal_prep_tile<T, F, M, false>(packed, conn_t, gN_t, dV_t, Me_t, fe, nullptr, E,
-                                   blockIdx.x * EX, m, reinterpret_cast<T*>(smem_raw));
+  primal_prep_tile<T, F, M, false, HOLD>(packed, conn_t, gN_t, dV_t, Me_t, fe, nullptr, E,
+                                         blockIdx.x * EX, m, reinterpret_cast<T*>(smem_raw));
 }
 
 // sum over the non-reference slots a of x_a (x) gradN_qa, x_a staged in
@@ -622,29 +760,30 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, class F, class M>
+template <typename T, class F, Hold HOLD = Hold::none, class M>
 int launch_primal_prep(const void* packed, const void* conn_t, const void* gN_t,
                        const void* dV_t, const void* Me_t, void* fe, void* prep, int E,
                        const M& m, void* stream) {
-  constexpr size_t smem = smem_bytes<T, F, 9, 3>();
-  static const cudaError_t attr = allow_smem(primal_prep_kernel<T, F, M>, smem);
+  constexpr size_t smem = TileSmem<T, F, HOLD>::BYTES;
+  static const cudaError_t attr = allow_smem(primal_prep_kernel<T, F, M, HOLD>, smem);
   if (attr != cudaSuccess) return (int)attr;
   if (E > 0) {
-    primal_prep_kernel<T, F, M><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
-        (const T*)packed, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t,
-        (const T*)Me_t, (T*)fe, (T*)prep, E, m);
+    primal_prep_kernel<T, F, M, HOLD>
+        <<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
+            (const T*)packed, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t,
+            (const T*)Me_t, (T*)fe, (T*)prep, E, m);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T, class F, class M>
+template <typename T, class F, Hold HOLD = Hold::none, class M>
 int launch_contrib(const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,
                    const void* Me_t, void* fe, int E, const M& m, void* stream) {
-  constexpr size_t smem = smem_bytes<T, F, 9, 3>();
-  static const cudaError_t attr = allow_smem(contrib_kernel<T, F, M>, smem);
+  constexpr size_t smem = TileSmem<T, F, HOLD>::BYTES;
+  static const cudaError_t attr = allow_smem(contrib_kernel<T, F, M, HOLD>, smem);
   if (attr != cudaSuccess) return (int)attr;
   if (E > 0) {
-    contrib_kernel<T, F, M><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
+    contrib_kernel<T, F, M, HOLD><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
         (const T*)packed, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t,
         (const T*)Me_t, (T*)fe, E, m);
   }
@@ -769,12 +908,14 @@ int launch_node_reduce(const void* vals, const void* ptr, const void* inc, void*
 // The same with Mooney-Rivlin (no K3: the preconditioner's blocks are plain
 // PyTorch, as the JAX package leaves them to XLA):
 // tlfea_<kernel>_<NAME>_mr_<SUFFIX>, constants (mu10, mu01, kappa, eta, lam_d).
-#define TLFEA_MR_ENTRY_POINTS(NAME, FAM, SUFFIX, T)                                     \
+// K1 and K5 load a quadrature point's shape gradients as K1_HOLD and
+// K5_HOLD say (`Hold`: none, late, early or stream).
+#define TLFEA_MR_ENTRY_POINTS(NAME, FAM, SUFFIX, T, K1_HOLD, K5_HOLD)                   \
   extern "C" int tlfea_primal_prep_##NAME##_mr_##SUFFIX(                                \
       const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
       const void* Me_t, void* fe, void* prep, int E, double mu10, double mu01,          \
       double kappa, double eta, double lam_d, void* stream) {                           \
-    return tlfea::launch_primal_prep<T, FAM>(                                           \
+    return tlfea::launch_primal_prep<T, FAM, tlfea::Hold::K1_HOLD>(                     \
         packed, conn_t, gN_t, dV_t, Me_t, fe, prep, E,                                  \
         tlfea::MrMat<T>{(T)mu10, (T)mu01, (T)kappa, (T)eta, (T)lam_d}, stream);         \
   }                                                                                     \
@@ -790,7 +931,7 @@ int launch_node_reduce(const void* vals, const void* ptr, const void* inc, void*
       const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
       const void* Me_t, void* fe, int E, double mu10, double mu01, double kappa,        \
       double eta, double lam_d, void* stream) {                                         \
-    return tlfea::launch_contrib<T, FAM>(                                               \
+    return tlfea::launch_contrib<T, FAM, tlfea::Hold::K5_HOLD>(                         \
         packed, conn_t, gN_t, dV_t, Me_t, fe, E,                                        \
         tlfea::MrMat<T>{(T)mu10, (T)mu01, (T)kappa, (T)eta, (T)lam_d}, stream);         \
   }                                                                                     \

@@ -1,7 +1,8 @@
 // Other instantiations of the element kernels, for timing the choice of NG
 // (quadrature-point groups per element) and REG_BYTES (partial sums in
 // registers) against the shipped ones (FEAT10: NG 5, shared partials;
-// ANCF3443: NG 4, register partials); the forms of K4's walk; the
+// ANCF3443: NG 4, register partials); K1 and K5 with each way of loading
+// the shape gradients (`Hold`); the forms of K4's walk; the
 // persistent kernel with one thread slab a block; and a probe of the
 // barriers the persistent kernel can use:
 // `python -m tlfea_torch.tools.kernel_variants`.
@@ -23,16 +24,86 @@ TLFEA_FAMILY_ENTRY_POINTS(s8smem, S8smem, f32, float)
 using S8regs = tlfea::Family<16, 48, 0x1111u, 8, 240>;
 TLFEA_FAMILY_ENTRY_POINTS(s8regs, S8regs, f32, float)
 
-// Mooney-Rivlin at the ANCF shapes: the shipped instantiations keep the SVK
-// families' NG and partial sums (fem_ancf3243_mr.cu, fem_ancf3443_mr.cu);
-// these put the partials in shared memory, or split the shell's points
-// into 8 groups.
-using S4smemMr = tlfea::Family<16, 48, 0x1111u, 4, 0>;
-TLFEA_MR_ENTRY_POINTS(s4smem, S4smemMr, f32, float)
-using S8smemMr = tlfea::Family<16, 48, 0x1111u, 8, 0>;
-TLFEA_MR_ENTRY_POINTS(s8smem, S8smemMr, f32, float)
-using B4smemMr = tlfea::Family<8, 12, 0x11u, 4, 0>;
-TLFEA_MR_ENTRY_POINTS(b4smem, B4smemMr, f32, float)
+// K1 and K5 with each way of loading a quadrature point's shape gradients
+// (fem_kernels.cuh `Hold`: none, late, early, stream), at each MR family's
+// shape: tlfea_{primal_prep,contrib}_<family>_<hold>_mr_<SUFFIX>. The
+// shipped instantiations (fem_<family>_mr.cu) pick one per kernel. All give
+// the same bits. The stream at ANCF3443 in float64 would need 302,080 bytes
+// of shared memory: not instantiated.
+#define VARIANT_MR(NAME, FAM, SUFFIX, T, HOLD)                                          \
+  extern "C" int tlfea_primal_prep_##NAME##_##HOLD##_mr_##SUFFIX(                       \
+      const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
+      const void* Me_t, void* fe, void* prep, int E, double mu10, double mu01,          \
+      double kappa, double eta, double lam_d, void* stream) {                           \
+    return tlfea::launch_primal_prep<T, FAM, tlfea::Hold::HOLD>(                        \
+        packed, conn_t, gN_t, dV_t, Me_t, fe, prep, E,                                  \
+        tlfea::MrMat<T>{(T)mu10, (T)mu01, (T)kappa, (T)eta, (T)lam_d}, stream);         \
+  }                                                                                     \
+  extern "C" int tlfea_contrib_##NAME##_##HOLD##_mr_##SUFFIX(                           \
+      const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
+      const void* Me_t, void* fe, int E, double mu10, double mu01, double kappa,        \
+      double eta, double lam_d, void* stream) {                                         \
+    return tlfea::launch_contrib<T, FAM, tlfea::Hold::HOLD>(                            \
+        packed, conn_t, gN_t, dV_t, Me_t, fe, E,                                        \
+        tlfea::MrMat<T>{(T)mu10, (T)mu01, (T)kappa, (T)eta, (T)lam_d}, stream);         \
+  }
+#define VARIANTS_MR(NAME, FAM, SUFFIX, T) \
+  VARIANT_MR(NAME, FAM, SUFFIX, T, none)  \
+  VARIANT_MR(NAME, FAM, SUFFIX, T, late)  \
+  VARIANT_MR(NAME, FAM, SUFFIX, T, early)
+
+using F10Mr = tlfea::Family<10, 5, 0x3FFu, 5, 0>;
+using S4Mr = tlfea::Family<16, 48, 0x1111u, 4>;
+using B4Mr = tlfea::Family<8, 12, 0x11u, 4>;
+VARIANTS_MR(feat10, F10Mr, f32, float)
+VARIANTS_MR(feat10, F10Mr, f64, double)
+VARIANT_MR(feat10, F10Mr, f32, float, stream)
+VARIANT_MR(feat10, F10Mr, f64, double, stream)
+VARIANTS_MR(ancf3443, S4Mr, f32, float)
+VARIANTS_MR(ancf3443, S4Mr, f64, double)
+VARIANT_MR(ancf3443, S4Mr, f32, float, stream)
+VARIANTS_MR(ancf3243, B4Mr, f32, float)
+VARIANTS_MR(ancf3243, B4Mr, f64, double)
+VARIANT_MR(ancf3243, B4Mr, f32, float, stream)
+VARIANT_MR(ancf3243, B4Mr, f64, double, stream)
+
+// SVK's K1 and K5 (shipped loading the gradients where used) with them held
+// in registers, late and early: whether holding them would help SVK too.
+#define VARIANT_SVK(NAME, FAM, SUFFIX, T, HOLD)                                         \
+  extern "C" int tlfea_primal_prep_##NAME##_##HOLD##_##SUFFIX(                          \
+      const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
+      const void* Me_t, void* fe, void* prep, int E, double lam, double mu, double eta, \
+      double lam_d, void* stream) {                                                     \
+    return tlfea::launch_primal_prep<T, FAM, tlfea::Hold::HOLD>(                        \
+        packed, conn_t, gN_t, dV_t, Me_t, fe, prep, E,                                  \
+        tlfea::SvkMat<T>{(T)lam, (T)mu, (T)eta, (T)lam_d}, stream);                     \
+  }                                                                                     \
+  extern "C" int tlfea_contrib_##NAME##_##HOLD##_##SUFFIX(                              \
+      const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
+      const void* Me_t, void* fe, int E, double lam, double mu, double eta, double lam_d, \
+      void* stream) {                                                                   \
+    return tlfea::launch_contrib<T, FAM, tlfea::Hold::HOLD>(                            \
+        packed, conn_t, gN_t, dV_t, Me_t, fe, E,                                        \
+        tlfea::SvkMat<T>{(T)lam, (T)mu, (T)eta, (T)lam_d}, stream);                     \
+  }
+
+VARIANT_SVK(feat10, F10Mr, f32, float, late)
+VARIANT_SVK(feat10, F10Mr, f32, float, early)
+VARIANT_SVK(ancf3443, S4Mr, f32, float, late)
+VARIANT_SVK(ancf3443, S4Mr, f32, float, early)
+
+// An empty kernel on a grid of `blocks` blocks of `threads` threads with
+// `smem` bytes of dynamic shared memory: the floor of any launch of that
+// shape.
+__global__ void empty_kernel() {}
+
+extern "C" int tlfea_empty_launch(int blocks, int threads, int smem, void* stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      empty_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (attr != cudaSuccess) return (int)attr;
+  empty_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
 
 // The persistent kernel with one thread slab a block (the shipped
 // instantiations, fem_resident*.cu, run RES_SLABS = 2): a block runs its

@@ -11,6 +11,11 @@ run from the root of each tree to compare (for example this one and an
 unpacked `git archive` of its parent), on the same card, in turns (parent,
 this, this, parent). Inputs come from a numpy seed, in float32 and float64:
 - the SVK element kernels K1-K5t and K4 at the 10k flagship's shapes;
+- the Mooney-Rivlin element kernels K1 (fe and the prep cache), K2, K5 and
+  K5t at the 10k flagship (`[feat10_mr]`), the 72 x 72 shell
+  (`[ancf3443_mr]`) and the 64-element beam (`[ancf3243_mr]`), at
+  chip_smoke's strained state (`MR_CASES`), whose K1 and K5 load the shape
+  gradients as each instantiation chose (fem_kernels.cuh `Hold`);
 - K4 at the 100k box (`tools/ablate_hv`'s "100k");
 - the persistent kernel of every (family, material) pair on one inner solve:
   FEAT10 x SVK and MR at the bench.py "1k" box, ANCF3243 x SVK and MR at
@@ -51,6 +56,11 @@ RESIDENT_CASES = (("feat10", "flagship_problem", ("RESIDENT_DIMS", None)),
                   ("ancf3243_e1024", "ancf_beam_problem", (1024, None)),
                   ("ancf3243_mr_e1024", "ancf_beam_problem", (1024, "mr")))
 GRID = 6  # index of `grid` in the stats tensor (resident.STAT_FIELDS)
+# (tag, chip_smoke builder) of the Mooney-Rivlin element kernels' cases, at
+# the builders' full sizes.
+MR_CASES = (("feat10_mr", "flagship_problem"), ("ancf3443_mr", "shell_problem"),
+            ("ancf3243_mr", "ancf_beam_problem"))
+MR_KERNELS = ("primal_prep", "hv", "contrib", "contrib_tangent")
 
 
 ROLLOUT_STEPS = 250  # chip_smoke's [resident] rollout
@@ -109,6 +119,10 @@ def save(path: str, no_fma: bool = False) -> None:
             outs, call = _resident_outputs(cs, dev, dtype, *case)
             out.update(outs)
             resident_calls[f"newton_resident[{case[0]}]"] = call
+        for tag, builder in MR_CASES:
+            outs, mr_calls = _mr_outputs(cs, fk, dev, dtype, tag, builder)
+            out.update(outs)
+            calls.update(mr_calls)
         res[str(dtype)] = {k: v.cpu() for k, v in out.items()}
         if dtype == torch.float32:
             res["ms"] = {k: cs._device_ms(fn, 256)[0] for k, fn in calls.items()}
@@ -117,6 +131,30 @@ def save(path: str, no_fma: bool = False) -> None:
     torch.save(res, path)
     print(os.getcwd(), {k: round(v * 1e3, 3) for k, v in res["ms"].items()}, "us per launch;",
           "1k rollout", [round(x, 4) for x in res["rollout_ms"]], "ms/step")
+
+
+def _mr_outputs(cs, fk, dev, dtype, tag, builder):
+    """K1 (fe, prep), K2, K5 and K5t `[tag]` on the strained random state of
+    chip_smoke's `[kernels]` (u scaled by STRAIN_SCALE); and calls that
+    repeat each launch."""
+    system = getattr(cs, builder)("cpu", torch.float64, material=cs.mooney_rivlin())[0]
+    op = fk.FemOperator(system.elems.to(dev, dtype), system.material)
+    n = op.n
+    rng = np.random.default_rng(1)
+    packed = np.concatenate([rng.normal(size=(n, 3)) * 1e-3, rng.normal(size=(n, 3)) * 1e-2,
+                             rng.normal(size=(n, 3))], 1)
+    packed[:, :3] *= cs.STRAIN_SCALE.get(tag, 1.0)
+    packed = torch.as_tensor(packed, dtype=dtype, device=dev).contiguous()
+    p = torch.as_tensor(rng.normal(size=(n, 3)), dtype=dtype, device=dev).contiguous()
+    dp = torch.as_tensor(rng.normal(size=(n, 9)), dtype=dtype, device=dev).contiguous()
+    fe, prep = fk.primal_prep(op, packed)
+    calls = {"primal_prep": lambda: fk.primal_prep(op, packed),
+             "hv": lambda: fk.hv(op, p, prep, 1e-3),
+             "contrib": lambda: fk.contrib(op, packed),
+             "contrib_tangent": lambda: fk.contrib_tangent(op, packed, dp)}
+    out = {f"{k}[{tag}]": calls[k]() for k in MR_KERNELS if k != "primal_prep"}
+    out[f"primal_prep[{tag}]"], out[f"prep[{tag}]"] = fe, prep
+    return out, {f"{k}[{tag}]": fn for k, fn in calls.items()}
 
 
 def _rollout_ms(cs, dev):

@@ -5,10 +5,17 @@ float32 on the card.
 
 Parts (all when none is named):
   elements  K1-K3 at the 10k FEAT10 flagship and the 5,184-element shell
-            shapes (SVK), and K1, K2 and K5t with Mooney-Rivlin at the
-            shell's and at the 64-element ANCF3243 beam's shapes: variants
-            of the quadrature-point split NG and of where the partial sums
-            live;
+            shapes (SVK): variants of the quadrature-point split NG and of
+            where the partial sums live; then K1 and K5 with Mooney-Rivlin
+            at the 10k flagship, the shell and the 64-element ANCF3243
+            beam, with each way of loading a quadrature point's shape
+            gradients (`MR_TILE_VARIANTS`; fem_kernels.cuh `Hold`: none,
+            late, early, stream) beside the shipped kernel, float32 and
+            float64, and SVK's K1 and K5 with them held (`SVK_TILES`), each
+            held bit for bit against the shipped kernel, and the floor of
+            an empty launch of the same grid;
+  beams     K1 and K5 `[ancf3243_mr]` as in `elements` on beams of
+            `BEAMS` elements (64 to 32,768);
   k4        K4's walk in its forms (one incidence at a time, batches of
             4-32 per (node, channel), a thread per node) at the 10k box, the
             100k box and the shell, each checked bit for bit against the
@@ -41,12 +48,20 @@ from tlfea_torch.ops import fem_kernels as fk
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 VARIANTS = {"feat10": ["f10regs", "f10regs1"],
-            "ancf3443": ["s4smem", "s6regs", "s8smem", "s8regs"],
-            "ancf3443_mr": ["s4smem_mr", "s8smem_mr"],
-            "ancf3243_mr": ["b4smem_mr"]}
-# the kernels timed for each material
-TIMED = {"svk": ("primal_prep", "hv", "svk_blocks"),
-         "mr": ("primal_prep", "hv", "contrib_tangent")}
+            "ancf3443": ["s4smem", "s6regs", "s8smem", "s8regs"]}
+TIMED = ("primal_prep", "hv", "svk_blocks")  # SVK's variants
+# K1/K5 with each `Hold` of kernel_variants.cu beside the shipped kernel:
+# tlfea_{primal_prep,contrib}_<family>_<hold>_mr_<sfx>, float32 and float64
+# (no stream at ANCF3443 in float64: it does not fit a block's shared memory).
+HOLDS = ["none", "late", "early", "stream"]
+MR_TILE_VARIANTS = {tag: HOLDS for tag in ("feat10_mr", "ancf3443_mr", "ancf3243_mr")}
+MR_TILE_VARIANTS_F64 = {**MR_TILE_VARIANTS, "ancf3443_mr": HOLDS[:3]}
+# SVK's K1/K5 (shipped loading the gradients where used) with them held in
+# registers: a finding only.
+SVK_TILES = {"feat10": ["late", "early"], "ancf3443": ["late", "early"]}
+TILE_TIMED = ("primal_prep", "contrib")
+NG = {"feat10": 5, "ancf3243": 4, "ancf3443": 4}  # each family's quadrature-point groups
+BEAMS = (64, 1024, 8192, 32768)  # ANCF3243 beam lengths of `beams`
 # K4's forms in kernel_variants.cu (tlfea_node_reduce_form_f32)
 K4_FORMS = {"walk1": 0, "chan4": 1, "chan8": 2, "chan16": 3, "chan32": 4, "node8": 5,
             "node16": 6, "node4": 7}
@@ -86,62 +101,150 @@ def _checked(fn, what):
     return call
 
 
-def elements(lib):
-    cs = _cs()
+def _tile_args(op, x, out, prep, s):
+    """A K1 (prep given) or K5 (prep None) entry's arguments."""
+    head = (x["packed"], op.conn_t, op.gN_t, op.dV_t, op.Me_t, out)
+    args = head + ((prep,) if prep is not None else ()) + (op.E, *op.mat_args, s)
+    return [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+
+
+def _inputs(cs, op, tag, dtype, dev):
+    rng = np.random.default_rng(cs.SEED)
+    n = op.n
+    packed = np.concatenate([rng.normal(size=(n, 3)) * 1e-3, rng.normal(size=(n, 3)) * 1e-2,
+                             rng.normal(size=(n, 3))], 1)
+    packed[:, :3] *= cs.STRAIN_SCALE.get(tag, 1.0)
+    host = dict(packed=packed, p=rng.normal(size=(n, 3)), dp=rng.normal(size=(n, 9)))
+    x = {k: torch.as_tensor(v, dtype=dtype, device=dev) for k, v in host.items()}
+    x["u"] = x["p"] * 1e-3
+    return x
+
+
+def _svk_variants(lib, cs, tag, system):
     dev = torch.device("cuda")
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    problems = {"feat10": cs.flagship_problem("cpu", torch.float64)[0],
-                "ancf3443": cs.shell_problem("cpu", torch.float64)[0],
-                "ancf3443_mr": cs.shell_problem("cpu", torch.float64, material=cs.mooney_rivlin())[0],
-                "ancf3243_mr": cs.ancf_beam_problem("cpu", torch.float64,
-                                                    material=cs.mooney_rivlin())[0]}
-    for tag, system in problems.items():
-        op = fk.FemOperator(system.elems.to(dev, torch.float32), system.material)
+    op = fk.FemOperator(system.elems.to(dev, torch.float32), system.material)
+    nm = len(op.mat_args)
+    sigs = {"primal_prep": [P] * 7 + [I] + [D] * nm + [P],
+            "hv": [P] * 7 + [I] + [D] * (1 + nm) + [P],
+            "svk_blocks": [P] * 5 + [I] + [D] * 2 + [P]}
+    x = _inputs(cs, op, tag, torch.float32, dev)
+    fe_ref, prep = fk.primal_prep_plain(op, x["packed"])
+    ref = {"primal_prep": fe_ref, "hv": fk.hv_plain(op, x["p"], prep, 1e-3),
+           "svk_blocks": fk.svk_blocks_plain(op, x["u"])}
+    names = [tag] + VARIANTS[tag]
+    for v in names + names[::-1]:
+        src, sym = (fk.build_kernels()[op.source], op.tag) if v == tag else (lib, v)
+        row = []
+        for k in TIMED:
+            f = getattr(src, f"tlfea_{k}_{sym}_f32")
+            f.argtypes, f.restype = sigs[k], ctypes.c_int
+            out, pr = torch.empty_like(ref[k]), torch.empty_like(prep)
+            s = torch.cuda.current_stream().cuda_stream
+            args = {"primal_prep": (x["packed"], op.conn_t, op.gN_t, op.dV_t, op.Me_t, out, pr,
+                                    op.E, *op.mat_args, s),
+                    "hv": (x["p"], op.conn_t, prep, op.gN_t, op.dV_t, op.Me_t, out, op.E, 1e-3,
+                           *op.mat_args, s),
+                    "svk_blocks": (x["u"], op.conn_t, op.gN_t, op.dV_t, out, op.E, op.lam, op.mu,
+                                   s)}[k]
+            conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+            call = _checked(lambda f=f, conv=conv: f(*conv), f"{k}[{v}]")
+            call()
+            torch.cuda.synchronize()
+            rel = float((out - ref[k]).abs().max() / ref[k].abs().max())
+            if not rel <= 1e-5:
+                raise AssertionError(f"{k}[{v}] disagrees with its twin: {rel:.3e}")
+            row.append(f"{k} {cs._device_ms(call, 256)[0] * 1e3:.2f} us")
+        print(f"{tag} {v}: " + ", ".join(row), flush=True)
+
+
+def _tiles(lib, cs, tag, system, variants, variants_f64):
+    """K1 and K5 of `tag` in the shipped tile and in `variants[tag]`
+    (tlfea_{primal_prep,contrib}_<family>_<variant>[_mr]_<sfx>), float32
+    (float64: `variants_f64`, if it names the tag): each output bit for bit
+    the shipped kernel's (and the shipped within 1e-5, float64 1e-12, of its
+    twin), each timed twice in the order A B C ... C B A; then the floor of
+    an empty launch of the same grid."""
+    dev = torch.device("cuda")
+    family, kind = fk._untag(tag)
+    mr = "_mr" if kind == "mr" else ""
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    empty = lib.tlfea_empty_launch
+    empty.argtypes, empty.restype = [I, I, I, P], ctypes.c_int
+    s = torch.cuda.current_stream().cuda_stream
+    for dtype in (torch.float32, torch.float64):
+        if dtype == torch.float64 and tag not in variants_f64:
+            continue
+        op = fk.FemOperator(system.elems.to(dev, dtype), system.material)
+        sfx = {torch.float32: "f32", torch.float64: "f64"}[dtype]
         nm = len(op.mat_args)
-        sigs = {"primal_prep": [P] * 7 + [I] + [D] * nm + [P],
-                "hv": [P] * 7 + [I] + [D] * (1 + nm) + [P],
-                "svk_blocks": [P] * 5 + [I] + [D] * 2 + [P],
-                "contrib_tangent": [P] * 7 + [I] + [D] * nm + [P]}
-        rng = np.random.default_rng(cs.SEED)
-        n = op.n
-        packed = torch.as_tensor(np.concatenate([rng.normal(size=(n, 3)) * 1e-3,
-                                                 rng.normal(size=(n, 3)) * 1e-2,
-                                                 rng.normal(size=(n, 3))], 1),
-                                 dtype=torch.float32, device=dev)
-        p = torch.as_tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=dev)
-        dp = torch.as_tensor(rng.normal(size=(n, 9)), dtype=torch.float32, device=dev)
-        u = p * 1e-3
-        fe_ref, prep = fk.primal_prep_plain(op, packed)
-        ref = {"primal_prep": fe_ref, "hv": fk.hv_plain(op, p, prep, 1e-3)}
-        if op.kind == "svk":
-            ref["svk_blocks"] = fk.svk_blocks_plain(op, u)
-        else:
-            ref["contrib_tangent"] = fk.contrib_tangent_plain(op, packed, dp)
-        names = [tag] + VARIANTS[tag]
-        for v in names + names[::-1]:
-            src, sym = (fk.build_kernels()[op.source], op.tag) if v == tag else (lib, v)
-            row = []
-            for k in TIMED[op.kind]:
-                f = getattr(src, f"tlfea_{k}_{sym}_f32")
-                f.argtypes, f.restype = sigs[k], ctypes.c_int
-                out, pr = torch.empty_like(ref[k]), torch.empty_like(prep)
-                s = torch.cuda.current_stream().cuda_stream
-                args = {"primal_prep": (packed, op.conn_t, op.gN_t, op.dV_t, op.Me_t, out, pr, op.E,
-                                        *op.mat_args, s),
-                        "hv": (p, op.conn_t, prep, op.gN_t, op.dV_t, op.Me_t, out, op.E, 1e-3,
-                               *op.mat_args, s),
-                        "svk_blocks": (u, op.conn_t, op.gN_t, op.dV_t, out, op.E, op.lam, op.mu, s),
-                        "contrib_tangent": (packed, dp, op.conn_t, op.gN_t, op.dV_t, op.Me_t, out,
-                                            op.E, *op.mat_args, s)}[k]
-                conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-                call = _checked(lambda f=f, conv=conv: f(*conv), f"{k}[{v}]")
+        x = _inputs(cs, op, tag, dtype, dev)
+        shipped = {"primal_prep": fk.primal_prep(op, x["packed"])[0],
+                   "contrib": fk.contrib(op, x["packed"])}
+        fe_ref, prep_ref = fk.primal_prep_plain(op, x["packed"])
+        torch.cuda.synchronize()
+        rel = float((shipped["primal_prep"] - fe_ref).abs().max() / fe_ref.abs().max())
+        if not rel <= (1e-5 if dtype == torch.float32 else 1e-12):
+            raise AssertionError(f"primal_prep[{tag}] {sfx} disagrees with its twin: {rel:.3e}")
+        names = ["shipped"] + (variants if dtype == torch.float32 else variants_f64)[tag]
+        calls = {}
+        for v in names:
+            for k in TILE_TIMED:
+                out = torch.empty_like(shipped[k])
+                prep = torch.empty_like(prep_ref) if k == "primal_prep" else None
+                if v == "shipped":
+                    f = getattr(fk.build_kernels()[op.source], f"tlfea_{k}_{tag}_{sfx}")
+                else:
+                    f = getattr(lib, f"tlfea_{k}_{family}_{v}{mr}_{sfx}")
+                    f.argtypes = [P] * (7 if prep is not None else 6) + [I] + [D] * nm + [P]
+                    f.restype = ctypes.c_int
+                conv = _tile_args(op, x, out, prep, s)
+                call = _checked(lambda f=f, conv=conv: f(*conv), f"{k}[{tag} {v} {sfx}]")
                 call()
                 torch.cuda.synchronize()
-                rel = float((out - ref[k]).abs().max() / ref[k].abs().max())
-                if not rel <= 1e-5:
-                    raise AssertionError(f"{k}[{v}] disagrees with its twin: {rel:.3e}")
-                row.append(f"{k} {cs._device_ms(call, 256)[0] * 1e3:.2f} us")
-            print(f"{tag} {v}: " + ", ".join(row), flush=True)
+                same = torch.equal(out, shipped[k])
+                if prep is not None:
+                    same = same and torch.equal(prep, fk.primal_prep(op, x["packed"])[1])
+                if not same:
+                    raise AssertionError(f"{k}[{tag}] {v} {sfx} differs from the shipped kernel "
+                                         f"in {int((out != shipped[k]).sum())} entries")
+                calls[(v, k)] = call
+        keys = list(calls)
+        times = {key: [] for key in keys}
+        for key in keys + keys[::-1]:
+            times[key].append(cs._device_ms(calls[key], 256)[0] * 1e3)
+        for v in names:
+            print(f"{tag} {sfx} E={op.E} {v} (bitwise the shipped): " + ", ".join(
+                f"{k} {min(times[(v, k)]):.2f} us ({times[(v, k)][0]:.2f}/{times[(v, k)][1]:.2f})"
+                for k in TILE_TIMED), flush=True)
+        # the grid of K1 and K5, with the shared memory of the tile that loads
+        # the gradients where used: xs (S 9 rows) and the NG S 3 partials
+        blocks, threads = -(-op.E // 32), 32 * NG[family]
+        smem = (op.S * 9 + NG[family] * op.S * 3) * 32 * dtype.itemsize
+        call = _checked(lambda: empty(blocks, threads, smem, s), "empty")
+        print(f"{tag} {sfx} empty launch of {blocks} blocks x {threads} threads, {smem} B: "
+              f"{cs._device_ms(call, 256)[0] * 1e3:.2f} us", flush=True)
+
+
+def elements(lib):
+    cs = _cs()
+    mr = cs.mooney_rivlin()
+    for tag, system in (("feat10", cs.flagship_problem("cpu", torch.float64)[0]),
+                        ("ancf3443", cs.shell_problem("cpu", torch.float64)[0])):
+        _svk_variants(lib, cs, tag, system)
+        _tiles(lib, cs, tag, system, SVK_TILES, {})
+    for tag, system in (("feat10_mr", cs.flagship_problem("cpu", torch.float64, material=mr)[0]),
+                        ("ancf3443_mr", cs.shell_problem("cpu", torch.float64, material=mr)[0]),
+                        ("ancf3243_mr", cs.ancf_beam_problem("cpu", torch.float64,
+                                                             material=mr)[0])):
+        _tiles(lib, cs, tag, system, MR_TILE_VARIANTS, MR_TILE_VARIANTS_F64)
+
+
+def beams(lib):
+    cs = _cs()
+    for n in BEAMS:
+        system = cs.ancf_beam_problem("cpu", torch.float64, n, material=cs.mooney_rivlin())[0]
+        _tiles(lib, cs, "ancf3243_mr", system, MR_TILE_VARIANTS, MR_TILE_VARIANTS_F64)
 
 
 def k4(lib):
@@ -265,7 +368,7 @@ def resident(lib):
               flush=True)
 
 
-PARTS = {"elements": elements, "k4": k4, "barriers": barriers, "resident": resident}
+PARTS = {"elements": elements, "beams": beams, "k4": k4, "barriers": barriers, "resident": resident}
 
 
 def main():
