@@ -21,7 +21,10 @@ non-zero:
    (Mooney-Rivlin at a strained state, J - 1 within about +-0.4); each timed beside its twin (device time per
    launch from CUDA events, host time per wrapper call), beside its bound
    (bytes over 3.35 TB/s or flops over 67 TFLOP/s, whichever is larger) and,
-   for the node reduce, beside `Tensor.index_add_`. K5 `contrib` must equal
+   for the node reduce, beside `Tensor.index_add_`; with each kernel's
+   registers and local bytes a thread and blocks an SM (the CUDA runtime),
+   and the waves its grid takes over the card's SMs (in the kernels' JSON
+   record `regs` and `waves`, as for the persistent and phase kernels). K5 `contrib` must equal
    K1's fe bit for bit in float32, and K5t `contrib_tangent` + K4 along the
    Newton chain (dt p, p, p/dt) must match K2 + K4 along p.
 3. beam: the float32 FEAT10 beam sag (box 10x1x1, dt 1e-3, 150 steps)
@@ -436,6 +439,27 @@ def bound_ms(name, op, C=6, itemsize=4):
     return _bound(*_pass_work(name, op, C), itemsize)
 
 
+def occupancy_fields(name, tag, dtype, blocks, launch=None):
+    """({"regs", "waves"}, a log text) of one launch of `blocks` blocks of
+    kernel `name` of `tag`: its registers and local bytes a thread and its
+    blocks an SM from the CUDA runtime (`fem_kernels.occupancy`; launch:
+    the persistent kernel's (E, cluster)), and the waves those blocks take
+    over the card's SMs."""
+    import torch
+
+    from tlfea_torch.ops import fem_kernels as fk
+
+    o = fk.occupancy(name, tag, dtype, launch)
+    n_sm = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    if o["blocks_per_sm"] < 1:
+        raise AssertionError(f"{name}[{tag}]: no block of its launch fits an SM: {o}")
+    waves = -(-blocks // (o["blocks_per_sm"] * n_sm))
+    return ({"regs": o["regs"], "waves": waves},
+            f"{o['regs']} registers and {o['local_bytes']} B local a thread, "
+            f"{o['blocks_per_sm']} blocks an SM, {waves} wave(s) of {blocks} blocks over "
+            f"{n_sm} SMs")
+
+
 def phase_kernels(device, tag, system):
     """Each kernel of the system's material against its twin at the shapes
     of `system` (a float64 system on the CPU); K5 against K1's fe (bitwise)
@@ -489,6 +513,9 @@ def phase_kernels(device, tag, system):
             if not ok:
                 raise AssertionError(f"{name}[{tag}] disagrees with its twin in {dtype}: "
                                      f"{rel:.3e}")
+            occ, occ_text = occupancy_fields(name, op.family if name == "node_reduce" else op.tag,
+                                             dtype, fk.launch_blocks(name, op, C=6))
+            log("kernels", f"{name}[{tag}] {str(dtype)[6:]} at E={E}: {occ_text}")
             if dtype != torch.float32:
                 continue
 
@@ -520,7 +547,7 @@ def phase_kernels(device, tag, system):
             # the bar is max_rel_err, over the twin's largest entry, vs tol.
             out[name] = dict(max_abs_err=abs_err, max_rel_err=rel, tol=tol, ms=ms,
                              plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=lib_ms)
+                             bound_by=b_by, library_ms=lib_ms, **occ)
             if name in extra:
                 out[name].update(extra[name])
     return out
@@ -920,6 +947,9 @@ def resident_phase(tag, device, make_problem, n_steps, composed_tag, jax_counts=
     if st["grid"] != plan.cluster or kernel_smem != plan.smem_bytes or st["grid"] > 16:
         raise AssertionError(f"{key}: launched a cluster of {st['grid']} blocks with "
                              f"{kernel_smem} B of shared memory, planned {plan}")
+    occ, occ_text = occupancy_fields("newton_resident", op.tag, torch.float32, plan.cluster,
+                                     (op.E, plan.cluster))
+    log(tag, f"float32 kernel: {occ_text}")
     floor_ms = st["barriers"] * CLUSTER_BARRIER_US.get(plan.cluster, float("nan")) * 1e-3
     plain_ms = _wall_ms(lambda: resident.newton_inner_resident_plain(*args))
     res_wall = _wall_ms(lambda: resident.newton_inner_resident(*args))
@@ -960,7 +990,7 @@ def resident_phase(tag, device, make_problem, n_steps, composed_tag, jax_counts=
     record = dict(max_abs_err=err32, max_rel_err=rel32, tol=f32_tol, f32_vs_f64_plain=res32,
                   max_abs_err_f64=err64, max_rel_err_f64=rel64, tol_f64=1e-10, ms=ms,
                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                  per_pass_bound_ms=pass_ms, barriers=st["barriers"], grid=st["grid"])
+                  per_pass_bound_ms=pass_ms, barriers=st["barriers"], grid=st["grid"], **occ)
     return record, out["launches"]["newton_resident"], comp_out["launches"]
 
 
@@ -1367,8 +1397,13 @@ def hv_phases(device, k2_ms):
             r["launches"] += launches[v]
             r.update({k + sfx: rows[v][k] for k in ("ms", "plain_ms", "bound_ms")})
             if not sfx:
+                # scat is K4 on 3 channels; full's first launch is gfe's
+                blocks = -(-op.n // fk.K4_THREADS) if v == "scat" else hp.n_blocks(op)
+                occ, occ_text = occupancy_fields("hv_phase", hp.VARIANTS.index(v), torch.float32,
+                                                 blocks)
+                log("hv_phases", f"{scale}: {v}: {occ_text}")
                 r.update(max_abs_err=errs[v][0], max_rel_err=errs[v][1],
-                         bound_by=rows[v]["bound_by"], library_ms=None)
+                         bound_by=rows[v]["bound_by"], library_ms=None, **occ)
         if scale == "100k":
             # The one PyTorch call that computes scat's node sums.
             fes = hp.scat_buffer(op, p)
@@ -1609,11 +1644,12 @@ def main():
     for v, r in phases.items():
         entries.append((f"hv_phase[{v}]", "tlfea_torch/csrc/" + hp.SOURCE, hp.REPLACES[v],
                         r["launches"], r))
-    # The contract's keys and max_rel_err (the bar), the resident kernel's
+    # The contract's keys and max_rel_err (the bar), registers and waves of
+    # the timed launch (float32; the phase kernels' at 100k), the resident kernel's
     # float64 errors, barriers, per-pass bound and its 1,024-element beam
     # figures, and the phase variants' 10k figures; numbers to four digits.
     keys = ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "max_abs_err_f64", "max_rel_err_f64", "per_pass_bound_ms", "barriers",
+            "library_ms", "regs", "waves", "max_abs_err_f64", "max_rel_err_f64", "per_pass_bound_ms", "barriers",
             "grid", "f32_vs_f64_plain", f"ms_e{BIG_BEAM}", f"bound_ms_e{BIG_BEAM}", f"max_rel_err_f64_e{BIG_BEAM}",
             f"grid_e{BIG_BEAM}", "ms_10k", "plain_ms_10k", "bound_ms_10k")
     print(json.dumps({"kernels": [

@@ -917,14 +917,15 @@ MR_TILE_CASES = [("feat10", 18), ("ancf3243", 13), ("ancf3443", 25), ("feat10", 
                  ("ancf3443", 5184)]
 
 
-def _mr_tile_case(device, dtype, family, E):
+def _mr_tile_case(device, dtype, family, E, damping=1e3):
     """(system, packed) at a strained random state: the small structures of
     `_mr_case` / `_mr_ancf_case` (a 3 x 1 x 1 box, a 13-element beam, a 5 x
     5 plate), or chip_smoke's full-size builders at its [kernels] state (u
-    1e-3, scaled by STRAIN_SCALE)."""
-    mr = _mooney_rivlin()
+    1e-3, scaled by STRAIN_SCALE): the 10k flagship, the 72 x 72 shell, the
+    64-element beam."""
+    mr = _mooney_rivlin(damping=damping)
     rng = np.random.default_rng(21)
-    if E in (10584, 5184):
+    if E in (10584, 5184, 64):
         import os
         import sys
 
@@ -933,7 +934,8 @@ def _mr_tile_case(device, dtype, family, E):
             sys.path.insert(0, root)
         import chip_smoke as cs
 
-        builder = cs.flagship_problem if family == "feat10" else cs.shell_problem
+        builder = {"feat10": cs.flagship_problem, "ancf3443": cs.shell_problem,
+                   "ancf3243": cs.ancf_beam_problem}[family]
         system = builder("cpu", torch.float64, material=mr)[0]
         system = replace(system, elems=system.elems.to(device, dtype))
         scale = 1e-3 * cs.STRAIN_SCALE.get(f"{family}_mr", 1.0)
@@ -976,3 +978,73 @@ def test_mr_tile_matches_twins_repeats_and_k5_is_k1(cuda_dev, case, dtype, tol):
     assert torch.equal(fe2, fe) and torch.equal(prep2, prep)
     assert torch.equal(fk.contrib(op, packed), fe5)
 
+
+
+# K2 with Mooney-Rivlin (`fem_kernels.cuh` `hv_tile`, its operands streamed
+# through shared memory or not as fem_<family>_mr.cu picks) at the ragged
+# sizes and the full sizes of chip_smoke's [kernels] (the 10k flagship, the
+# 72 x 72 shell, the 64-element beam); and the blocks of the float32 FEAT10
+# launch that one SM holds, as PERF.md records them: 3, so that the 10k
+# flagship's 331 tiles run in one wave on an H100's 132 SMs.
+MR_HV_CASES = MR_TILE_CASES + [("ancf3243", 64)]
+MR_HV_FEAT10_BLOCKS_PER_SM = 3
+
+
+def _mr_hv_args(system, packed, dtype, device):
+    """(p, prep): a random direction and the twin's prep cache at packed."""
+    rng = np.random.default_rng(7)
+    p = torch.as_tensor(rng.normal(size=(system.n_coef, 3)), dtype=dtype, device=device)
+    return p.contiguous(), fk.primal_prep_plain(system.fem, packed)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("damping", [0.0, 1e3], ids=["undamped", "damped"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("case", MR_HV_CASES, ids=[f"{f}-{e}" for f, e in MR_HV_CASES])
+def test_mr_hv_matches_twin_and_repeats(cuda_dev, case, dtype, tol, damping):
+    """K2 `[<family>_mr]` against `hv_plain`, one launch, damped and
+    undamped; bitwise repeatable."""
+    family, E = case
+    system, packed = _mr_tile_case(cuda_dev, dtype, family, E, damping)
+    op = system.fem
+    assert (op.tag, op.E) == (f"{family}_mr", E)
+    p, prep = _mr_hv_args(system, packed, dtype, cuda_dev)
+    fk.reset_launch_counts()
+    got = fk.hv(op, p, prep, DT)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES[f"hv[{family}_mr]"] == 1 and sum(fk.LAUNCHES.values()) == 1
+    want = fk.hv_plain(op, p, prep, DT)
+    assert bool(torch.isfinite(got).all()) and _rel(got, want) < tol
+    assert torch.equal(fk.hv(op, p, prep, DT), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("family", ["feat10", "ancf3243", "ancf3443"])
+def test_mr_hv_matches_twin_at_an_inverted_point(cuda_dev, family, dtype, tol):
+    """At det F < 0 (the small structure mirrored in x) K2 takes CUDA's real
+    `cbrt` in `mr_coefs`; its twin's sign-preserving cube root gives the
+    same finite product."""
+    small = {"feat10": 18, "ancf3243": 13, "ancf3443": 25}[family]
+    system, packed = _mr_tile_case(cuda_dev, dtype, family, small)
+    packed = packed.clone()
+    packed[:, 0] -= 2.0 * system.elems.x_ref[:, 0]  # x -> -x
+    op = system.fem
+    p, prep = _mr_hv_args(system, packed, dtype, cuda_dev)
+    assert float(prep.view(op.Q, op.prep_rows, op.E)[:, 18].max()) < -1.0  # J < 0
+    got = fk.hv(op, p, prep, DT)
+    want = fk.hv_plain(op, p, prep, DT)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(want).all()) and bool(torch.isfinite(got).all())
+    assert _rel(got, want) < tol
+
+
+@pytest.mark.cuda
+def test_mr_hv_feat10_runs_the_flagship_in_one_wave(cuda_dev):
+    """The float32 K2 `[feat10_mr]` launch: as many blocks an SM as PERF.md
+    records, so that the 10k flagship's 331 tiles take one wave of the
+    card's SMs."""
+    occ = fk.occupancy("hv", "feat10_mr", torch.float32)
+    assert occ["blocks_per_sm"] == MR_HV_FEAT10_BLOCKS_PER_SM
+    n_sm = torch.cuda.get_device_properties(cuda_dev).multi_processor_count
+    assert -(-10584 // fk.TILE) <= occ["blocks_per_sm"] * n_sm

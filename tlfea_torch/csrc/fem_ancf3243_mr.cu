@@ -13,10 +13,11 @@
 // gradients (fem_kernels.cuh `Hold`) as timed fastest on an H100 (PERF.md,
 // Findings): K1 streams them through shared memory; K5 holds them in
 // registers, the first point's loaded before the gather, in float32, and
-// loads them where used in float64.
+// loads them where used in float64. K2 loads where used (no STREAM): at
+// the 64-element beam no other bitwise form timed gained 2 %.
 
 #include "fem_kernels.cuh"
 
 using Ancf3243 = tlfea::Family<8, 12, 0x11u, 4>;
-TLFEA_MR_ENTRY_POINTS(ancf3243, Ancf3243, f32, float, stream, early)
-TLFEA_MR_ENTRY_POINTS(ancf3243, Ancf3243, f64, double, stream, none)
+TLFEA_MR_ENTRY_POINTS(ancf3243, Ancf3243, f32, float, stream, early, false)
+TLFEA_MR_ENTRY_POINTS(ancf3243, Ancf3243, f64, double, stream, none, false)

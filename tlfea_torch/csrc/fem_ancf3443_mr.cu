@@ -11,10 +11,12 @@
 // meet in shared memory in a fixed order. K1 and K5 load a quadrature
 // point's shape gradients (fem_kernels.cuh `Hold`) as timed fastest on an
 // H100 (PERF.md, Findings): held in registers, K5's first point in
-// float64 before the gather.
+// float64 before the gather. K2 loads where used (no STREAM): its 162
+// tiles already run in one wave, and every other form timed was slower or
+// not bitwise.
 
 #include "fem_kernels.cuh"
 
 using Ancf3443 = tlfea::Family<16, 48, 0x1111u, 4>;
-TLFEA_MR_ENTRY_POINTS(ancf3443, Ancf3443, f32, float, late, late)
-TLFEA_MR_ENTRY_POINTS(ancf3443, Ancf3443, f64, double, late, early)
+TLFEA_MR_ENTRY_POINTS(ancf3443, Ancf3443, f32, float, late, late, false)
+TLFEA_MR_ENTRY_POINTS(ancf3443, Ancf3443, f64, double, late, early, false)

@@ -10,12 +10,15 @@
 // The same family parameters as fem_kernels.cu: S = 10, Q = 5, all slots
 // translation slots, NG = 5 (one thread per element and quadrature point),
 // partial sums in shared memory. K1 and K5 load a quadrature point's shape
-// gradients (fem_kernels.cuh `Hold`) as timed fastest on an H100 (PERF.md,
-// Findings): in float32 held in registers, K1's first point before
-// the gather; in float64 where used.
+// gradients (fem_kernels.cuh `Hold`), and whether K2 streams a point's
+// operands through shared memory (`hv_tile`'s STREAM), as timed fastest on
+// an H100 (PERF.md, Findings): in float32 K1 and K5 hold them in
+// registers, K1's first point before the gather, and K2 streams (128
+// registers: 3 blocks an SM, so the 10k flagship's 331 tiles run in one
+// wave); in float64 all three load where used.
 
 #include "fem_kernels.cuh"
 
 using Feat10 = tlfea::Family<10, 5, 0x3FFu, 5, 0>;
-TLFEA_MR_ENTRY_POINTS(feat10, Feat10, f32, float, early, late)
-TLFEA_MR_ENTRY_POINTS(feat10, Feat10, f64, double, none, none)
+TLFEA_MR_ENTRY_POINTS(feat10, Feat10, f32, float, early, late, true)
+TLFEA_MR_ENTRY_POINTS(feat10, Feat10, f64, double, none, none, false)

@@ -13,7 +13,8 @@ TLFEA_FAMILY_ENTRY_POINTS(feat10, Feat10, f32, float)
 TLFEA_FAMILY_ENTRY_POINTS(feat10, Feat10, f64, double)
 
 // K4, batch: the incidences a thread loads at once, 4 or 8 (the wrapper
-// takes 4 for the ANCF families, whose coefficient rows have at most 4).
+// takes 4 for the ANCF families, whose coefficient rows have at most 4);
+// tlfea_occupancy_node_reduce_<SUFFIX>(batch, out): its occupancy().
 #define TLFEA_NODE_REDUCE(SUFFIX, T)                                                    \
   extern "C" int tlfea_node_reduce_##SUFFIX(const void* vals, const void* ptr,          \
                                             const void* inc, void* out, int n, int E,   \
@@ -22,6 +23,11 @@ TLFEA_FAMILY_ENTRY_POINTS(feat10, Feat10, f64, double)
       return tlfea::launch_node_reduce<T, 4>(vals, ptr, inc, out, n, E, C, stream);     \
     if (batch != 8) return (int)cudaErrorInvalidValue;                                  \
     return tlfea::launch_node_reduce<T, 8>(vals, ptr, inc, out, n, E, C, stream);       \
+  }                                                                                     \
+  extern "C" int tlfea_occupancy_node_reduce_##SUFFIX(int batch, int* out) {            \
+    if (batch == 4) return tlfea::occupancy_node_reduce<T, 4>(out);                     \
+    if (batch != 8) return (int)cudaErrorInvalidValue;                                  \
+    return tlfea::occupancy_node_reduce<T, 8>(out);                                     \
   }
 
 TLFEA_NODE_REDUCE(f32, float)

@@ -518,22 +518,82 @@ contrib_tangent_kernel(const T* __restrict__ packed, const T* __restrict__ dpack
   }
 }
 
+// K2's shared memory, in rows of EX words: xs (S*3 staged direction
+// channels), the NG*S*3 partial sums, then with STREAM (hv_tile) the ring
+// (STAGES * NG points of QP_ROWS rows: the point's S*3 gradient rows, its
+// dV row, its PR prep rows). Without STREAM, smem_bytes<T, F, 3, 3>().
+template <typename T, class F, class M, bool STREAM>
+struct HvSmem {
+  static_assert(!STREAM || F::Q % F::NG == 0, "the stream walks whole rounds of NG points");
+  static constexpr int ROUNDS = F::Q / F::NG;
+  static constexpr int STAGES = ROUNDS < 2 ? ROUNDS : 2;
+  static constexpr int QP_ROWS = F::S * 3 + 1 + M::PR;
+  static constexpr int XS = F::S * 3;
+  static constexpr int PART = F::NG * F::S * 3;
+  static constexpr int RING = STREAM ? STAGES * F::NG * QP_ROWS : 0;
+  static constexpr size_t BYTES = (size_t)(XS + PART + RING) * EX * sizeof(T);
+  static_assert(BYTES <= 232448, "the tile exceeds an H100 block's 227 KB of shared memory");
+};
+
 // K2 on one tile: Hv_e = sum_q dP(G) gradN dV + (1/dt) Me p, primal state
 // from prep. Runs once per CG iteration. It re-reads the prep cache instead
 // of recomputing the primal, so one contraction (G) per QP is all the
-// arithmetic left. smem holds smem_bytes<T, F, 3, 3>().
-template <typename T, class F, class M>
+// arithmetic left. smem holds HvSmem<T, F, M, STREAM>::BYTES.
+//
+// STREAM: each thread copies its points' operands (the S*3 shape-gradient
+// rows, the dV row and the material's PR prep rows) from global into its
+// own column of a ring in shared memory by cp.async, the first STAGES
+// rounds at block start, so that they arrive while `stage` gathers conn ->
+// p, and reads them there where it uses them (the ring as K1's `stream`,
+// above). The arithmetic and its order are the same, so are the bits.
+// Mooney-Rivlin picks STREAM per instantiation (TLFEA_MR_ENTRY_POINTS) as
+// timed fastest on an H100 (PERF.md, Findings; `python -m
+// tlfea_torch.tools.kernel_variants hv`); the persistent kernel, SVK and
+// the phase ablation load where used. At FEAT10 in float32 the loading
+// tile holds 233 registers: the compiler issues the point's 30 prep loads
+// and the gradient loads of the contraction and the product early, to
+// cover their latency, and keeps them live through the chain. That is one
+// 160-thread block an SM, so the 10k flagship's 331 tiles ran in three
+// waves. Streamed, those loads are copies; the chain reads shared memory
+// where it needs a value, in 128 registers and no spill: three blocks an
+// SM, one wave. A register cap alone (__launch_bounds__) spills and is
+// slower.
+template <typename T, class F, class M, bool STREAM = false>
 __device__ __forceinline__ void hv_tile(const T* p, const int* __restrict__ conn_t,
                                         const T* prep, const T* __restrict__ gN_t,
                                         const T* __restrict__ dV_t, const T* __restrict__ Me_t,
                                         T* out, int E, int e0, T dt, const M& m, T* smem) {
+  using L = HvSmem<T, F, M, STREAM>;
   constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = EX * NG;
+  constexpr int D = L::STAGES, R = L::QP_ROWS;
   T* xs = smem;               // (S*3, EX): raw direction
   T* part = xs + S * 3 * EX;  // (NG*S*3, EX)
   const int x = threadIdx.x, g = threadIdx.y;
   const int e = e0 + x;
   const size_t sE = (size_t)E;
   PartialFor<T, F, S * 3> f(part + g * S * 3 * EX + x);
+  T* mine = part + (L::PART + g * R) * EX + x;  // STREAM: this thread's column of stage 0
+  // STREAM: round k's point q = k NG + g into stage k % D, then one commit
+  // (empty past the last round or for a missing element), so that before
+  // round k exactly D - 1 younger groups exist.
+  auto issue = [&](int k) {
+    if (e < E && k < L::ROUNDS) {
+      const int q = k * NG + g;
+      T* dst = mine + (k % D) * (NG * R * EX);
+      const T* src = gN_t + (size_t)q * S * 3 * sE + e;
+#pragma unroll
+      for (int r = 0; r < S * 3; ++r) cp_async_word(dst + r * EX, src + r * sE);
+      cp_async_word(dst + S * 3 * EX, dV_t + (size_t)q * sE + e);
+      const T* pr = prep + (size_t)q * M::PR * sE + e;
+#pragma unroll
+      for (int r = 0; r < M::PR; ++r) cp_async_word(dst + (S * 3 + 1 + r) * EX, pr + r * sE);
+    }
+    cp_async_commit();
+  };
+  if constexpr (STREAM) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) issue(k);
+  }
   stage<T, F, 3, 0>(p, conn_t, E, e0, xs);
   __syncthreads();
 
@@ -542,6 +602,9 @@ __device__ __forceinline__ void hv_tile(const T* p, const int* __restrict__ conn
     const T p0[3] = {xe[0], xe[EX], xe[2 * EX]};
 #pragma unroll 1
     for (int q = g; q < Q; q += NG) {
+      const int k = (q - g) / NG;  // the round
+      const T* st = STREAM ? mine + (k % D) * (NG * R * EX) : nullptr;
+      if constexpr (STREAM) cp_async_wait<D - 1>();
       T G[3][3];
 #pragma unroll
       for (int i = 0; i < 3; ++i)
@@ -555,24 +618,33 @@ __device__ __forceinline__ void hv_tile(const T* p, const int* __restrict__ conn
           pc[i] = trans_slot<F>(a) ? xe[(a * 3 + i) * EX] - p0[i] : xe[(a * 3 + i) * EX];
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
-          const T gv = gN_t[((size_t)(q * S + a) * 3 + j) * sE + e];
+          const T gv = STREAM ? st[(a * 3 + j) * EX]
+                              : gN_t[((size_t)(q * S + a) * 3 + j) * sE + e];
 #pragma unroll
           for (int i = 0; i < 3; ++i) G[i][j] += pc[i] * gv;
         }
       }
       T dP[3][3];
-      m.hv(G, prep + (size_t)q * M::PR * sE + e, sE, dt, dP);
-      const T w = dV_t[q * sE + e];
+      const T* pq = STREAM ? st + (S * 3 + 1) * EX : prep + (size_t)q * M::PR * sE + e;
+      m.hv(G, pq, STREAM ? (size_t)EX : sE, dt, dP);
+      const T w = STREAM ? st[S * 3 * EX] : dV_t[q * sE + e];
 #pragma unroll
       for (int a = 0; a < S; ++a) {
-        const T* ga = gN_t + ((size_t)(q * S + a) * 3) * sE + e;
-        const T g0 = ga[0], g1 = ga[sE], g2 = ga[2 * sE];
+        T g0, g1, g2;
+        if constexpr (STREAM) {
+          g0 = st[(a * 3) * EX], g1 = st[(a * 3 + 1) * EX], g2 = st[(a * 3 + 2) * EX];
+        } else {
+          const T* ga = gN_t + ((size_t)(q * S + a) * 3) * sE + e;
+          g0 = ga[0], g1 = ga[sE], g2 = ga[2 * sE];
+        }
 #pragma unroll
         for (int i = 0; i < 3; ++i)
           f[a * 3 + i] += (dP[i][0] * g0 + dP[i][1] * g1 + dP[i][2] * g2) * w;
       }
+      if constexpr (STREAM) issue(k + D);  // the stage is read: refill it
     }
   }
+  if constexpr (STREAM) cp_async_wait<0>();  // no copy left in flight
   f.flush();
   __syncthreads();
 
@@ -596,15 +668,15 @@ __device__ __forceinline__ void hv_tile(const T* p, const int* __restrict__ conn
   }
 }
 
-template <typename T, class F, class M>
+template <typename T, class F, class M, bool STREAM = false>
 __global__ void __launch_bounds__(EX * F::NG)
 hv_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
           const T* __restrict__ prep, const T* __restrict__ gN_t,
           const T* __restrict__ dV_t, const T* __restrict__ Me_t,
           T* __restrict__ out, int E, T dt, M m) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  hv_tile<T, F, M>(p, conn_t, prep, gN_t, dV_t, Me_t, out, E, blockIdx.x * EX, dt, m,
-                   reinterpret_cast<T*>(smem_raw));
+  hv_tile<T, F, M, STREAM>(p, conn_t, prep, gN_t, dV_t, Me_t, out, E, blockIdx.x * EX, dt, m,
+                           reinterpret_cast<T*>(smem_raw));
 }
 
 // K3: per-(element, slot) SVK diagonal tangent blocks, sum_q K(F_q, h_qa) dV_q,
@@ -760,6 +832,24 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// A kernel's registers a thread, local memory a thread in bytes (spills and
+// stack) and resident blocks an SM, launched with `threads` threads and
+// `smem` bytes of dynamic shared memory: out[0], out[1], out[2].
+template <typename K>
+int occupancy(K kernel, int threads, size_t smem, int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err == cudaSuccess) err = allow_smem(kernel, smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = blocks;
+  return 0;
+}
+
 template <typename T, class F, Hold HOLD = Hold::none, class M>
 int launch_primal_prep(const void* packed, const void* conn_t, const void* gN_t,
                        const void* dV_t, const void* Me_t, void* fe, void* prep, int E,
@@ -806,19 +896,46 @@ int launch_contrib_tangent(const void* packed, const void* dpacked, const void* 
   return (int)cudaGetLastError();
 }
 
-template <typename T, class F, class M>
+template <typename T, class F, bool STREAM = false, class M>
 int launch_hv(const void* p, const void* conn_t, const void* prep, const void* gN_t,
               const void* dV_t, const void* Me_t, void* out, int E, double dt, const M& m,
               void* stream) {
-  constexpr size_t smem = smem_bytes<T, F, 3, 3>();
-  static const cudaError_t attr = allow_smem(hv_kernel<T, F, M>, smem);
+  constexpr size_t smem = HvSmem<T, F, M, STREAM>::BYTES;
+  static const cudaError_t attr = allow_smem(hv_kernel<T, F, M, STREAM>, smem);
   if (attr != cudaSuccess) return (int)attr;
   if (E > 0) {
-    hv_kernel<T, F, M><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
+    hv_kernel<T, F, M, STREAM><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
         (const T*)p, (const int*)conn_t, (const T*)prep, (const T*)gN_t,
         (const T*)dV_t, (const T*)Me_t, (T*)out, E, (T)dt, m);
   }
   return (int)cudaGetLastError();
+}
+
+// occupancy() of each element kernel at its launch shape.
+template <typename T, class F, class M, Hold HOLD = Hold::none>
+int occupancy_primal_prep(int* out) {
+  return occupancy(primal_prep_kernel<T, F, M, HOLD>, EX * F::NG, TileSmem<T, F, HOLD>::BYTES,
+                   out);
+}
+
+template <typename T, class F, class M, Hold HOLD = Hold::none>
+int occupancy_contrib(int* out) {
+  return occupancy(contrib_kernel<T, F, M, HOLD>, EX * F::NG, TileSmem<T, F, HOLD>::BYTES, out);
+}
+
+template <typename T, class F, class M>
+int occupancy_contrib_tangent(int* out) {
+  return occupancy(contrib_tangent_kernel<T, F, M>, EX * F::NG, smem_bytes<T, F, 15, 3>(), out);
+}
+
+template <typename T, class F, class M, bool STREAM = false>
+int occupancy_hv(int* out) {
+  return occupancy(hv_kernel<T, F, M, STREAM>, EX * F::NG, HvSmem<T, F, M, STREAM>::BYTES, out);
+}
+
+template <typename T, class F>
+int occupancy_svk_blocks(int* out) {
+  return occupancy(svk_blocks_kernel<T, F>, EX * F::NG, smem_bytes<T, F, 3, 6>(), out);
 }
 
 template <typename T, class F>
@@ -858,12 +975,20 @@ int launch_node_reduce(const void* vals, const void* ptr, const void* inc, void*
   return launch_node_reduce_groups<T, 3, NB>(vals, ptr, inc, out, n, E, C, stream);
 }
 
+template <typename T, int NB = K4_BATCH>
+int occupancy_node_reduce(int* out) {
+  return occupancy(node_reduce_kernel<T, 3, NB>, THREADS, 0, out);
+}
+
 }  // namespace
 
 }  // namespace tlfea
 
 // Plain C interface of one family's K1-K3, K5 and K5t with SVK, bound with
-// ctypes (tlfea_torch/ops/fem_kernels.py): tlfea_<kernel>_<NAME>_<SUFFIX>.
+// ctypes (tlfea_torch/ops/fem_kernels.py): tlfea_<kernel>_<NAME>_<SUFFIX>;
+// and tlfea_occupancy_<NAME>_<SUFFIX>(kernel, out), occupancy() of the
+// kernel at index `kernel` of fem_kernels.KERNEL_NAMES (K1 0, K2 1, K3 2,
+// K5 4, K5t 5) at its launch shape.
 #define TLFEA_FAMILY_ENTRY_POINTS(NAME, FAM, SUFFIX, T)                                 \
   extern "C" int tlfea_primal_prep_##NAME##_##SUFFIX(                                   \
       const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
@@ -903,14 +1028,26 @@ int launch_node_reduce(const void* vals, const void* ptr, const void* inc, void*
     return tlfea::launch_contrib_tangent<T, FAM>(                                       \
         packed, dpacked, conn_t, gN_t, dV_t, Me_t, out, E,                              \
         tlfea::SvkMat<T>{(T)lam, (T)mu, (T)eta, (T)lam_d}, stream);                     \
+  }                                                                                     \
+  extern "C" int tlfea_occupancy_##NAME##_##SUFFIX(int kernel, int* out) {              \
+    using M = tlfea::SvkMat<T>;                                                         \
+    switch (kernel) {                                                                   \
+      case 0: return tlfea::occupancy_primal_prep<T, FAM, M>(out);                      \
+      case 1: return tlfea::occupancy_hv<T, FAM, M>(out);                               \
+      case 2: return tlfea::occupancy_svk_blocks<T, FAM>(out);                          \
+      case 4: return tlfea::occupancy_contrib<T, FAM, M>(out);                          \
+      case 5: return tlfea::occupancy_contrib_tangent<T, FAM, M>(out);                  \
+      default: return (int)cudaErrorInvalidValue;                                       \
+    }                                                                                   \
   }
 
 // The same with Mooney-Rivlin (no K3: the preconditioner's blocks are plain
 // PyTorch, as the JAX package leaves them to XLA):
 // tlfea_<kernel>_<NAME>_mr_<SUFFIX>, constants (mu10, mu01, kappa, eta, lam_d).
 // K1 and K5 load a quadrature point's shape gradients as K1_HOLD and
-// K5_HOLD say (`Hold`: none, late, early or stream).
-#define TLFEA_MR_ENTRY_POINTS(NAME, FAM, SUFFIX, T, K1_HOLD, K5_HOLD)                   \
+// K5_HOLD say (`Hold`: none, late, early or stream); K2 streams a point's
+// operands through shared memory if K2_STREAM (hv_tile).
+#define TLFEA_MR_ENTRY_POINTS(NAME, FAM, SUFFIX, T, K1_HOLD, K5_HOLD, K2_STREAM)          \
   extern "C" int tlfea_primal_prep_##NAME##_mr_##SUFFIX(                                \
       const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
       const void* Me_t, void* fe, void* prep, int E, double mu10, double mu01,          \
@@ -923,7 +1060,7 @@ int launch_node_reduce(const void* vals, const void* ptr, const void* inc, void*
       const void* p, const void* conn_t, const void* prep, const void* gN_t,            \
       const void* dV_t, const void* Me_t, void* out, int E, double dt, double mu10,     \
       double mu01, double kappa, double eta, double lam_d, void* stream) {              \
-    return tlfea::launch_hv<T, FAM>(                                                    \
+    return tlfea::launch_hv<T, FAM, K2_STREAM>(                                         \
         p, conn_t, prep, gN_t, dV_t, Me_t, out, E, dt,                                  \
         tlfea::MrMat<T>{(T)mu10, (T)mu01, (T)kappa, (T)eta, (T)lam_d}, stream);         \
   }                                                                                     \
@@ -942,4 +1079,14 @@ int launch_node_reduce(const void* vals, const void* ptr, const void* inc, void*
     return tlfea::launch_contrib_tangent<T, FAM>(                                       \
         packed, dpacked, conn_t, gN_t, dV_t, Me_t, out, E,                              \
         tlfea::MrMat<T>{(T)mu10, (T)mu01, (T)kappa, (T)eta, (T)lam_d}, stream);         \
+  }                                                                                     \
+  extern "C" int tlfea_occupancy_##NAME##_mr_##SUFFIX(int kernel, int* out) {           \
+    using M = tlfea::MrMat<T>;                                                          \
+    switch (kernel) {                                                                   \
+      case 0: return tlfea::occupancy_primal_prep<T, FAM, M, tlfea::Hold::K1_HOLD>(out); \
+      case 1: return tlfea::occupancy_hv<T, FAM, M, K2_STREAM>(out);                    \
+      case 4: return tlfea::occupancy_contrib<T, FAM, M, tlfea::Hold::K5_HOLD>(out);    \
+      case 5: return tlfea::occupancy_contrib_tangent<T, FAM, M>(out);                  \
+      default: return (int)cudaErrorInvalidValue;                                       \
+    }                                                                                   \
   }

@@ -152,6 +152,13 @@ int launch_phase(const void* p, const void* conn_t, const void* prep, const void
   return (int)cudaGetLastError();
 }
 
+template <int MODE>
+int occupancy_phase(int* out) {
+  using F = Feat10Phases;
+  return occupancy(hv_phase_kernel<float, F, SvkMat<float>, MODE>, EX * F::NG,
+                   smem_bytes<float, F, 3, 3>(), out);
+}
+
 }  // namespace
 }  // namespace tlfea
 
@@ -194,5 +201,20 @@ extern "C" int tlfea_hv_phase_f32(int mode, const void* p, const void* conn_t,
     }
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// occupancy() (fem_kernels.cuh) of mode's kernel at its launch shape: modes
+// 0-4 the phase kernel, 5 K4, 6 its first launch (mode 4's kernel).
+extern "C" int tlfea_hv_phase_occupancy_f32(int mode, int* out) {
+  using namespace tlfea;
+  switch (mode) {
+    case 0: return occupancy_phase<0>(out);
+    case 1: return occupancy_phase<1>(out);
+    case 2: return occupancy_phase<2>(out);
+    case 3: return occupancy_phase<3>(out);
+    case 4: case 6: return occupancy_phase<4>(out);
+    case 5: return occupancy_node_reduce<float>(out);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

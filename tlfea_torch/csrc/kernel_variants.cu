@@ -2,9 +2,9 @@
 // (quadrature-point groups per element) and REG_BYTES (partial sums in
 // registers) against the shipped ones (FEAT10: NG 5, shared partials;
 // ANCF3443: NG 4, register partials); K1 and K5 with each way of loading
-// the shape gradients (`Hold`); the forms of K4's walk; the
-// persistent kernel with one thread slab a block; and a probe of the
-// barriers the persistent kernel can use:
+// the shape gradients (`Hold`); K2 with Mooney-Rivlin in each form;
+// the forms of K4's walk; the persistent kernel with one thread slab a
+// block; and a probe of the barriers the persistent kernel can use:
 // `python -m tlfea_torch.tools.kernel_variants`.
 // Not part of the library that `build_kernels` builds.
 #include <cooperative_groups.h>
@@ -91,6 +91,219 @@ VARIANT_SVK(feat10, F10Mr, f32, float, late)
 VARIANT_SVK(feat10, F10Mr, f32, float, early)
 VARIANT_SVK(ancf3443, S4Mr, f32, float, late)
 VARIANT_SVK(ancf3443, S4Mr, f32, float, early)
+
+// K2 with Mooney-Rivlin in the forms of `python -m
+// tlfea_torch.tools.kernel_variants hv` (PERF.md, Findings): the operands
+// loaded where used or streamed through shared memory (STREAM, fem_kernels.cuh
+// `hv_tile`); the material's Hv chain as mr.cuh runs it (MrMat) or reading
+// the prep rows where it uses them (MrRows, below); and no register cap (MINB
+// 1: the library's `hv_kernel`) or __launch_bounds__' minimum of MINB blocks
+// an SM (`hv_capped_kernel`).
+// mr_hv (mr.cuh) with the prep rows read where they are used (row r at
+// pq[r * sE]: Du, G, [J - 1, I1, I2], Fd) and dP built row by row: first
+// the scalars (s, F : dF, dI1, dI2, the coefficients and their
+// derivatives), then S_v and dS_v (symmetric, six entries each: X_ij +
+// X_ji = X_ji + X_ij), then each row i of dG, B, dFC and dP, so that dG,
+// B, dFC and the viscous X are never held whole. Each entry of dP takes
+// mr_dP's operations in mr_dP's order, so the bits are mr_hv's up to the
+// compiler's choice of fused multiply-adds.
+template <typename T>
+__device__ __forceinline__ void mr_hv_rows(const T Gp[3][3], const T* pq, size_t sE, T dt,
+                                           T mu10, T mu01, T kappa, T eta, T lam_d,
+                                           T dP[3][3]) {
+  auto G = [&](int i, int j) { return pq[(9 + i * 3 + j) * sE]; };
+  auto Fd = [&](int i, int j) { return pq[(21 + i * 3 + j) * sE]; };
+  const T Jm1 = pq[18 * sE], I1 = pq[19 * sE], I2 = pq[20 * sE];
+  T F[3][3], dF[3][3], C[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      F[i][j] = pq[(i * 3 + j) * sE] + (i == j ? T(1) : T(0));
+      dF[i][j] = Gp[i][j] * dt;
+    }
+  tlfea::mr_mtm(F, F, C);
+  auto FC = [&](int i, int j) { return F[i][0] * C[0][j] + F[i][1] * C[1][j] + F[i][2] * C[2][j]; };
+
+  // The scalars.
+  const T J = T(1) + Jm1;
+  T s = T(0), FdotdF = T(0), FCdotdF = T(0);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) s += G(i, j) * dF[i][j];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) FdotdF += F[i][j] * dF[i][j];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) FCdotdF += FC(i, j) * dF[i][j];
+  const T dI1 = T(2) * FdotdF;
+  const T dI2 = T(2) * (I1 * FdotdF - FCdotdF);
+  T t1, t2, t3;
+  tlfea::mr_coefs(Jm1, mu10, mu01, kappa, t1, t2, t3);
+  const T dt1 = T(-2.0 / 3.0) * t1 * s;
+  const T dt2 = T(-4.0 / 3.0) * t2 * s;
+  const T dt3 = kappa * (T(2) * J - T(1)) * J * s;
+  const T c1 = I1 * T(1.0 / 3.0), c2 = I2 * T(2.0 / 3.0);
+  const T dc1 = dI1 * T(1.0 / 3.0), dc2 = dI2 * T(2.0 / 3.0);
+
+  // S_v (mr_viscous_S) and dS_v, the upper triangle (r = i * 3 + j - i (i + 1) / 2).
+  auto X = [&](int i, int j) {  // Fd^T F
+    return Fd(0, i) * F[0][j] + Fd(1, i) * F[1][j] + Fd(2, i) * F[2][j];
+  };
+  auto dX = [&](int i, int j) {  // dFd^T F + Fd^T dF, dFd = Gp
+    return Gp[0][i] * F[0][j] + Gp[1][i] * F[1][j] + Gp[2][i] * F[2][j] + Fd(0, i) * dF[0][j] +
+           Fd(1, i) * dF[1][j] + Fd(2, i) * dF[2][j];
+  };
+  T Sv[6], dSv[6];
+  {
+    const T trEd = X(0, 0) + X(1, 1) + X(2, 2);
+    const T trdEd = dX(0, 0) + dX(1, 1) + dX(2, 2);
+    int r = 0;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = i; j < 3; ++j, ++r) {
+        Sv[r] = (T(2) * eta) * (T(0.5) * (X(i, j) + X(j, i)));
+        dSv[r] = (T(2) * eta) * (T(0.5) * (dX(i, j) + dX(j, i)));
+        if (i == j) {
+          Sv[r] += lam_d * trEd;
+          dSv[r] += lam_d * trdEd;
+        }
+      }
+  }
+  auto sym = [](const T* A, int i, int j) {
+    const int a = i < j ? i : j, b = i < j ? j : i;
+    return A[a * 3 + b - a * (a + 1) / 2];
+  };
+
+  // M1 = dF^T G and M2 = dF^T F, whole; then dP row by row.
+  T M1[3][3], M2[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      M1[i][j] = dF[0][i] * G(0, j) + dF[1][i] * G(1, j) + dF[2][i] * G(2, j);
+      M2[i][j] = dF[0][i] * F[0][j] + dF[1][i] * F[1][j] + dF[2][i] * F[2][j];
+    }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    T dGi[3], Bi[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      dGi[j] = G(i, 0) * M1[0][j] + G(i, 1) * M1[1][j] + G(i, 2) * M1[2][j];
+      Bi[j] = F[i][0] * F[j][0] + F[i][1] * F[j][1] + F[i][2] * F[j][2];
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      T dFC = T(0);
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        dFC += dF[i][k] * C[k][j] + F[i][k] * M2[k][j] + Bi[k] * dF[k][j];
+      const T g = G(i, j), dg = -dGi[j];
+      const T T1 = F[i][j] - c1 * g;
+      const T dT1 = dF[i][j] - dc1 * g - c1 * dg;
+      const T T2 = I1 * F[i][j] - FC(i, j) - c2 * g;
+      const T dT2 = dI1 * F[i][j] + I1 * dF[i][j] - dFC - dc2 * g - c2 * dg;
+      T v = dt1 * T1 + t1 * dT1 + dt2 * T2 + t2 * dT2 + dt3 * g + t3 * dg;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) v += dF[i][k] * sym(Sv, k, j) + F[i][k] * sym(dSv, k, j);
+      dP[i][j] = v;
+    }
+  }
+}
+
+template <typename T>
+struct MrRows : tlfea::MrMat<T> {
+  __device__ __forceinline__ void hv(const T Gp[3][3], const T* pq, size_t sE, T dt,
+                                     T dP[3][3]) const {
+    mr_hv_rows(Gp, pq, sE, dt, this->mu10, this->mu01, this->kappa, this->eta, this->lam_d, dP);
+  }
+};
+
+template <typename T, class F, class M, bool STREAM, int MINB>
+__global__ void __launch_bounds__(tlfea::EX * F::NG, MINB)
+hv_capped_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
+                 const T* __restrict__ prep, const T* __restrict__ gN_t,
+                 const T* __restrict__ dV_t, const T* __restrict__ Me_t, T* __restrict__ out,
+                 int E, T dt, M m) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  tlfea::hv_tile<T, F, M, STREAM>(p, conn_t, prep, gN_t, dV_t, Me_t, out, E,
+                                  blockIdx.x * tlfea::EX, dt, m, reinterpret_cast<T*>(smem_raw));
+}
+
+template <typename T, class F, bool STREAM, int MINB, class M>
+int launch_hv_form(const void* p, const void* conn_t, const void* prep, const void* gN_t,
+                   const void* dV_t, const void* Me_t, void* out, int E, double dt, const M& m,
+                   void* stream) {
+  if constexpr (MINB == 1) {
+    return tlfea::launch_hv<T, F, STREAM>(p, conn_t, prep, gN_t, dV_t, Me_t, out, E, dt, m,
+                                          stream);
+  } else {
+    constexpr size_t smem = tlfea::HvSmem<T, F, M, STREAM>::BYTES;
+    static const cudaError_t attr =
+        tlfea::allow_smem(hv_capped_kernel<T, F, M, STREAM, MINB>, smem);
+    if (attr != cudaSuccess) return (int)attr;
+    if (E > 0) {
+      hv_capped_kernel<T, F, M, STREAM, MINB>
+          <<<tlfea::n_tiles(E), dim3(tlfea::EX, F::NG), smem, (cudaStream_t)stream>>>(
+              (const T*)p, (const int*)conn_t, (const T*)prep, (const T*)gN_t, (const T*)dV_t,
+              (const T*)Me_t, (T*)out, E, (T)dt, m);
+    }
+    return (int)cudaGetLastError();
+  }
+}
+
+template <typename T, class F, class M, bool STREAM, int MINB>
+int occupancy_hv_form(int* out) {
+  if constexpr (MINB == 1)
+    return tlfea::occupancy_hv<T, F, M, STREAM>(out);
+  else
+    return tlfea::occupancy(hv_capped_kernel<T, F, M, STREAM, MINB>, tlfea::EX * F::NG,
+                            tlfea::HvSmem<T, F, M, STREAM>::BYTES, out);
+}
+
+// tlfea_hv_<family>_<form>_mr_<SUFFIX>, and
+// tlfea_occupancy_hv_<family>_<form>_mr_<SUFFIX>(out), occupancy() of its
+// launch. MAT: tlfea::MrMat or MrRows. Every form gives the same bits, up
+// to the compiler's choice of fused multiply-adds.
+#define VARIANT_HV(NAME, FAM, SUFFIX, T, FORM, STREAM, MAT, MINB)                       \
+  extern "C" int tlfea_hv_##NAME##_##FORM##_mr_##SUFFIX(                                \
+      const void* p, const void* conn_t, const void* prep, const void* gN_t,            \
+      const void* dV_t, const void* Me_t, void* out, int E, double dt, double mu10,     \
+      double mu01, double kappa, double eta, double lam_d, void* stream) {              \
+    MAT<T> m;                                                                           \
+    static_cast<tlfea::MrMat<T>&>(m) =                                                  \
+        tlfea::MrMat<T>{(T)mu10, (T)mu01, (T)kappa, (T)eta, (T)lam_d};                  \
+    return launch_hv_form<T, FAM, STREAM, MINB>(p, conn_t, prep, gN_t, dV_t, Me_t, out, \
+                                                E, dt, m, stream);                      \
+  }                                                                                     \
+  extern "C" int tlfea_occupancy_hv_##NAME##_##FORM##_mr_##SUFFIX(int* out) {           \
+    return occupancy_hv_form<T, FAM, MAT<T>, STREAM, MINB>(out);                        \
+  }
+#define VARIANTS_HV(NAME, FAM, SUFFIX, T)                                  \
+  VARIANT_HV(NAME, FAM, SUFFIX, T, parent, false, tlfea::MrMat, 1)         \
+  VARIANT_HV(NAME, FAM, SUFFIX, T, lb2, false, tlfea::MrMat, 2)            \
+  VARIANT_HV(NAME, FAM, SUFFIX, T, lb3, false, tlfea::MrMat, 3)            \
+  VARIANT_HV(NAME, FAM, SUFFIX, T, smem, true, tlfea::MrMat, 1)            \
+  VARIANT_HV(NAME, FAM, SUFFIX, T, smem_lb2, true, tlfea::MrMat, 2)        \
+  VARIANT_HV(NAME, FAM, SUFFIX, T, smem_lb3, true, tlfea::MrMat, 3)        \
+  VARIANT_HV(NAME, FAM, SUFFIX, T, rows, false, MrRows, 1)                 \
+  VARIANT_HV(NAME, FAM, SUFFIX, T, rows_lb2, false, MrRows, 2)             \
+  VARIANT_HV(NAME, FAM, SUFFIX, T, rows_lb3, false, MrRows, 3)             \
+  VARIANT_HV(NAME, FAM, SUFFIX, T, smem_rows, true, MrRows, 1)             \
+  VARIANT_HV(NAME, FAM, SUFFIX, T, smem_rows_lb2, true, MrRows, 2)         \
+  VARIANT_HV(NAME, FAM, SUFFIX, T, smem_rows_lb3, true, MrRows, 3)
+
+VARIANTS_HV(feat10, F10Mr, f32, float)
+VARIANTS_HV(feat10, F10Mr, f64, double)
+VARIANTS_HV(ancf3443, S4Mr, f32, float)
+VARIANTS_HV(ancf3443, S4Mr, f64, double)
+VARIANTS_HV(ancf3243, B4Mr, f32, float)
+VARIANTS_HV(ancf3243, B4Mr, f64, double)
 
 // An empty kernel on a grid of `blocks` blocks of `threads` threads with
 // `smem` bytes of dynamic shared memory: the floor of any launch of that

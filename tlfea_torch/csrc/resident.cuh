@@ -519,6 +519,28 @@ int resident_max_cluster(int* out) {
   return 0;
 }
 
+// Registers and local bytes a thread of the kernel, and its blocks an SM at
+// the launch of E elements on `cluster` blocks (occupancy() in
+// fem_kernels.cuh, without lowering the shared-memory opt-in).
+template <typename T, class F, class M, int SLABS>
+int resident_occupancy(int E, int cluster, int* out) {
+  cudaError_t err = resident_attributes<T, F, M, SLABS>();
+  const auto kernel = newton_resident_kernel<T, F, M, SLABS>;
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  const size_t smem = resident_smem<T, F, SLABS>(E, cluster);
+  if (err == cudaSuccess && smem == 0) err = cudaErrorInvalidValue;
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, EX * F::NG * SLABS,
+                                                        smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = blocks;
+  return 0;
+}
+
 template <typename T, class F, class M, int SLABS>
 int launch_newton_resident(const ResidentArgs<T, M>& args, int cluster, void* stream) {
   cudaError_t err = resident_attributes<T, F, M, SLABS>();
@@ -548,7 +570,9 @@ int launch_newton_resident(const ResidentArgs<T, M>& args, int cluster, void* st
 // + 1 doubles (the history slots NaN on entry); cluster is the number of
 // blocks, a power of two up to 16. Beside it:
 //   ..._max_cluster(int* out): the largest cluster the card schedules (16 or 8);
-//   ..._smem(int E, int cluster): the launch's shared memory in bytes (0: refused).
+//   ..._smem(int E, int cluster): the launch's shared memory in bytes (0: refused);
+//   ..._occupancy(int E, int cluster, int* out): registers, local bytes a
+//   thread and blocks an SM of that launch.
 #define TLFEA_RESIDENT_ENTRY_POINTS_SLABS(NAME, FAM, MAT, SUFFIX, T, SLABS)                   \
   extern "C" int tlfea_newton_resident_##NAME##_##SUFFIX(                                     \
       const void* v0, const void* u_prev, const void* v_prev, const void* f_ext,              \
@@ -603,6 +627,10 @@ int launch_newton_resident(const ResidentArgs<T, M>& args, int cluster, void* st
   }                                                                                           \
   extern "C" long long tlfea_newton_resident_##NAME##_##SUFFIX##_smem(int E, int cluster) {   \
     return (long long)tlfea::resident_smem<T, FAM, SLABS>(E, cluster);                        \
+  }                                                                                           \
+  extern "C" int tlfea_newton_resident_##NAME##_##SUFFIX##_occupancy(int E, int cluster,      \
+                                                                     int* out) {              \
+    return tlfea::resident_occupancy<T, FAM, MAT<T>, SLABS>(E, cluster, out);                 \
   }
 
 #define TLFEA_RESIDENT_ENTRY_POINTS(NAME, FAM, MAT, SUFFIX, T) \

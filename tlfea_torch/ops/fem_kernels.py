@@ -94,7 +94,7 @@ from tlfea_torch.ops.segment import coef_scatter_add
 __all__ = [
     "FemOperator", "FAMILIES", "SOURCES", "RESIDENT_SOURCES", "PROFILING_SOURCES", "LAUNCHES",
     "reset_launch_counts",
-    "build_kernels",
+    "build_kernels", "occupancy", "launch_blocks",
     "primal_prep", "primal_prep_plain", "hv", "hv_plain",
     "svk_blocks", "svk_blocks_plain", "tangent_blocks_plain", "node_reduce",
     "node_reduce_plain",
@@ -133,6 +133,10 @@ K4_BATCH = {"feat10": 8, "ancf3243": 4, "ancf3443": 4}
 # Sources of profiling kernels, built and launched with the others: the
 # phase ablation of K2 + K4 (`tlfea_torch.ops.hv_phases`).
 PROFILING_SOURCES = ("hv_phases.cu",)
+# The launch shapes of csrc/fem_kernels.cuh: an element kernel's block takes a
+# tile of TILE elements (EX there), K4's block K4_THREADS threads (THREADS),
+# each thread one node and 3 channels.
+TILE, K4_THREADS = 32, 128
 
 
 def _tag(family: str, kind: str) -> str:
@@ -177,16 +181,20 @@ def _bind(lib, family: str | None, kind: str = "svk", resident: bool = False) ->
     persistent kernel of (family, kind) (resident), or the element kernels
     of (family, kind)."""
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    out3 = ctypes.POINTER(I)  # an occupancy entry's (registers, local bytes, blocks an SM)
     if family == "hv_phase":
         fn = lib.tlfea_hv_phase_f32
         fn.argtypes, fn.restype = [I] + [P] * 10 + [I] * 2 + [D] * 5 + [P], ctypes.c_int
+        fn = lib.tlfea_hv_phase_occupancy_f32
+        fn.argtypes, fn.restype = [I, out3], ctypes.c_int
         return
     if family is None:
-        sigs = {"tlfea_node_reduce_{}": [P] * 4 + [I] * 4 + [P]}
+        sigs = {"tlfea_node_reduce_{}": [P] * 4 + [I] * 4 + [P],
+                "tlfea_occupancy_node_reduce_{}": [I, out3]}
     elif resident:
         name = f"tlfea_newton_resident_{_tag(family, kind)}_{{}}"
         sigs = {name: [P] * 16 + [I] * 2 + [ctypes.POINTER(D)] + [D] * 5 + [I] * 4 + [P],
-                name + "_max_cluster": [ctypes.POINTER(I)]}
+                name + "_max_cluster": [ctypes.POINTER(I)], name + "_occupancy": [I, I, out3]}
         for sfx in ("f32", "f64"):
             fn = getattr(lib, f"{name.format(sfx)}_smem")
             fn.argtypes, fn.restype = [I, I], ctypes.c_longlong
@@ -197,6 +205,7 @@ def _bind(lib, family: str | None, kind: str = "svk", resident: bool = False) ->
                 "contrib_tangent": [P] * 7 + [I] + [D] * nm}
         sigs = {f"tlfea_{k}_{_tag(family, kind)}_{{}}": args[k] + [P]
                 for k in MATERIAL_KERNELS[kind]}
+        sigs[f"tlfea_occupancy_{_tag(family, kind)}_{{}}"] = [I, out3]
     for name, args in sigs.items():
         for sfx in ("f32", "f64"):
             fn = getattr(lib, name.format(sfx))
@@ -291,6 +300,41 @@ def _launch(name: str, tag: str, x: torch.Tensor, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{key} kernel launch failed: CUDA error {err}")
     LAUNCHES[key] += 1
+
+
+def occupancy(name: str, tag: str, dtype: torch.dtype, launch: tuple | None = None) -> dict:
+    """The CUDA runtime's record of kernel `name` of `tag` (a LAUNCHES
+    bracket) in dtype at its launch shape: {"regs": registers a thread,
+    "local_bytes": local memory a thread (spills and stack), "blocks_per_sm":
+    blocks resident on one SM}. name "node_reduce" is K4 at the family's
+    batch; "newton_resident" the persistent kernel launched as `launch` =
+    (E, cluster); "hv_phase" the phase ablation, tag its mode (float32)."""
+    sfx = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    libs = build_kernels()
+    out = (ctypes.c_int * 3)()
+    if name == "node_reduce":
+        err = getattr(libs["fem_kernels.cu"], f"tlfea_occupancy_node_reduce_{sfx}")(
+            K4_BATCH[_untag(tag)[0]], out)
+    elif name == "hv_phase":
+        err = libs["hv_phases.cu"].tlfea_hv_phase_occupancy_f32(int(tag), out)
+    elif name == "newton_resident":
+        fn = getattr(libs[RESIDENT_SOURCES[_untag(tag)]],
+                     f"tlfea_newton_resident_{tag}_{sfx}_occupancy")
+        err = fn(*launch, out)
+    else:
+        fn = getattr(libs[SOURCES[_untag(tag)]], f"tlfea_occupancy_{tag}_{sfx}")
+        err = fn(KERNEL_NAMES.index(name), out)
+    if err != 0:
+        raise RuntimeError(f"{name}[{tag}]: occupancy query failed: CUDA error {err}")
+    return {"regs": out[0], "local_bytes": out[1], "blocks_per_sm": out[2]}
+
+
+def launch_blocks(name: str, op: "FemOperator", C: int = 3) -> int:
+    """The blocks of one launch of element kernel `name` on op (K4 on C
+    channels a node)."""
+    if name == "node_reduce":
+        return -(-op.n * (C // 3) // K4_THREADS)
+    return -(-op.E // TILE)
 
 
 def launch_key(name: str, op: "FemOperator") -> str:

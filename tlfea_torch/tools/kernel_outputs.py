@@ -13,9 +13,11 @@ this, this, parent). Inputs come from a numpy seed, in float32 and float64:
 - the SVK element kernels K1-K5t and K4 at the 10k flagship's shapes;
 - the Mooney-Rivlin element kernels K1 (fe and the prep cache), K2, K5 and
   K5t at the 10k flagship (`[feat10_mr]`), the 72 x 72 shell
-  (`[ancf3443_mr]`) and the 64-element beam (`[ancf3243_mr]`), at
+  (`[ancf3443_mr]`) and the 64-element beam (`[ancf3243_mr]`), and K2
+  `[feat10_mr]` again at the bench.py 1k box (864 elements), at
   chip_smoke's strained state (`MR_CASES`), whose K1 and K5 load the shape
-  gradients as each instantiation chose (fem_kernels.cuh `Hold`);
+  gradients and whose K2 runs in the form each instantiation chose
+  (fem_kernels.cuh `Hold`, `hv_tile`'s STREAM);
 - K4 at the 100k box (`tools/ablate_hv`'s "100k");
 - the persistent kernel of every (family, material) pair on one inner solve:
   FEAT10 x SVK and MR at the bench.py "1k" box, ANCF3243 x SVK and MR at
@@ -56,11 +58,16 @@ RESIDENT_CASES = (("feat10", "flagship_problem", ("RESIDENT_DIMS", None)),
                   ("ancf3243_e1024", "ancf_beam_problem", (1024, None)),
                   ("ancf3243_mr_e1024", "ancf_beam_problem", (1024, "mr")))
 GRID = 6  # index of `grid` in the stats tensor (resident.STAT_FIELDS)
-# (tag, chip_smoke builder) of the Mooney-Rivlin element kernels' cases, at
-# the builders' full sizes.
-MR_CASES = (("feat10_mr", "flagship_problem"), ("ancf3443_mr", "shell_problem"),
-            ("ancf3243_mr", "ancf_beam_problem"))
+# (tag, chip_smoke builder, the name of its size argument there or None,
+# kernels) of the Mooney-Rivlin element kernels' cases: K1, K2, K5 and K5t
+# at the builders' full sizes, then K2 alone at the bench.py 1k box (864
+# elements, the size of chip_smoke's [composed_1k_mr]), saved as
+# "hv[feat10_mr]_e864".
 MR_KERNELS = ("primal_prep", "hv", "contrib", "contrib_tangent")
+MR_CASES = (("feat10_mr", "flagship_problem", None, MR_KERNELS),
+            ("ancf3443_mr", "shell_problem", None, MR_KERNELS),
+            ("ancf3243_mr", "ancf_beam_problem", None, MR_KERNELS),
+            ("feat10_mr", "flagship_problem", "RESIDENT_DIMS", ("hv",)))
 
 
 ROLLOUT_STEPS = 250  # chip_smoke's [resident] rollout
@@ -119,8 +126,8 @@ def save(path: str, no_fma: bool = False) -> None:
             outs, call = _resident_outputs(cs, dev, dtype, *case)
             out.update(outs)
             resident_calls[f"newton_resident[{case[0]}]"] = call
-        for tag, builder in MR_CASES:
-            outs, mr_calls = _mr_outputs(cs, fk, dev, dtype, tag, builder)
+        for case in MR_CASES:
+            outs, mr_calls = _mr_outputs(cs, fk, dev, dtype, *case)
             out.update(outs)
             calls.update(mr_calls)
         res[str(dtype)] = {k: v.cpu() for k, v in out.items()}
@@ -133,11 +140,14 @@ def save(path: str, no_fma: bool = False) -> None:
           "1k rollout", [round(x, 4) for x in res["rollout_ms"]], "ms/step")
 
 
-def _mr_outputs(cs, fk, dev, dtype, tag, builder):
-    """K1 (fe, prep), K2, K5 and K5t `[tag]` on the strained random state of
-    chip_smoke's `[kernels]` (u scaled by STRAIN_SCALE); and calls that
-    repeat each launch."""
-    system = getattr(cs, builder)("cpu", torch.float64, material=cs.mooney_rivlin())[0]
+def _mr_outputs(cs, fk, dev, dtype, tag, builder, size, kernels):
+    """`kernels` of K1 (fe, prep), K2, K5 and K5t `[tag]` on the strained
+    random state of chip_smoke's `[kernels]` (u scaled by STRAIN_SCALE),
+    keyed "<kernel>[<tag>]" (with "_e<E>" where a size is given); and calls
+    that repeat each launch."""
+    system = getattr(cs, builder)("cpu", torch.float64,
+                                  *(() if size is None else (getattr(cs, size),)),
+                                  material=cs.mooney_rivlin())[0]
     op = fk.FemOperator(system.elems.to(dev, dtype), system.material)
     n = op.n
     rng = np.random.default_rng(1)
@@ -152,9 +162,11 @@ def _mr_outputs(cs, fk, dev, dtype, tag, builder):
              "hv": lambda: fk.hv(op, p, prep, 1e-3),
              "contrib": lambda: fk.contrib(op, packed),
              "contrib_tangent": lambda: fk.contrib_tangent(op, packed, dp)}
-    out = {f"{k}[{tag}]": calls[k]() for k in MR_KERNELS if k != "primal_prep"}
-    out[f"primal_prep[{tag}]"], out[f"prep[{tag}]"] = fe, prep
-    return out, {f"{k}[{tag}]": fn for k, fn in calls.items()}
+    sfx = "" if size is None else f"_e{op.E}"
+    out = {f"{k}[{tag}]{sfx}": calls[k]() for k in kernels if k != "primal_prep"}
+    if "primal_prep" in kernels:
+        out[f"primal_prep[{tag}]"], out[f"prep[{tag}]"] = fe, prep
+    return out, {f"{k}[{tag}]{sfx}": calls[k] for k in kernels}
 
 
 def _rollout_ms(cs, dev):

@@ -16,6 +16,21 @@ Parts (all when none is named):
             an empty launch of the same grid;
   beams     K1 and K5 `[ancf3243_mr]` as in `elements` on beams of
             `BEAMS` elements (64 to 32,768);
+  hv        K2 `hv` with Mooney-Rivlin in each form of `HV_FORMS`
+            (kernel_variants.cu: the parent; the point's operands streamed
+            through shared memory, `smem`, fem_kernels.cuh `hv_tile`'s
+            STREAM; the chain reading the prep rows where it uses them,
+            `rows`; each with no register cap and under __launch_bounds__
+            for 2 and 3 blocks an SM, `_lb2`, `_lb3`) beside the shipped
+            kernel at `HV_CASES` (the 10k
+            flagship, the 1k box, the bunny's 96-element fallback mesh, the
+            72 x 72 shell, the 64-element beam), float32 and float64: each
+            form held bit for bit against the shipped kernel (the shipped
+            within 1e-5, float64 1e-12, of its twin), timed twice in the
+            order A B C ... C B A, with its registers, local (spill) bytes
+            and blocks an SM from the CUDA runtime, ptxas's spill stores,
+            and its waves over the card's SMs; and the floor of an empty
+            launch of the grid with each form's shared memory;
   k4        K4's walk in its forms (one incidence at a time, batches of
             4-32 per (node, channel), a thread per node) at the 10k box, the
             100k box and the shell, each checked bit for bit against the
@@ -38,6 +53,7 @@ C B A.
 
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -62,6 +78,17 @@ SVK_TILES = {"feat10": ["late", "early"], "ancf3443": ["late", "early"]}
 TILE_TIMED = ("primal_prep", "contrib")
 NG = {"feat10": 5, "ancf3243": 4, "ancf3443": 4}  # each family's quadrature-point groups
 BEAMS = (64, 1024, 8192, 32768)  # ANCF3243 beam lengths of `beams`
+# K2's forms in kernel_variants.cu (tlfea_hv_<family>_<form>_mr_<sfx>)
+HV_FORMS = ["parent", "lb2", "lb3", "smem", "smem_lb2", "smem_lb3", "rows", "rows_lb2",
+            "rows_lb3", "smem_rows", "smem_rows_lb2", "smem_rows_lb3"]
+# (tag, chip_smoke builder, the name of its size argument there or None) of
+# `hv`'s shapes: the 10k flagship, the bench.py 1k box, the bunny's fallback
+# mesh, the 72 x 72 shell, the 64-element beam
+HV_CASES = (("feat10_mr", "flagship_problem", None),
+            ("feat10_mr", "flagship_problem", "RESIDENT_DIMS"),
+            ("feat10_mr", "flagship_problem", "BUNNY_DIMS"),
+            ("ancf3443_mr", "shell_problem", None), ("ancf3243_mr", "ancf_beam_problem", None))
+HV_DT = 1e-3
 # K4's forms in kernel_variants.cu (tlfea_node_reduce_form_f32)
 K4_FORMS = {"walk1": 0, "chan4": 1, "chan8": 2, "chan16": 3, "chan32": 4, "node8": 5,
             "node16": 6, "node4": 7}
@@ -80,6 +107,9 @@ def _cs():
     return chip_smoke
 
 
+PTXAS = []  # the variants library's ptxas report, line by line
+
+
 def _library():
     fk.build_kernels()
     so = os.path.join(fk._BUILD, "libkernel_variants.so")
@@ -89,8 +119,33 @@ def _library():
         raise RuntimeError(f"nvcc failed:\n{res.stderr}")
     for line in res.stderr.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
-            print("ptxas: " + line.split("ptxas info    :")[-1].strip())
+            PTXAS.append(line.split("ptxas info    :")[-1].strip())
+            print("ptxas: " + PTXAS[-1])
     return ctypes.CDLL(so)
+
+
+def _hv_spills():
+    """{(T "f" or "d", S, STREAM, ROWS, MINB): ptxas's spill stores in bytes}
+    of the Mooney-Rivlin K2 variants, from their mangled names:
+    hv_kernel<T, F, M, STREAM> (MINB 1) or hv_capped_kernel<T, F, M, STREAM,
+    MINB>, M MrMat or MrRows (ROWS)."""
+    pat = re.compile(r"hv_(?:capped_)?kernelI([fd]).*?FamilyILi(\d+)E.*?(MrMat|MrRows)I[fd]E+"
+                     r"Lb([01])E(?:Li(\d+)E)?")
+    out, key = {}, None
+    for line in PTXAS:
+        m = pat.search(line) if "Compiling entry" in line else None
+        if m:
+            key = (m[1], int(m[2]), m[4] == "1", m[3] == "MrRows", int(m[5] or 1))
+        elif key is not None and "spill stores" in line:
+            out[key] = int(line.split(" bytes spill stores")[0].split(",")[-1])
+            key = None
+    return out
+
+
+def _form_key(dtype, S, form):
+    """The _hv_spills key of a form of HV_FORMS."""
+    minb = int(form[-1]) if "lb" in form else 1
+    return ("f" if dtype == torch.float32 else "d", S, "smem" in form, "rows" in form, minb)
 
 
 def _checked(fn, what):
@@ -247,6 +302,90 @@ def beams(lib):
         _tiles(lib, cs, "ancf3243_mr", system, MR_TILE_VARIANTS, MR_TILE_VARIANTS_F64)
 
 
+def hv(lib):
+    """K2 `[<family>_mr]` in each form of HV_FORMS beside the shipped kernel
+    at HV_CASES, float32 and float64 (see the module's docstring)."""
+    cs = _cs()
+    dev = torch.device("cuda")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    empty = lib.tlfea_empty_launch
+    empty.argtypes, empty.restype = [I, I, I, P], ctypes.c_int
+    s = torch.cuda.current_stream().cuda_stream
+    spills = _hv_spills()
+    mr = cs.mooney_rivlin()
+    for tag, builder, size in HV_CASES:
+        family = fk._untag(tag)[0]
+        system = getattr(cs, builder)("cpu", torch.float64,
+                                      *(() if size is None else (getattr(cs, size),)),
+                                      material=mr)[0]
+        for dtype in (torch.float32, torch.float64):
+            op = fk.FemOperator(system.elems.to(dev, dtype), system.material)
+            sfx = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+            x = _inputs(cs, op, tag, dtype, dev)
+            prep = fk.primal_prep(op, x["packed"])[1]
+            shipped = fk.hv(op, x["p"], prep, HV_DT)
+            want = fk.hv_plain(op, x["p"], prep, HV_DT)
+            torch.cuda.synchronize()
+            rel = float((shipped - want).abs().max() / want.abs().max())
+            if not rel <= (1e-5 if dtype == torch.float32 else 1e-12):
+                raise AssertionError(f"hv[{tag}] {sfx} E={op.E} disagrees with its twin: "
+                                     f"{rel:.3e}")
+            calls = {"shipped": lambda op=op, x=x, prep=prep: fk.hv(op, x["p"], prep, HV_DT)}
+            occ = {"shipped": fk.occupancy("hv", tag, dtype)}
+            notes = {"shipped": f"twin rel err {rel:.2e}"}
+            for v in HV_FORMS:
+                f = getattr(lib, f"tlfea_hv_{family}_{v}_mr_{sfx}")
+                f.argtypes = [P] * 7 + [I] + [D] * (1 + len(op.mat_args)) + [P]
+                f.restype = ctypes.c_int
+                out = torch.empty_like(shipped)
+                conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in
+                        (x["p"], op.conn_t, prep, op.gN_t, op.dV_t, op.Me_t, out, op.E, HV_DT,
+                         *op.mat_args, s)]
+                call = _checked(lambda f=f, conv=conv: f(*conv), f"hv[{tag} {v} {sfx}]")
+                call()
+                torch.cuda.synchronize()
+                if torch.equal(out, shipped):
+                    notes[v] = "bitwise the shipped"
+                else:
+                    diff = float((out - shipped).abs().max() / shipped.abs().max())
+                    notes[v] = (f"DIFFERS from the shipped in {int((out != shipped).sum())} of "
+                                f"{out.numel()} entries, max rel {diff:.2e}")
+                o = getattr(lib, f"tlfea_occupancy_hv_{family}_{v}_mr_{sfx}")
+                o.argtypes, o.restype = [ctypes.POINTER(I)], ctypes.c_int
+                res = (I * 3)()
+                if o(res) != 0:
+                    raise RuntimeError(f"hv[{tag} {v} {sfx}]: occupancy query failed")
+                occ[v] = {"regs": res[0], "local_bytes": res[1], "blocks_per_sm": res[2]}
+                calls[v] = call
+            keys = list(calls)
+            times = {k: [] for k in keys}
+            for k in keys + keys[::-1]:
+                times[k].append(cs._device_ms(calls[k], 256)[0] * 1e3)
+            blocks = fk.launch_blocks("hv", op)
+            for v in keys:
+                o = occ[v]
+                waves = -(-blocks // (o["blocks_per_sm"] * n_sm)) if o["blocks_per_sm"] else 0
+                sp = spills.get(_form_key(dtype, op.S, "parent" if v == "shipped" else v))
+                print(f"hv[{tag}] {sfx} E={op.E} {v}: {min(times[v]):.2f} us "
+                      f"({times[v][0]:.2f}/{times[v][1]:.2f}), {o['regs']} registers, "
+                      f"{o['local_bytes']} B local"
+                      + ("" if sp is None or v == "shipped" else f" ({sp} B spill stores)")
+                      + f", {o['blocks_per_sm']} blocks an SM, {waves} wave(s) of {blocks} "
+                      f"blocks; {notes[v]}", flush=True)
+            threads = 32 * NG[family]
+            for label, stream in (("parent", False), ("smem", True)):
+                rows = op.S * 3 + NG[family] * op.S * 3
+                if stream:
+                    rounds = op.Q // NG[family]
+                    rows += min(rounds, 2) * NG[family] * (op.S * 3 + 1 + op.prep_rows)
+                smem = rows * 32 * dtype.itemsize
+                call = _checked(lambda smem=smem: empty(blocks, threads, smem, s), "empty")
+                print(f"hv[{tag}] {sfx} empty launch of {blocks} blocks x {threads} threads, "
+                      f"{smem} B ({label}): {cs._device_ms(call, 256)[0] * 1e3:.2f} us",
+                      flush=True)
+
+
 def k4(lib):
     """K4's forms, float32, C = 3 (the gradient's and Hv's node sums) and C =
     6 (the block-Jacobi blocks', and `[kernels]`' random values)."""
@@ -368,7 +507,8 @@ def resident(lib):
               flush=True)
 
 
-PARTS = {"elements": elements, "beams": beams, "k4": k4, "barriers": barriers, "resident": resident}
+PARTS = {"elements": elements, "beams": beams, "hv": hv, "k4": k4, "barriers": barriers,
+         "resident": resident}
 
 
 def main():
