@@ -443,8 +443,8 @@ def occupancy_fields(name, tag, dtype, blocks, launch=None):
     """({"regs", "waves"}, a log text) of one launch of `blocks` blocks of
     kernel `name` of `tag`: its registers and local bytes a thread and its
     blocks an SM from the CUDA runtime (`fem_kernels.occupancy`; launch:
-    the persistent kernel's (E, cluster)), and the waves those blocks take
-    over the card's SMs."""
+    an element kernel's E, the persistent kernel's (E, cluster)), and the
+    waves those blocks take over the card's SMs."""
     import torch
 
     from tlfea_torch.ops import fem_kernels as fk
@@ -454,9 +454,10 @@ def occupancy_fields(name, tag, dtype, blocks, launch=None):
     if o["blocks_per_sm"] < 1:
         raise AssertionError(f"{name}[{tag}]: no block of its launch fits an SM: {o}")
     waves = -(-blocks // (o["blocks_per_sm"] * n_sm))
+    shape = f" of {o['threads']} threads ({o['elements']} elements)" if "threads" in o else ""
     return ({"regs": o["regs"], "waves": waves},
             f"{o['regs']} registers and {o['local_bytes']} B local a thread, "
-            f"{o['blocks_per_sm']} blocks an SM, {waves} wave(s) of {blocks} blocks over "
+            f"{o['blocks_per_sm']} blocks an SM, {waves} wave(s) of {blocks} blocks{shape} over "
             f"{n_sm} SMs")
 
 
@@ -513,8 +514,10 @@ def phase_kernels(device, tag, system):
             if not ok:
                 raise AssertionError(f"{name}[{tag}] disagrees with its twin in {dtype}: "
                                      f"{rel:.3e}")
-            occ, occ_text = occupancy_fields(name, op.family if name == "node_reduce" else op.tag,
-                                             dtype, fk.launch_blocks(name, op, C=6))
+            k4 = name == "node_reduce"
+            occ, occ_text = occupancy_fields(name, op.family if k4 else op.tag, dtype,
+                                             fk.launch_blocks(name, op, C=6),
+                                             None if k4 else op.E)
             log("kernels", f"{name}[{tag}] {str(dtype)[6:]} at E={E}: {occ_text}")
             if dtype != torch.float32:
                 continue

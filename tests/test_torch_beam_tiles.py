@@ -1,0 +1,152 @@
+"""K5 `contrib[ancf3243]` (SVK) and K2 `hv[ancf3243_mr]` on the CPU, at the
+beam lengths at which `tests/test_torch_cuda.py` holds their CUDA kernels
+(which may launch one thread a quadrature point, `fem_kernels.cuh`
+`Points`) to the twins (`test_beam_*`): E = 1, 7, 33, 64, 65, 1,024 and
+1,027 elements, the ragged ones a multiple of neither 8 nor 32.
+
+On the CPU the wrappers run the plain twins, which the card tests take as
+the reference. Here they go against the JAX package's XLA path at the card
+tests' strained state (u 1e-2, v and dv/dt standard normal), in float64
+within 1e-12 of the largest entry: K5's fe against the element contribution
+`_element_contrib_values`, K2's product from K1's prep cache against its
+`jax.jvp` along the Newton chain (dt p, p, p / dt), damped and undamped,
+and at the beam mirrored in x (det F < 0 at every point). `straight_beam`
+spaces the nodes by the element length, so a beam of E elements is the
+first E elements of the longest one: JAX runs once on the longest beam
+(jitted), and each shorter beam's twin goes against its first E columns.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_mooney_rivlin import _JMooneyRivlin, _mr_from_E_nu
+from tlfea.elements import ancf3243 as j_ancf3243
+from tlfea.elements.assembly import _element_contrib_values
+from tlfea.materials import SVK as JSVK
+from tlfea.materials import lame_from_E_nu as j_lame
+from tlfea_torch.elements import ancf3243
+from tlfea_torch.materials import SVK, MooneyRivlin
+from tlfea_torch.ops import fem_kernels as fk
+
+torch.set_num_threads(2)
+
+SIZES = [1, 7, 33, 64, 65, 1024, 1027]
+ELEM = (0.1, 0.02, 0.02)  # element length, width, height (`_ancf_system`)
+STRAIN, DT, RTOL = 1e-2, 1e-3, 1e-12
+
+
+def _materials(kind, damping=1e3):
+    """(port, JAX) material: damped SVK at E 1e7, nu 0.3, or Mooney-Rivlin
+    mapped from the same as `examples/bunny_deform.py` maps it."""
+    if kind == "svk":
+        lam, mu = (float(x) for x in j_lame(1e7, 0.3))
+        return SVK(lam, mu, damping, damping), JSVK(lam=lam, mu=mu, eta_damp=damping,
+                                                    lam_damp=damping)
+    c = _mr_from_E_nu(1e7, 0.3, damping)
+    return MooneyRivlin(c["mu10"], c["mu01"], c["kappa"], damping, damping), _JMooneyRivlin(**c)
+
+
+@pytest.fixture(scope="module")
+def beam():
+    """The longest beam: coefficients, JAX elements, the strained state
+    (n, 9), its mirror in x and a direction p (n, 3)."""
+    coefs, conn = j_ancf3243.straight_beam(max(SIZES), L=ELEM[0])
+    elems = j_ancf3243.build(coefs, conn, *ELEM, rho=1000.0)
+    rng = np.random.default_rng(21)
+    n = len(coefs)
+    host = np.concatenate([rng.normal(size=(n, 3)) * STRAIN, rng.normal(size=(n, 6))], 1)
+    mirrored = host.copy()
+    mirrored[:, 0] -= 2.0 * coefs[:, 0]  # every x mirrored (the gradient rows' x too)
+    return dict(coefs=coefs, elems=elems, host=host, mirrored=mirrored,
+                p=rng.normal(size=(n, 3)))
+
+
+@functools.lru_cache(maxsize=None)
+def _elems(E):
+    """The port's first E elements, float64 on the CPU, and their coefficients."""
+    coefs, conn = ancf3243.straight_beam(E, L=ELEM[0])
+    return coefs, ancf3243.build(coefs, conn, *ELEM, rho=1000.0, device="cpu")
+
+
+def _op(beam, E, material):
+    """The port's operator on the first E elements."""
+    coefs, elems = _elems(E)
+    assert np.array_equal(coefs, beam["coefs"][:len(coefs)])
+    return fk.FemOperator(elems, material)
+
+
+def _cols(ref, E):
+    """JAX's (E_max, S, 3) values -> the first E elements as (S*3, E)."""
+    return np.transpose(np.asarray(ref)[:E], (1, 2, 0)).reshape(-1, E)
+
+
+def _rel(got, want):
+    return float(np.abs(got.numpy() - want).max() / np.abs(want).max())
+
+
+@pytest.fixture(scope="module")
+def k5_ref(beam):
+    """JAX's element contribution with damped SVK on the longest beam."""
+    jmat = _materials("svk")[1]
+    fn = jax.jit(lambda u, v, a: _element_contrib_values(u, v, a, beam["elems"], jmat))
+    return fn(*(jnp.asarray(beam["host"][:, 3 * k:3 * k + 3]) for k in range(3)))
+
+
+@pytest.fixture(scope="module")
+def k2_refs(beam):
+    """{damping: JAX's Hv at (the strained state, its mirror)}: jax.jvp of
+    the element contribution along (dt p, p, p / dt), one jitted function a
+    material."""
+    p = jnp.asarray(beam["p"])
+    out = {}
+    for damping in (0.0, 1e3):
+        jmat = _materials("mr", damping)[1]
+
+        def contrib(u, v, a, jmat=jmat):
+            return _element_contrib_values(u, v, a, beam["elems"], jmat)
+
+        fn = jax.jit(lambda u, v, a: jax.jvp(contrib, (u, v, a), (DT * p, p, p / DT))[1])
+        out[damping] = tuple(fn(*(jnp.asarray(beam[state][:, 3 * k:3 * k + 3])
+                                  for k in range(3))) for state in ("host", "mirrored"))
+    return out
+
+
+@pytest.mark.parametrize("E", SIZES)
+def test_beam_contrib_twin_matches_jax(beam, k5_ref, E):
+    op = _op(beam, E, _materials("svk")[0])
+    assert (op.tag, op.E) == ("ancf3243", E)
+    packed = torch.as_tensor(beam["host"][:op.n]).contiguous()
+    fe5 = fk.contrib(op, packed)
+    assert _rel(fe5, _cols(k5_ref, E)) < RTOL
+    assert torch.equal(fk.primal_prep(op, packed)[0], fe5)
+
+
+def _twin_hv(beam, E, damping, state):
+    op = _op(beam, E, _materials("mr", damping)[0])
+    assert (op.tag, op.E) == ("ancf3243_mr", E)
+    _, prep = fk.primal_prep(op, torch.as_tensor(beam[state][:op.n]).contiguous())
+    got = fk.hv(op, torch.as_tensor(beam["p"][:op.n]).contiguous(), prep, DT)
+    return got, prep.view(op.Q, op.prep_rows, op.E)[:, 18]
+
+
+@pytest.mark.parametrize("damping", [0.0, 1e3], ids=["undamped", "damped"])
+@pytest.mark.parametrize("E", SIZES)
+def test_beam_mr_hv_twin_matches_jax(beam, k2_refs, E, damping):
+    got, jm1 = _twin_hv(beam, E, damping, "host")
+    assert float(jm1.abs().max()) < 0.9  # strained, nothing inverted
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, _cols(k2_refs[damping][0], E)) < RTOL
+
+
+@pytest.mark.parametrize("E", SIZES)
+def test_beam_mr_hv_twin_at_an_inverted_point_matches_jax(beam, k2_refs, E):
+    got, jm1 = _twin_hv(beam, E, 1e3, "mirrored")
+    want = _cols(k2_refs[1e3][1], E)
+    assert float(jm1.max()) < -1.0  # J < 0 at every point
+    assert bool(torch.isfinite(got).all()) and np.isfinite(want).all()
+    assert _rel(got, want) < RTOL

@@ -1048,3 +1048,111 @@ def test_mr_hv_feat10_runs_the_flagship_in_one_wave(cuda_dev):
     assert occ["blocks_per_sm"] == MR_HV_FEAT10_BLOCKS_PER_SM
     n_sm = torch.cuda.get_device_properties(cuda_dev).multi_processor_count
     assert -(-10584 // fk.TILE) <= occ["blocks_per_sm"] * n_sm
+
+
+# K5 `contrib[ancf3243]` (SVK) and K2 `hv[ancf3243_mr]`, which an
+# instantiation may launch with one thread a quadrature point
+# (`fem_kernels.cuh` `Points`): beams of E elements of `_ancf_system`, E a
+# multiple of neither 8 nor 32 where ragged (1, 7, 33, 65, 1,027: a last
+# block of one element, a row stride E * itemsize off 16 bytes), the
+# lengths of chip_smoke's [kernels] and [ancf_beam_1024] beams (64, 1,024),
+# and one element past each gate of `BEAM_SPLIT` (2,049, 4,097: the parent
+# tile of a split instantiation), at the strained state of `_mr_ancf_case`
+# (u 1e-2, J - 1 within +-0.5).
+BEAM_TILE_SIZES = [1, 7, 33, 64, 65, 1024, 1027, 2049, 4097]
+# Each kernel's launch as PERF.md records the choice: (TE, MAX_E), the split
+# (TE elements x 12 points a block) on beams of up to MAX_E elements, the
+# parent tile (32 elements x 4 groups of points) above.
+BEAM_SPLIT = {("contrib", torch.float32): (8, 4096), ("contrib", torch.float64): (8, 4096),
+              ("hv", torch.float32): (8, 2048), ("hv", torch.float64): (8, 4096)}
+
+
+def _beam_tile_case(device, dtype, E, material=None):
+    """(system, packed, p): an E-element cantilever of `_ancf_system` at the
+    strained random state, and a random direction."""
+    system, _, _ = _ancf_system(device, dtype, "ancf3243", n=(E, 1), material=material)
+    rng = np.random.default_rng(21)
+    n = system.n_coef
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+
+    packed = np.concatenate([rng.normal(size=(n, 3)) * ANCF_MR_STRAIN["ancf3243"],
+                             rng.normal(size=(n, 6))], 1)
+    return system, dev(packed), dev(rng.normal(size=(n, 3)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("E", BEAM_TILE_SIZES)
+def test_beam_contrib_matches_twin_repeats_and_is_k1(cuda_dev, E, dtype, tol):
+    """K5 `[ancf3243]` against its twin in one launch, bitwise repeatable,
+    and equal to K1's fe bit for bit."""
+    system, packed, _ = _beam_tile_case(cuda_dev, dtype, E)
+    op = system.fem
+    assert (op.tag, op.E) == ("ancf3243", E)
+    fk.reset_launch_counts()
+    fe5 = fk.contrib(op, packed)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["contrib[ancf3243]"] == 1 and sum(fk.LAUNCHES.values()) == 1
+    assert bool(torch.isfinite(fe5).all()) and _rel(fe5, fk.contrib_plain(op, packed)) < tol
+    assert torch.equal(fk.contrib(op, packed), fe5)
+    assert torch.equal(fk.primal_prep(op, packed)[0], fe5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("damping", [0.0, 1e3], ids=["undamped", "damped"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("E", BEAM_TILE_SIZES)
+def test_beam_mr_hv_matches_twin_and_repeats(cuda_dev, E, dtype, tol, damping):
+    """K2 `[ancf3243_mr]` against `hv_plain` in one launch, damped and
+    undamped; bitwise repeatable."""
+    system, packed, p = _beam_tile_case(cuda_dev, dtype, E, _mooney_rivlin(damping=damping))
+    op = system.fem
+    assert (op.tag, op.E) == ("ancf3243_mr", E)
+    _, prep = fk.primal_prep_plain(op, packed)
+    assert float(prep.view(op.Q, op.prep_rows, op.E)[:, 18].abs().max()) < 0.9
+    fk.reset_launch_counts()
+    got = fk.hv(op, p, prep, DT)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["hv[ancf3243_mr]"] == 1 and sum(fk.LAUNCHES.values()) == 1
+    assert bool(torch.isfinite(got).all()) and _rel(got, fk.hv_plain(op, p, prep, DT)) < tol
+    assert torch.equal(fk.hv(op, p, prep, DT), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("E", BEAM_TILE_SIZES)
+def test_beam_mr_hv_matches_twin_at_an_inverted_point(cuda_dev, E, dtype, tol):
+    """K2 `[ancf3243_mr]` on the beam mirrored in x (det F < 0 at every
+    point: CUDA's real `cbrt` against the twin's sign-preserving root)."""
+    system, packed, p = _beam_tile_case(cuda_dev, dtype, E, _mooney_rivlin())
+    packed = packed.clone()
+    packed[:, 0] -= 2.0 * system.elems.x_ref[:, 0]  # x -> -x
+    op = system.fem
+    _, prep = fk.primal_prep_plain(op, packed)
+    assert float(prep.view(op.Q, op.prep_rows, op.E)[:, 18].max()) < -1.0  # J < 0
+    got = fk.hv(op, p, prep, DT)
+    want = fk.hv_plain(op, p, prep, DT)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(want).all()) and bool(torch.isfinite(got).all())
+    assert _rel(got, want) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("kernel,tag", [("contrib", "ancf3243"), ("hv", "ancf3243_mr")])
+def test_beam_tiles_report_the_block_they_launch(cuda_dev, kernel, tag, dtype):
+    """`occupancy` reports the block of the launch that runs: the split's TE
+    elements x 12 points up to MAX_E elements, the parent's 32 x 4 above,
+    each with at least one block an SM; and `launch_blocks` counts the
+    split's blocks on a ragged beam."""
+    te, max_e = BEAM_SPLIT[(kernel, dtype)]
+    for E, shape in ((1, (te, te * 12)), (65, (te, te * 12)), (max_e, (te, te * 12)),
+                     (max_e + 1, (32, 128)), (None, (32, 128))):
+        occ = fk.occupancy(kernel, tag, dtype, E)
+        assert (occ["elements"], occ["threads"]) == shape, E
+        assert occ["blocks_per_sm"] >= 1
+    system = _beam_tile_case(cuda_dev, dtype, 65, None if tag == "ancf3243" else
+                             _mooney_rivlin())[0]
+    assert fk.launch_blocks(kernel, system.fem) == -(-65 // te)

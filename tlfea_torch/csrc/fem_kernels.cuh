@@ -121,22 +121,24 @@ constexpr size_t smem_bytes() {
 }
 
 // Gather the first CIN channels of the tile's slot values (rows of STRIDE
-// channels in src) into xs[(a*CIN + c) * EX + x], the first NCENT channels
-// of a translation slot centred on slot 0 and everything else raw.
-template <typename T, class F, int CIN, int NCENT, int STRIDE = CIN>
+// channels in src) into xs[(a*CIN + c) * W + x], the first NCENT channels
+// of a translation slot centred on slot 0 and everything else raw. The tile
+// is W elements wide (blockDim.x) and the block NT threads.
+template <typename T, class F, int CIN, int NCENT, int STRIDE = CIN, int W = EX,
+          int NT = EX * F::NG>
 __device__ __forceinline__ void stage(const T* src, const int* __restrict__ conn_t,
                                       int E, int e0, T* xs) {
-  constexpr int S = F::S, NT = EX * F::NG;
+  constexpr int S = F::S;
   const size_t sE = (size_t)E;
-  const int tid = threadIdx.y * EX + threadIdx.x;
-  for (int t = tid; t < S * EX; t += NT) {
-    const int a = t / EX, x = t - a * EX, e = e0 + x;
+  const int tid = threadIdx.y * W + threadIdx.x;
+  for (int t = tid; t < S * W; t += NT) {
+    const int a = t / W, x = t - a * W, e = e0 + x;
     if (e >= E) continue;
     const T* pa = src + (size_t)conn_t[a * sE + e] * STRIDE;
     const T* p0 = src + (size_t)conn_t[e] * STRIDE;
     const bool tr = trans_slot<F>(a);
     for (int c = 0; c < CIN; ++c)
-      xs[(a * CIN + c) * EX + x] = (c < NCENT && tr) ? pa[c] - p0[c] : pa[c];
+      xs[(a * CIN + c) * W + x] = (c < NCENT && tr) ? pa[c] - p0[c] : pa[c];
   }
 }
 
@@ -679,6 +681,315 @@ hv_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
                            reinterpret_cast<T*>(smem_raw));
 }
 
+// One thread a quadrature point: K5 and K2 where a mesh has few elements.
+//
+// In the tiles above a thread walks its Q / NG points in turn, and every
+// point's chain waits on loads: at the 64-element ANCF3243 beam K5 and K2
+// launch 2 blocks of 4 warps, so 2 of 132 SMs work with one warp a
+// sub-partition and nothing hides a stall. Each thread runs about ten
+// dependent trips to L2 (conn, the gather, then each of its three points'
+// shape gradients and volume, then Me) and three points' chains in turn:
+// 5.5-6.3 us a launch against a 1.6-1.9 us empty launch and a 0.03-0.06 us
+// bound on an H100 (PERF.md, Findings). Here a block takes TE elements and
+// Q points: thread (x, q) runs point q of element e0 + x, one chain, on more
+// SMs. With Hold::early it loads its point's operands (the S*3 gradient
+// rows and the dV row, K2's PR prep rows, and as a reducer its slot's S Me
+// rows) into registers before the block gathers conn -> packed, so they
+// arrive while the gather resolves; with Hold::none it loads them where
+// used. (`kernel_variants.cu` adds Hold::stream, the same loads copied into
+// shared memory by cp.async: a Step-0 form that no instantiation ships.)
+//
+// The bits stay the parent's: the point thread writes its per-slot terms
+// t_qai = P[i][0] g0 + P[i][1] g1 + P[i][2] g2 (the parent's expression)
+// and its volume w_q into shared memory, and the thread that reduces
+// (element, slot) replays the parent's order: for each group h of the
+// parent's NG, f_h = 0, f_h += t_q w_q over q = h, h + NG, ...; then s = 0,
+// s += f_h over h; then the mass term (K2: s + (1/dt) m). So the compiler
+// fuses the same multiply-adds as in the parent.
+
+// The parent layout (EX elements x NG groups of points) and the split (TE
+// elements x Q points), a compile-time choice per kernel and instantiation
+// (TLFEA_FAMILY_ENTRY_POINTS' K5_TILE, TLFEA_MR_ENTRY_POINTS' K2_TILE). The
+// split runs for E <= MAX_E and the parent above: where the parent's tiles
+// fill the card, its three points a thread cost less than the split's
+// terms through shared memory (PERF.md, Findings: the crossover).
+struct Groups {
+  static constexpr bool SPLIT = false;
+};
+
+template <int TE_, Hold HOLD_ = Hold::none, int MAX_E_ = 0x7fffffff>
+struct Points {
+  static constexpr bool SPLIT = true;
+  static constexpr int TE = TE_;
+  static constexpr Hold HOLD = HOLD_;
+  static constexpr int MAX_E = MAX_E_;
+};
+
+// Whether layout L launches the split at E elements.
+template <class L>
+constexpr bool split_at(int E) {
+  if constexpr (L::SPLIT) return E <= L::MAX_E; else return false;
+}
+
+// A point thread's operands: its point's shape gradients and volume (and
+// K2's PR prep rows), in registers (early) or in global memory (none).
+// ROWS: the rows of the point's column of shared memory, col[r * TE] (its
+// S*3 terms, then w); issued() and landed(): after the block's copies of
+// operands are issued and before they are read (none here).
+template <typename T, class F, int TE, Hold HOLD, int PR>
+struct PointOperands {
+  static_assert(HOLD == Hold::none || HOLD == Hold::early,
+                "a point thread loads where used or early (stream: kernel_variants.cu)");
+  static constexpr bool HELD = HOLD == Hold::early;
+  static constexpr int ROWS = F::S * 3 + 1;
+  T g[F::S][3], w, pr[PR > 0 ? PR : 1];
+  const T* gq;  // the point's first gradient row at element e
+  const T* dv;  // its volume
+  const T* pq;  // its first prep row
+  size_t sE;
+
+  __device__ __forceinline__ PointOperands(const T* __restrict__ gN_t, const T* __restrict__ dV_t,
+                                           const T* prep, int q, int e, int E, T*)
+      : sE((size_t)E) {
+    gq = gN_t + (size_t)q * F::S * 3 * sE + e;
+    dv = dV_t + (size_t)q * sE + e;
+    pq = prep + (size_t)q * PR * sE + e;
+    if (!HELD || e >= E) return;
+#pragma unroll
+    for (int a = 0; a < F::S; ++a)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) g[a][j] = gq[(a * 3 + j) * sE];
+    w = *dv;
+#pragma unroll
+    for (int r = 0; r < PR; ++r) pr[r] = pq[r * sE];
+  }
+
+  __device__ __forceinline__ T grad(int a, int j) const {
+    return HELD ? g[a][j] : gq[(a * 3 + j) * sE];
+  }
+  __device__ __forceinline__ T vol() const { return HELD ? w : *dv; }
+  // The material's dP from the point's prep rows (K2).
+  template <class M>
+  __device__ __forceinline__ void hv(const M& m, const T G[3][3], T dt, T dP[3][3]) const {
+    if constexpr (HELD)
+      m.hv(G, pr, 1, dt, dP);
+    else
+      m.hv(G, pq, sE, dt, dP);
+  }
+  __device__ static void issued() {}
+  __device__ static void landed() {}
+};
+
+// The reducing thread's Me rows (slot a of element e), in registers
+// (early) or read where used (none); ME: its rows of shared memory (none).
+template <typename T, class F, int TE, Hold HOLD>
+struct PointMass {
+  static constexpr int ME = 0;
+  T v[F::S];
+  const T* row;  // Me row a*S at element e
+  size_t sE;
+
+  __device__ __forceinline__ PointMass(const T* __restrict__ Me_t, T*, int a, int, int e, int E,
+                                       bool reduces)
+      : row(Me_t + (size_t)a * F::S * E + e), sE((size_t)E) {
+    if (HOLD == Hold::early && reduces)
+#pragma unroll
+      for (int b = 0; b < F::S; ++b) v[b] = row[b * sE];
+  }
+  __device__ __forceinline__ T operator()(int b) const {
+    return HOLD == Hold::early ? v[b] : row[b * sE];
+  }
+};
+
+// The split's shared memory, in rows of TE words: xs (S*CIN staged slot
+// channels), each point's ROWS rows, then the reducers' ME Me rows.
+template <typename T, class F, int TE, Hold HOLD, int CIN, int PR>
+struct PointSmem {
+  static_assert(F::S <= F::Q, "one reducing thread a (slot, element): S <= Q");
+  static constexpr int ROWS = PointOperands<T, F, TE, HOLD, PR>::ROWS;
+  static constexpr size_t BYTES =
+      (size_t)(F::S * CIN + F::Q * ROWS + PointMass<T, F, TE, HOLD>::ME) * TE * sizeof(T);
+  static_assert(BYTES <= 232448, "the tile exceeds an H100 block's 227 KB of shared memory");
+};
+
+// The point's terms t_ai = P[i][0] g0 + P[i][1] g1 + P[i][2] g2 and its
+// volume w into its rows at tq[r * TE] (term (a, i) at row a*3 + i, w at row
+// S*3). Where those rows hold the point's copied gradients (the stream
+// form), slot a's three are read before its terms overwrite them.
+template <typename T, class F, int TE, Hold HOLD, int PR>
+__device__ __forceinline__ void point_terms(const PointOperands<T, F, TE, HOLD, PR>& o,
+                                            const T P[3][3], T w, T* tq) {
+#pragma unroll
+  for (int a = 0; a < F::S; ++a) {
+    const T g0 = o.grad(a, 0), g1 = o.grad(a, 1), g2 = o.grad(a, 2);
+    T t[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) t[i] = P[i][0] * g0 + P[i][1] * g1 + P[i][2] * g2;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) tq[(a * 3 + i) * TE] = t[i];
+  }
+  tq[F::S * 3 * TE] = w;
+}
+
+// The reduce of (slot a, element x): the parent's sum of its NG partials
+// in its order, from the points' terms (point q's rows at terms[q * ROWS *
+// TE], column x), then the consistent mass term over the staged channels
+// xs[(b*CIN + C0 + i) * TE + x] with the Me rows me(b); out = s + m, or s +
+// scale * m if SCALED (K2's 1/dt).
+template <typename T, class F, int TE, int ROWS, int CIN, int C0, bool SCALED, class ME>
+__device__ __forceinline__ void point_reduce(const T* terms, const T* xs, int a, int x,
+                                             const ME& me, T scale, T* out, size_t sE, int e) {
+  constexpr int S = F::S, Q = F::Q, NG = F::NG;
+  T f[3] = {T(0), T(0), T(0)};
+#pragma unroll
+  for (int h = 0; h < NG; ++h) {
+    T fh[3] = {T(0), T(0), T(0)};
+#pragma unroll
+    for (int q = h; q < Q; q += NG) {
+      const T* tq = terms + q * ROWS * TE + x;
+      const T w = tq[S * 3 * TE];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) fh[i] += tq[(a * 3 + i) * TE] * w;
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) f[i] += fh[i];
+  }
+  T m[3] = {T(0), T(0), T(0)};
+#pragma unroll
+  for (int b = 0; b < S; ++b) {
+    const T mb = me(b);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) m[i] += mb * xs[(b * CIN + C0 + i) * TE + x];
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    if constexpr (SCALED)
+      out[(a * 3 + i) * sE + e] = f[i] + scale * m[i];
+    else
+      out[(a * 3 + i) * sE + e] = f[i] + m[i];
+  }
+}
+
+// K5 split (layout Points<TE, HOLD>): K1's f_e without the prep cache, the
+// same arithmetic as primal_prep_tile<..., PREP = false> in its order, so
+// equal to K1's fe bit for bit. smem holds PointSmem<T, F, TE, HOLD, 9, 0>.
+template <typename T, class F, class M, int TE, Hold HOLD>
+__global__ void __launch_bounds__(TE * F::Q)
+contrib_points_kernel(const T* __restrict__ packed, const int* __restrict__ conn_t,
+                      const T* __restrict__ gN_t, const T* __restrict__ dV_t,
+                      const T* __restrict__ Me_t, T* __restrict__ fe, int E, M m) {
+  using O = PointOperands<T, F, TE, HOLD, 0>;
+  constexpr int S = F::S, NT = TE * F::Q;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);  // (S*9, TE): centred u | centred v | dv
+  T* pts = xs + S * 9 * TE;                // (Q * ROWS, TE)
+  T* mes = pts + F::Q * O::ROWS * TE;      // (ME, TE)
+  const int x = threadIdx.x, q = threadIdx.y, tid = q * TE + x;
+  const int e0 = blockIdx.x * TE, e = e0 + x;
+  const size_t sE = (size_t)E;
+  const int ra = tid / TE, rx = tid - ra * TE, re = e0 + rx;  // the reducer's (slot, element)
+  const bool reduces = ra < S && re < E;
+  T* tq = pts + q * O::ROWS * TE + x;  // this point's rows
+  const O o(gN_t, dV_t, nullptr, q, e, E, tq);
+  const PointMass<T, F, TE, HOLD> me(Me_t, mes, ra, rx, re, E, reduces);
+  O::issued();
+  stage<T, F, 9, 6, 9, TE, NT>(packed, conn_t, E, e0, xs);
+  O::landed();
+  __syncthreads();
+
+  if (e < E) {
+    const T* xe = xs + x;
+    T Du[3][3], Fd[3][3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) Du[i][j] = Fd[i][j] = T(0);
+#pragma unroll
+    for (int a = 1; a < S; ++a) {  // centred slot 0 is zero
+      T ua[3], va[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        ua[i] = xe[(a * 9 + i) * TE];
+        va[i] = xe[(a * 9 + 3 + i) * TE];
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const T gv = o.grad(a, j);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          Du[i][j] += ua[i] * gv;
+          Fd[i][j] += va[i] * gv;
+        }
+      }
+    }
+    T P[3][3];
+    m.template primal<false>(Du, Fd, P, nullptr, sE);
+    point_terms(o, P, o.vol(), tq);
+  }
+  __syncthreads();
+
+  if (reduces)
+    point_reduce<T, F, TE, O::ROWS, 9, 6, false>(pts, xs, ra, rx, me, T(1), fe, sE, re);
+}
+
+// K2 split (layout Points<TE, HOLD>): hv_tile's Hessian-vector product in
+// its arithmetic and order. smem holds PointSmem<T, F, TE, HOLD, 3, M::PR>.
+template <typename T, class F, class M, int TE, Hold HOLD>
+__global__ void __launch_bounds__(TE * F::Q)
+hv_points_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
+                 const T* __restrict__ prep, const T* __restrict__ gN_t,
+                 const T* __restrict__ dV_t, const T* __restrict__ Me_t, T* __restrict__ out,
+                 int E, T dt, M m) {
+  using O = PointOperands<T, F, TE, HOLD, M::PR>;
+  constexpr int S = F::S, NT = TE * F::Q;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);  // (S*3, TE): raw direction
+  T* pts = xs + S * 3 * TE;                // (Q * ROWS, TE)
+  T* mes = pts + F::Q * O::ROWS * TE;      // (ME, TE)
+  const int x = threadIdx.x, q = threadIdx.y, tid = q * TE + x;
+  const int e0 = blockIdx.x * TE, e = e0 + x;
+  const size_t sE = (size_t)E;
+  const int ra = tid / TE, rx = tid - ra * TE, re = e0 + rx;
+  const bool reduces = ra < S && re < E;
+  T* tq = pts + q * O::ROWS * TE + x;
+  const O o(gN_t, dV_t, prep, q, e, E, tq);
+  const PointMass<T, F, TE, HOLD> me(Me_t, mes, ra, rx, re, E, reduces);
+  O::issued();
+  stage<T, F, 3, 0, 3, TE, NT>(p, conn_t, E, e0, xs);
+  O::landed();
+  __syncthreads();
+
+  if (e < E) {
+    const T* xe = xs + x;
+    const T p0[3] = {xe[0], xe[TE], xe[2 * TE]};
+    T G[3][3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) G[i][j] = T(0);
+#pragma unroll
+    for (int a = 1; a < S; ++a) {
+      T pc[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        pc[i] = trans_slot<F>(a) ? xe[(a * 3 + i) * TE] - p0[i] : xe[(a * 3 + i) * TE];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const T gv = o.grad(a, j);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) G[i][j] += pc[i] * gv;
+      }
+    }
+    T dP[3][3];
+    o.hv(m, G, dt, dP);
+    point_terms(o, dP, o.vol(), tq);
+  }
+  __syncthreads();
+
+  if (reduces)
+    point_reduce<T, F, TE, O::ROWS, 3, 0, true>(pts, xs, ra, rx, me, T(1) / dt, out, sE, re);
+}
+
 // K3: per-(element, slot) SVK diagonal tangent blocks, sum_q K(F_q, h_qa) dV_q,
 // packed SYM6 (the caller applies the uniform dt weight). Runs once per
 // preconditioner refresh; SYM6 writes 6 channels instead of 9.
@@ -834,9 +1145,11 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
 
 // A kernel's registers a thread, local memory a thread in bytes (spills and
 // stack) and resident blocks an SM, launched with `threads` threads and
-// `smem` bytes of dynamic shared memory: out[0], out[1], out[2].
+// `smem` bytes of dynamic shared memory: out[0], out[1], out[2]; and the
+// launch's block, out[3] threads and out[4] elements (0 where a block takes
+// no tile of elements).
 template <typename K>
-int occupancy(K kernel, int threads, size_t smem, int* out) {
+int occupancy(K kernel, int threads, size_t smem, int* out, int elems = 0) {
   cudaFuncAttributes fa;
   cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
   if (err == cudaSuccess) err = allow_smem(kernel, smem);
@@ -847,6 +1160,8 @@ int occupancy(K kernel, int threads, size_t smem, int* out) {
   out[0] = fa.numRegs;
   out[1] = (int)fa.localSizeBytes;
   out[2] = blocks;
+  out[3] = threads;
+  out[4] = elems;
   return 0;
 }
 
@@ -866,9 +1181,27 @@ int launch_primal_prep(const void* packed, const void* conn_t, const void* gN_t,
   return (int)cudaGetLastError();
 }
 
-template <typename T, class F, Hold HOLD = Hold::none, class M>
+// K5 in layout L (Groups: the parent tile, loading the gradients as HOLD
+// says; Points<TE, H, MAX_E>: the split up to MAX_E elements, the parent
+// above).
+template <typename T, class F, Hold HOLD = Hold::none, class L = Groups, class M>
 int launch_contrib(const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,
                    const void* Me_t, void* fe, int E, const M& m, void* stream) {
+  if constexpr (L::SPLIT) {
+    if (split_at<L>(E)) {
+      constexpr size_t smem = PointSmem<T, F, L::TE, L::HOLD, 9, 0>::BYTES;
+      static const cudaError_t attr =
+          allow_smem(contrib_points_kernel<T, F, M, L::TE, L::HOLD>, smem);
+      if (attr != cudaSuccess) return (int)attr;
+      if (E > 0) {
+        contrib_points_kernel<T, F, M, L::TE, L::HOLD>
+            <<<(E + L::TE - 1) / L::TE, dim3(L::TE, F::Q), smem, (cudaStream_t)stream>>>(
+                (const T*)packed, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t,
+                (const T*)Me_t, (T*)fe, E, m);
+      }
+      return (int)cudaGetLastError();
+    }
+  }
   constexpr size_t smem = TileSmem<T, F, HOLD>::BYTES;
   static const cudaError_t attr = allow_smem(contrib_kernel<T, F, M, HOLD>, smem);
   if (attr != cudaSuccess) return (int)attr;
@@ -896,10 +1229,27 @@ int launch_contrib_tangent(const void* packed, const void* dpacked, const void* 
   return (int)cudaGetLastError();
 }
 
-template <typename T, class F, bool STREAM = false, class M>
+// K2 in layout L (Groups: the parent tile, streaming its operands if
+// STREAM; Points<TE, H, MAX_E>: the split up to MAX_E elements, the parent
+// above).
+template <typename T, class F, bool STREAM = false, class L = Groups, class M>
 int launch_hv(const void* p, const void* conn_t, const void* prep, const void* gN_t,
               const void* dV_t, const void* Me_t, void* out, int E, double dt, const M& m,
               void* stream) {
+  if constexpr (L::SPLIT) {
+    if (split_at<L>(E)) {
+      constexpr size_t smem = PointSmem<T, F, L::TE, L::HOLD, 3, M::PR>::BYTES;
+      static const cudaError_t attr = allow_smem(hv_points_kernel<T, F, M, L::TE, L::HOLD>, smem);
+      if (attr != cudaSuccess) return (int)attr;
+      if (E > 0) {
+        hv_points_kernel<T, F, M, L::TE, L::HOLD>
+            <<<(E + L::TE - 1) / L::TE, dim3(L::TE, F::Q), smem, (cudaStream_t)stream>>>(
+                (const T*)p, (const int*)conn_t, (const T*)prep, (const T*)gN_t,
+                (const T*)dV_t, (const T*)Me_t, (T*)out, E, (T)dt, m);
+      }
+      return (int)cudaGetLastError();
+    }
+  }
   constexpr size_t smem = HvSmem<T, F, M, STREAM>::BYTES;
   static const cudaError_t attr = allow_smem(hv_kernel<T, F, M, STREAM>, smem);
   if (attr != cudaSuccess) return (int)attr;
@@ -915,27 +1265,41 @@ int launch_hv(const void* p, const void* conn_t, const void* prep, const void* g
 template <typename T, class F, class M, Hold HOLD = Hold::none>
 int occupancy_primal_prep(int* out) {
   return occupancy(primal_prep_kernel<T, F, M, HOLD>, EX * F::NG, TileSmem<T, F, HOLD>::BYTES,
-                   out);
+                   out, EX);
 }
 
-template <typename T, class F, class M, Hold HOLD = Hold::none>
-int occupancy_contrib(int* out) {
-  return occupancy(contrib_kernel<T, F, M, HOLD>, EX * F::NG, TileSmem<T, F, HOLD>::BYTES, out);
+// K5 and K2 at the launch of E elements (the layout may depend on E).
+template <typename T, class F, class M, Hold HOLD = Hold::none, class L = Groups>
+int occupancy_contrib(int E, int* out) {
+  if constexpr (L::SPLIT) {
+    if (split_at<L>(E))
+      return occupancy(contrib_points_kernel<T, F, M, L::TE, L::HOLD>, L::TE * F::Q,
+                       PointSmem<T, F, L::TE, L::HOLD, 9, 0>::BYTES, out, L::TE);
+  }
+  return occupancy(contrib_kernel<T, F, M, HOLD>, EX * F::NG, TileSmem<T, F, HOLD>::BYTES, out,
+                   EX);
 }
 
 template <typename T, class F, class M>
 int occupancy_contrib_tangent(int* out) {
-  return occupancy(contrib_tangent_kernel<T, F, M>, EX * F::NG, smem_bytes<T, F, 15, 3>(), out);
+  return occupancy(contrib_tangent_kernel<T, F, M>, EX * F::NG, smem_bytes<T, F, 15, 3>(), out,
+                   EX);
 }
 
-template <typename T, class F, class M, bool STREAM = false>
-int occupancy_hv(int* out) {
-  return occupancy(hv_kernel<T, F, M, STREAM>, EX * F::NG, HvSmem<T, F, M, STREAM>::BYTES, out);
+template <typename T, class F, class M, bool STREAM = false, class L = Groups>
+int occupancy_hv(int E, int* out) {
+  if constexpr (L::SPLIT) {
+    if (split_at<L>(E))
+      return occupancy(hv_points_kernel<T, F, M, L::TE, L::HOLD>, L::TE * F::Q,
+                       PointSmem<T, F, L::TE, L::HOLD, 3, M::PR>::BYTES, out, L::TE);
+  }
+  return occupancy(hv_kernel<T, F, M, STREAM>, EX * F::NG, HvSmem<T, F, M, STREAM>::BYTES, out,
+                   EX);
 }
 
 template <typename T, class F>
 int occupancy_svk_blocks(int* out) {
-  return occupancy(svk_blocks_kernel<T, F>, EX * F::NG, smem_bytes<T, F, 3, 6>(), out);
+  return occupancy(svk_blocks_kernel<T, F>, EX * F::NG, smem_bytes<T, F, 3, 6>(), out, EX);
 }
 
 template <typename T, class F>
@@ -986,10 +1350,12 @@ int occupancy_node_reduce(int* out) {
 
 // Plain C interface of one family's K1-K3, K5 and K5t with SVK, bound with
 // ctypes (tlfea_torch/ops/fem_kernels.py): tlfea_<kernel>_<NAME>_<SUFFIX>;
-// and tlfea_occupancy_<NAME>_<SUFFIX>(kernel, out), occupancy() of the
+// and tlfea_occupancy_<NAME>_<SUFFIX>(kernel, E, out), occupancy() of the
 // kernel at index `kernel` of fem_kernels.KERNEL_NAMES (K1 0, K2 1, K3 2,
-// K5 4, K5t 5) at its launch shape.
-#define TLFEA_FAMILY_ENTRY_POINTS(NAME, FAM, SUFFIX, T)                                 \
+// K5 4, K5t 5) at its launch on E elements (out: 5 ints). K5 runs in
+// layout K5_TILE: tlfea::Groups, or a tlfea::Points<TE, HOLD, MAX_E> (an
+// alias: the argument holds no comma).
+#define TLFEA_FAMILY_ENTRY_POINTS(NAME, FAM, SUFFIX, T, K5_TILE)                        \
   extern "C" int tlfea_primal_prep_##NAME##_##SUFFIX(                                   \
       const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
       const void* Me_t, void* fe, void* prep, int E, double lam, double mu,             \
@@ -1016,10 +1382,9 @@ int occupancy_node_reduce(int* out) {
       const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
       const void* Me_t, void* fe, int E, double lam, double mu, double eta,             \
       double lam_d, void* stream) {                                                     \
-    return tlfea::launch_contrib<T, FAM>(packed, conn_t, gN_t, dV_t, Me_t, fe, E,       \
-                                         tlfea::SvkMat<T>{(T)lam, (T)mu, (T)eta,        \
-                                                          (T)lam_d},                    \
-                                         stream);                                       \
+    return tlfea::launch_contrib<T, FAM, tlfea::Hold::none, K5_TILE>(                   \
+        packed, conn_t, gN_t, dV_t, Me_t, fe, E,                                        \
+        tlfea::SvkMat<T>{(T)lam, (T)mu, (T)eta, (T)lam_d}, stream);                     \
   }                                                                                     \
   extern "C" int tlfea_contrib_tangent_##NAME##_##SUFFIX(                               \
       const void* packed, const void* dpacked, const void* conn_t, const void* gN_t,    \
@@ -1029,13 +1394,13 @@ int occupancy_node_reduce(int* out) {
         packed, dpacked, conn_t, gN_t, dV_t, Me_t, out, E,                              \
         tlfea::SvkMat<T>{(T)lam, (T)mu, (T)eta, (T)lam_d}, stream);                     \
   }                                                                                     \
-  extern "C" int tlfea_occupancy_##NAME##_##SUFFIX(int kernel, int* out) {              \
+  extern "C" int tlfea_occupancy_##NAME##_##SUFFIX(int kernel, int E, int* out) {       \
     using M = tlfea::SvkMat<T>;                                                         \
     switch (kernel) {                                                                   \
       case 0: return tlfea::occupancy_primal_prep<T, FAM, M>(out);                      \
-      case 1: return tlfea::occupancy_hv<T, FAM, M>(out);                               \
+      case 1: return tlfea::occupancy_hv<T, FAM, M>(E, out);                            \
       case 2: return tlfea::occupancy_svk_blocks<T, FAM>(out);                          \
-      case 4: return tlfea::occupancy_contrib<T, FAM, M>(out);                          \
+      case 4: return tlfea::occupancy_contrib<T, FAM, M, tlfea::Hold::none, K5_TILE>(E, out); \
       case 5: return tlfea::occupancy_contrib_tangent<T, FAM, M>(out);                  \
       default: return (int)cudaErrorInvalidValue;                                       \
     }                                                                                   \
@@ -1045,9 +1410,11 @@ int occupancy_node_reduce(int* out) {
 // PyTorch, as the JAX package leaves them to XLA):
 // tlfea_<kernel>_<NAME>_mr_<SUFFIX>, constants (mu10, mu01, kappa, eta, lam_d).
 // K1 and K5 load a quadrature point's shape gradients as K1_HOLD and
-// K5_HOLD say (`Hold`: none, late, early or stream); K2 streams a point's
-// operands through shared memory if K2_STREAM (hv_tile).
-#define TLFEA_MR_ENTRY_POINTS(NAME, FAM, SUFFIX, T, K1_HOLD, K5_HOLD, K2_STREAM)          \
+// K5_HOLD say (`Hold`: none, late, early or stream); K2 runs in layout
+// K2_TILE (tlfea::Groups, or an alias of a tlfea::Points<TE, HOLD, MAX_E>) and, in
+// the parent layout, streams a point's operands through shared memory if
+// K2_STREAM (hv_tile).
+#define TLFEA_MR_ENTRY_POINTS(NAME, FAM, SUFFIX, T, K1_HOLD, K5_HOLD, K2_STREAM, K2_TILE) \
   extern "C" int tlfea_primal_prep_##NAME##_mr_##SUFFIX(                                \
       const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
       const void* Me_t, void* fe, void* prep, int E, double mu10, double mu01,          \
@@ -1060,7 +1427,7 @@ int occupancy_node_reduce(int* out) {
       const void* p, const void* conn_t, const void* prep, const void* gN_t,            \
       const void* dV_t, const void* Me_t, void* out, int E, double dt, double mu10,     \
       double mu01, double kappa, double eta, double lam_d, void* stream) {              \
-    return tlfea::launch_hv<T, FAM, K2_STREAM>(                                         \
+    return tlfea::launch_hv<T, FAM, K2_STREAM, K2_TILE>(                                \
         p, conn_t, prep, gN_t, dV_t, Me_t, out, E, dt,                                  \
         tlfea::MrMat<T>{(T)mu10, (T)mu01, (T)kappa, (T)eta, (T)lam_d}, stream);         \
   }                                                                                     \
@@ -1080,12 +1447,12 @@ int occupancy_node_reduce(int* out) {
         packed, dpacked, conn_t, gN_t, dV_t, Me_t, out, E,                              \
         tlfea::MrMat<T>{(T)mu10, (T)mu01, (T)kappa, (T)eta, (T)lam_d}, stream);         \
   }                                                                                     \
-  extern "C" int tlfea_occupancy_##NAME##_mr_##SUFFIX(int kernel, int* out) {           \
+  extern "C" int tlfea_occupancy_##NAME##_mr_##SUFFIX(int kernel, int E, int* out) {    \
     using M = tlfea::MrMat<T>;                                                          \
     switch (kernel) {                                                                   \
       case 0: return tlfea::occupancy_primal_prep<T, FAM, M, tlfea::Hold::K1_HOLD>(out); \
-      case 1: return tlfea::occupancy_hv<T, FAM, M, K2_STREAM>(out);                    \
-      case 4: return tlfea::occupancy_contrib<T, FAM, M, tlfea::Hold::K5_HOLD>(out);    \
+      case 1: return tlfea::occupancy_hv<T, FAM, M, K2_STREAM, K2_TILE>(E, out);        \
+      case 4: return tlfea::occupancy_contrib<T, FAM, M, tlfea::Hold::K5_HOLD>(E, out); \
       case 5: return tlfea::occupancy_contrib_tangent<T, FAM, M>(out);                  \
       default: return (int)cudaErrorInvalidValue;                                       \
     }                                                                                   \

@@ -156,7 +156,7 @@ template <int MODE>
 int occupancy_phase(int* out) {
   using F = Feat10Phases;
   return occupancy(hv_phase_kernel<float, F, SvkMat<float>, MODE>, EX * F::NG,
-                   smem_bytes<float, F, 3, 3>(), out);
+                   smem_bytes<float, F, 3, 3>(), out, EX);
 }
 
 }  // namespace

@@ -12,17 +12,17 @@
 #include "resident.cuh"
 
 using F10regs = tlfea::Family<10, 5, 0x3FFu, 5, 240>;
-TLFEA_FAMILY_ENTRY_POINTS(f10regs, F10regs, f32, float)
+TLFEA_FAMILY_ENTRY_POINTS(f10regs, F10regs, f32, float, tlfea::Groups)
 using F10regs1 = tlfea::Family<10, 5, 0x3FFu, 1, 240>;
-TLFEA_FAMILY_ENTRY_POINTS(f10regs1, F10regs1, f32, float)
+TLFEA_FAMILY_ENTRY_POINTS(f10regs1, F10regs1, f32, float, tlfea::Groups)
 using S4smem = tlfea::Family<16, 48, 0x1111u, 4, 0>;
-TLFEA_FAMILY_ENTRY_POINTS(s4smem, S4smem, f32, float)
+TLFEA_FAMILY_ENTRY_POINTS(s4smem, S4smem, f32, float, tlfea::Groups)
 using S6regs = tlfea::Family<16, 48, 0x1111u, 6, 240>;
-TLFEA_FAMILY_ENTRY_POINTS(s6regs, S6regs, f32, float)
+TLFEA_FAMILY_ENTRY_POINTS(s6regs, S6regs, f32, float, tlfea::Groups)
 using S8smem = tlfea::Family<16, 48, 0x1111u, 8, 0>;
-TLFEA_FAMILY_ENTRY_POINTS(s8smem, S8smem, f32, float)
+TLFEA_FAMILY_ENTRY_POINTS(s8smem, S8smem, f32, float, tlfea::Groups)
 using S8regs = tlfea::Family<16, 48, 0x1111u, 8, 240>;
-TLFEA_FAMILY_ENTRY_POINTS(s8regs, S8regs, f32, float)
+TLFEA_FAMILY_ENTRY_POINTS(s8regs, S8regs, f32, float, tlfea::Groups)
 
 // K1 and K5 with each way of loading a quadrature point's shape gradients
 // (fem_kernels.cuh `Hold`: none, late, early, stream), at each MR family's
@@ -260,10 +260,10 @@ int launch_hv_form(const void* p, const void* conn_t, const void* prep, const vo
 template <typename T, class F, class M, bool STREAM, int MINB>
 int occupancy_hv_form(int* out) {
   if constexpr (MINB == 1)
-    return tlfea::occupancy_hv<T, F, M, STREAM>(out);
+    return tlfea::occupancy_hv<T, F, M, STREAM>(0, out);  // the parent layout at any E
   else
     return tlfea::occupancy(hv_capped_kernel<T, F, M, STREAM, MINB>, tlfea::EX * F::NG,
-                            tlfea::HvSmem<T, F, M, STREAM>::BYTES, out);
+                            tlfea::HvSmem<T, F, M, STREAM>::BYTES, out, tlfea::EX);
 }
 
 // tlfea_hv_<family>_<form>_mr_<SUFFIX>, and
@@ -304,6 +304,122 @@ VARIANTS_HV(ancf3443, S4Mr, f32, float)
 VARIANTS_HV(ancf3443, S4Mr, f64, double)
 VARIANTS_HV(ancf3243, B4Mr, f32, float)
 VARIANTS_HV(ancf3243, B4Mr, f64, double)
+
+// The split's `stream` form (fem_kernels.cuh `PointOperands`, `PointMass`
+// with Hold::stream): each point thread copies its point's S*3 gradient
+// rows, its dV row and K2's PR prep rows into its own column of shared
+// memory by cp.async before the block gathers conn (each reducer its slot's
+// S Me rows too), and reads them there; its terms overwrite its gradient
+// rows once read. A Step-0 form of `split`; no instantiation ships it.
+namespace tlfea {
+
+template <typename T, class F, int TE, int PR>
+struct PointOperands<T, F, TE, Hold::stream, PR> {
+  static constexpr int ROWS = F::S * 3 + 1 + PR;
+  T* mine;  // this point's column: gradient rows, the dV row, the prep rows
+
+  __device__ __forceinline__ PointOperands(const T* __restrict__ gN_t, const T* __restrict__ dV_t,
+                                           const T* prep, int q, int e, int E, T* col)
+      : mine(col) {
+    if (e >= E) return;
+    const size_t sE = (size_t)E;
+    const T* gq = gN_t + (size_t)q * F::S * 3 * sE + e;
+#pragma unroll
+    for (int r = 0; r < F::S * 3; ++r) cp_async_word(mine + r * TE, gq + r * sE);
+    cp_async_word(mine + F::S * 3 * TE, dV_t + (size_t)q * sE + e);
+#pragma unroll
+    for (int r = 0; r < PR; ++r)
+      cp_async_word(mine + (F::S * 3 + 1 + r) * TE, prep + ((size_t)q * PR + r) * sE + e);
+  }
+
+  __device__ __forceinline__ T grad(int a, int j) const { return mine[(a * 3 + j) * TE]; }
+  __device__ __forceinline__ T vol() const { return mine[F::S * 3 * TE]; }
+  template <class M>
+  __device__ __forceinline__ void hv(const M& m, const T G[3][3], T dt, T dP[3][3]) const {
+    m.hv(G, mine + (F::S * 3 + 1) * TE, (size_t)TE, dt, dP);
+  }
+  __device__ static void issued() { cp_async_commit(); }
+  __device__ static void landed() { cp_async_wait<0>(); }
+};
+
+template <typename T, class F, int TE>
+struct PointMass<T, F, TE, Hold::stream> {
+  static constexpr int ME = F::S * F::S;
+  const T* mes;  // this thread's column of its slot's Me rows
+
+  __device__ __forceinline__ PointMass(const T* __restrict__ Me_t, T* ms, int a, int x, int e,
+                                       int E, bool reduces)
+      : mes(ms + a * F::S * TE + x) {
+    if (!reduces) return;
+    const size_t sE = (size_t)E;
+#pragma unroll
+    for (int b = 0; b < F::S; ++b)
+      cp_async_word(ms + (a * F::S + b) * TE + x, Me_t + ((size_t)a * F::S + b) * sE + e);
+  }
+  __device__ __forceinline__ T operator()(int b) const { return mes[b * TE]; }
+};
+
+}  // namespace tlfea
+
+// K5 `contrib[ancf3243]` (SVK) and K2 `hv[ancf3243_mr]` in the forms of
+// `python -m tlfea_torch.tools.kernel_variants split` (PERF.md, Findings):
+// the parent layout (tlfea::Groups; K2's is the `parent` form above), and
+// one thread a quadrature point (tlfea::Points<TE, HOLD>, fem_kernels.cuh)
+// with TE elements a block and a point's operands loaded where used
+// (`none`), into registers before the gather (`early`) or copied into
+// shared memory by cp.async (`stream`, above): tlfea_contrib_ancf3243_<form>_<SUFFIX>,
+// tlfea_hv_ancf3243_<form>_mr_<SUFFIX>, and
+// tlfea_occupancy_{contrib,hv}_ancf3243_<form>[_mr]_<SUFFIX>(out), form
+// split<TE>_<HOLD>, at every E (no MAX_E). Every form gives the parent's
+// bits, up to the compiler's choice of fused multiply-adds.
+#define VARIANT_K5(FORM, LAYOUT, SUFFIX, T)                                             \
+  extern "C" int tlfea_contrib_ancf3243_##FORM##_##SUFFIX(                              \
+      const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
+      const void* Me_t, void* fe, int E, double lam, double mu, double eta, double lam_d, \
+      void* stream) {                                                                   \
+    return tlfea::launch_contrib<T, B4Mr, tlfea::Hold::none, LAYOUT>(                   \
+        packed, conn_t, gN_t, dV_t, Me_t, fe, E,                                        \
+        tlfea::SvkMat<T>{(T)lam, (T)mu, (T)eta, (T)lam_d}, stream);                     \
+  }                                                                                     \
+  extern "C" int tlfea_occupancy_contrib_ancf3243_##FORM##_##SUFFIX(int* out) {         \
+    return tlfea::occupancy_contrib<T, B4Mr, tlfea::SvkMat<T>, tlfea::Hold::none, LAYOUT>(0, out); \
+  }
+#define VARIANT_SPLIT(TE, HOLD, SUFFIX, T)                                              \
+  VARIANT_K5(split##TE##_##HOLD, Split##TE##_##HOLD, SUFFIX, T)                      \
+  extern "C" int tlfea_hv_ancf3243_split##TE##_##HOLD##_mr_##SUFFIX(                    \
+      const void* p, const void* conn_t, const void* prep, const void* gN_t,            \
+      const void* dV_t, const void* Me_t, void* out, int E, double dt, double mu10,     \
+      double mu01, double kappa, double eta, double lam_d, void* stream) {              \
+    return tlfea::launch_hv<T, B4Mr, false, Split##TE##_##HOLD>(                        \
+        p, conn_t, prep, gN_t, dV_t, Me_t, out, E, dt,                                  \
+        tlfea::MrMat<T>{(T)mu10, (T)mu01, (T)kappa, (T)eta, (T)lam_d}, stream);         \
+  }                                                                                     \
+  extern "C" int tlfea_occupancy_hv_ancf3243_split##TE##_##HOLD##_mr_##SUFFIX(int* out) { \
+    return tlfea::occupancy_hv<T, B4Mr, tlfea::MrMat<T>, false, Split##TE##_##HOLD>(0, out); \
+  }
+using Split8_none = tlfea::Points<8, tlfea::Hold::none>;
+using Split16_none = tlfea::Points<16, tlfea::Hold::none>;
+using Split32_none = tlfea::Points<32, tlfea::Hold::none>;
+using Split8_early = tlfea::Points<8, tlfea::Hold::early>;
+using Split16_early = tlfea::Points<16, tlfea::Hold::early>;
+using Split32_early = tlfea::Points<32, tlfea::Hold::early>;
+using Split8_stream = tlfea::Points<8, tlfea::Hold::stream>;
+using Split16_stream = tlfea::Points<16, tlfea::Hold::stream>;
+using Split32_stream = tlfea::Points<32, tlfea::Hold::stream>;
+#define VARIANTS_SPLIT(SUFFIX, T)                  \
+  VARIANT_K5(parent, tlfea::Groups, SUFFIX, T)     \
+  VARIANT_SPLIT(8, none, SUFFIX, T)                \
+  VARIANT_SPLIT(16, none, SUFFIX, T)               \
+  VARIANT_SPLIT(32, none, SUFFIX, T)               \
+  VARIANT_SPLIT(8, early, SUFFIX, T)               \
+  VARIANT_SPLIT(16, early, SUFFIX, T)              \
+  VARIANT_SPLIT(32, early, SUFFIX, T)              \
+  VARIANT_SPLIT(8, stream, SUFFIX, T)              \
+  VARIANT_SPLIT(16, stream, SUFFIX, T)             \
+  VARIANT_SPLIT(32, stream, SUFFIX, T)
+
+VARIANTS_SPLIT(f32, float)
+VARIANTS_SPLIT(f64, double)
 
 // An empty kernel on a grid of `blocks` blocks of `threads` threads with
 // `smem` bytes of dynamic shared memory: the floor of any launch of that

@@ -133,9 +133,10 @@ K4_BATCH = {"feat10": 8, "ancf3243": 4, "ancf3443": 4}
 # Sources of profiling kernels, built and launched with the others: the
 # phase ablation of K2 + K4 (`tlfea_torch.ops.hv_phases`).
 PROFILING_SOURCES = ("hv_phases.cu",)
-# The launch shapes of csrc/fem_kernels.cuh: an element kernel's block takes a
-# tile of TILE elements (EX there), K4's block K4_THREADS threads (THREADS),
-# each thread one node and 3 channels.
+# The launch shapes of csrc/fem_kernels.cuh: an element kernel's block in the
+# parent layout takes a tile of TILE elements (EX there; a kernel in the
+# split layout, `Points`, takes fewer: `occupancy`'s "elements"), K4's block
+# K4_THREADS threads (THREADS), each thread one node and 3 channels.
 TILE, K4_THREADS = 32, 128
 
 
@@ -181,20 +182,20 @@ def _bind(lib, family: str | None, kind: str = "svk", resident: bool = False) ->
     persistent kernel of (family, kind) (resident), or the element kernels
     of (family, kind)."""
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    out3 = ctypes.POINTER(I)  # an occupancy entry's (registers, local bytes, blocks an SM)
+    rec = ctypes.POINTER(I)  # an occupancy entry's record (`occupancy`; 5 ints)
     if family == "hv_phase":
         fn = lib.tlfea_hv_phase_f32
         fn.argtypes, fn.restype = [I] + [P] * 10 + [I] * 2 + [D] * 5 + [P], ctypes.c_int
         fn = lib.tlfea_hv_phase_occupancy_f32
-        fn.argtypes, fn.restype = [I, out3], ctypes.c_int
+        fn.argtypes, fn.restype = [I, rec], ctypes.c_int
         return
     if family is None:
         sigs = {"tlfea_node_reduce_{}": [P] * 4 + [I] * 4 + [P],
-                "tlfea_occupancy_node_reduce_{}": [I, out3]}
+                "tlfea_occupancy_node_reduce_{}": [I, rec]}
     elif resident:
         name = f"tlfea_newton_resident_{_tag(family, kind)}_{{}}"
         sigs = {name: [P] * 16 + [I] * 2 + [ctypes.POINTER(D)] + [D] * 5 + [I] * 4 + [P],
-                name + "_max_cluster": [ctypes.POINTER(I)], name + "_occupancy": [I, I, out3]}
+                name + "_max_cluster": [ctypes.POINTER(I)], name + "_occupancy": [I, I, rec]}
         for sfx in ("f32", "f64"):
             fn = getattr(lib, f"{name.format(sfx)}_smem")
             fn.argtypes, fn.restype = [I, I], ctypes.c_longlong
@@ -205,7 +206,7 @@ def _bind(lib, family: str | None, kind: str = "svk", resident: bool = False) ->
                 "contrib_tangent": [P] * 7 + [I] + [D] * nm}
         sigs = {f"tlfea_{k}_{_tag(family, kind)}_{{}}": args[k] + [P]
                 for k in MATERIAL_KERNELS[kind]}
-        sigs[f"tlfea_occupancy_{_tag(family, kind)}_{{}}"] = [I, out3]
+        sigs[f"tlfea_occupancy_{_tag(family, kind)}_{{}}"] = [I, I, rec]
     for name, args in sigs.items():
         for sfx in ("f32", "f64"):
             fn = getattr(lib, name.format(sfx))
@@ -302,16 +303,21 @@ def _launch(name: str, tag: str, x: torch.Tensor, *args) -> None:
     LAUNCHES[key] += 1
 
 
-def occupancy(name: str, tag: str, dtype: torch.dtype, launch: tuple | None = None) -> dict:
+def occupancy(name: str, tag: str, dtype: torch.dtype, launch=None) -> dict:
     """The CUDA runtime's record of kernel `name` of `tag` (a LAUNCHES
     bracket) in dtype at its launch shape: {"regs": registers a thread,
     "local_bytes": local memory a thread (spills and stack), "blocks_per_sm":
-    blocks resident on one SM}. name "node_reduce" is K4 at the family's
-    batch; "newton_resident" the persistent kernel launched as `launch` =
-    (E, cluster); "hv_phase" the phase ablation, tag its mode (float32)."""
+    blocks resident on one SM, "threads": threads a block, "elements":
+    elements a block (an element kernel's tile; 0 for K4)}. An element
+    kernel's launch on `launch` = E elements (an instantiation may launch
+    one thread a quadrature point up to some E and the parent tile above;
+    None: the largest E); name "node_reduce" is K4 at the family's batch;
+    "newton_resident" the persistent kernel launched as `launch` = (E,
+    cluster), whose record has no block shape; "hv_phase" the phase
+    ablation, tag its mode (float32)."""
     sfx = {torch.float32: "f32", torch.float64: "f64"}[dtype]
     libs = build_kernels()
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 5)()
     if name == "node_reduce":
         err = getattr(libs["fem_kernels.cu"], f"tlfea_occupancy_node_reduce_{sfx}")(
             K4_BATCH[_untag(tag)[0]], out)
@@ -323,18 +329,23 @@ def occupancy(name: str, tag: str, dtype: torch.dtype, launch: tuple | None = No
         err = fn(*launch, out)
     else:
         fn = getattr(libs[SOURCES[_untag(tag)]], f"tlfea_occupancy_{tag}_{sfx}")
-        err = fn(KERNEL_NAMES.index(name), out)
+        err = fn(KERNEL_NAMES.index(name), 2**31 - 1 if launch is None else launch, out)
     if err != 0:
         raise RuntimeError(f"{name}[{tag}]: occupancy query failed: CUDA error {err}")
-    return {"regs": out[0], "local_bytes": out[1], "blocks_per_sm": out[2]}
+    rec = {"regs": out[0], "local_bytes": out[1], "blocks_per_sm": out[2]}
+    if name != "newton_resident":
+        rec.update(threads=out[3], elements=out[4])
+    return rec
 
 
 def launch_blocks(name: str, op: "FemOperator", C: int = 3) -> int:
     """The blocks of one launch of element kernel `name` on op (K4 on C
-    channels a node)."""
+    channels a node): an element kernel's tile is the one its instantiation
+    launches on op.E elements in op's dtype (`occupancy`'s "elements"), so
+    this builds the kernels."""
     if name == "node_reduce":
         return -(-op.n * (C // 3) // K4_THREADS)
-    return -(-op.E // TILE)
+    return -(-op.E // occupancy(name, op.tag, op.gN_t.dtype, op.E)["elements"])
 
 
 def launch_key(name: str, op: "FemOperator") -> str:

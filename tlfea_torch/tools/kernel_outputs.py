@@ -14,10 +14,13 @@ this, this, parent). Inputs come from a numpy seed, in float32 and float64:
 - the Mooney-Rivlin element kernels K1 (fe and the prep cache), K2, K5 and
   K5t at the 10k flagship (`[feat10_mr]`), the 72 x 72 shell
   (`[ancf3443_mr]`) and the 64-element beam (`[ancf3243_mr]`), and K2
-  `[feat10_mr]` again at the bench.py 1k box (864 elements), at
-  chip_smoke's strained state (`MR_CASES`), whose K1 and K5 load the shape
-  gradients and whose K2 runs in the form each instantiation chose
-  (fem_kernels.cuh `Hold`, `hv_tile`'s STREAM);
+  again at the bench.py 1k box (864 elements, `[feat10_mr]`) and at the
+  1,024-element beam (`[ancf3243_mr]`), at chip_smoke's strained state
+  (`ELEMENT_CASES`), whose K1 and K5 load the shape gradients and whose K2
+  runs in the form and layout each instantiation chose (fem_kernels.cuh
+  `Hold`, `hv_tile`'s STREAM, `Points`);
+- K1 (fe and the prep cache) and K5 with SVK at the 64- and 1,024-element
+  beams (`[ancf3243]`, whose K5 may launch one thread a quadrature point);
 - K4 at the 100k box (`tools/ablate_hv`'s "100k");
 - the persistent kernel of every (family, material) pair on one inner solve:
   FEAT10 x SVK and MR at the bench.py "1k" box, ANCF3243 x SVK and MR at
@@ -59,15 +62,21 @@ RESIDENT_CASES = (("feat10", "flagship_problem", ("RESIDENT_DIMS", None)),
                   ("ancf3243_mr_e1024", "ancf_beam_problem", (1024, "mr")))
 GRID = 6  # index of `grid` in the stats tensor (resident.STAT_FIELDS)
 # (tag, chip_smoke builder, the name of its size argument there or None,
-# kernels) of the Mooney-Rivlin element kernels' cases: K1, K2, K5 and K5t
-# at the builders' full sizes, then K2 alone at the bench.py 1k box (864
-# elements, the size of chip_smoke's [composed_1k_mr]), saved as
-# "hv[feat10_mr]_e864".
+# kernels) of the element kernels' cases beside the flagship's SVK ones: K1,
+# K2, K5 and K5t with Mooney-Rivlin at the builders' full sizes; K2 alone at
+# the bench.py 1k box (864 elements, the size of chip_smoke's
+# [composed_1k_mr]) and at the 1,024-element beam, saved as
+# "hv[feat10_mr]_e864" and "hv[ancf3243_mr]_e1024"; K1 and K5 with SVK at
+# the 64- and 1,024-element beams ("contrib[ancf3243]",
+# "contrib[ancf3243]_e1024", ...).
 MR_KERNELS = ("primal_prep", "hv", "contrib", "contrib_tangent")
-MR_CASES = (("feat10_mr", "flagship_problem", None, MR_KERNELS),
-            ("ancf3443_mr", "shell_problem", None, MR_KERNELS),
-            ("ancf3243_mr", "ancf_beam_problem", None, MR_KERNELS),
-            ("feat10_mr", "flagship_problem", "RESIDENT_DIMS", ("hv",)))
+ELEMENT_CASES = (("feat10_mr", "flagship_problem", None, MR_KERNELS),
+                 ("ancf3443_mr", "shell_problem", None, MR_KERNELS),
+                 ("ancf3243_mr", "ancf_beam_problem", None, MR_KERNELS),
+                 ("feat10_mr", "flagship_problem", "RESIDENT_DIMS", ("hv",)),
+                 ("ancf3243_mr", "ancf_beam_problem", "BIG_BEAM", ("hv",)),
+                 ("ancf3243", "ancf_beam_problem", None, ("primal_prep", "contrib")),
+                 ("ancf3243", "ancf_beam_problem", "BIG_BEAM", ("primal_prep", "contrib")))
 
 
 ROLLOUT_STEPS = 250  # chip_smoke's [resident] rollout
@@ -126,10 +135,10 @@ def save(path: str, no_fma: bool = False) -> None:
             outs, call = _resident_outputs(cs, dev, dtype, *case)
             out.update(outs)
             resident_calls[f"newton_resident[{case[0]}]"] = call
-        for case in MR_CASES:
-            outs, mr_calls = _mr_outputs(cs, fk, dev, dtype, *case)
+        for case in ELEMENT_CASES:
+            outs, case_calls = _element_outputs(cs, fk, dev, dtype, *case)
             out.update(outs)
-            calls.update(mr_calls)
+            calls.update(case_calls)
         res[str(dtype)] = {k: v.cpu() for k, v in out.items()}
         if dtype == torch.float32:
             res["ms"] = {k: cs._device_ms(fn, 256)[0] for k, fn in calls.items()}
@@ -140,14 +149,15 @@ def save(path: str, no_fma: bool = False) -> None:
           "1k rollout", [round(x, 4) for x in res["rollout_ms"]], "ms/step")
 
 
-def _mr_outputs(cs, fk, dev, dtype, tag, builder, size, kernels):
-    """`kernels` of K1 (fe, prep), K2, K5 and K5t `[tag]` on the strained
-    random state of chip_smoke's `[kernels]` (u scaled by STRAIN_SCALE),
-    keyed "<kernel>[<tag>]" (with "_e<E>" where a size is given); and calls
-    that repeat each launch."""
+def _element_outputs(cs, fk, dev, dtype, tag, builder, size, kernels):
+    """`kernels` of K1 (fe, prep), K2, K5 and K5t `[tag]` (Mooney-Rivlin for
+    a "_mr" tag, else the builder's SVK) on the random state of chip_smoke's
+    `[kernels]` (u scaled by STRAIN_SCALE), keyed "<kernel>[<tag>]" (with
+    "_e<E>" where a size is given); and calls that repeat each launch."""
+    material = cs.mooney_rivlin() if tag.endswith("_mr") else None
     system = getattr(cs, builder)("cpu", torch.float64,
                                   *(() if size is None else (getattr(cs, size),)),
-                                  material=cs.mooney_rivlin())[0]
+                                  material=material)[0]
     op = fk.FemOperator(system.elems.to(dev, dtype), system.material)
     n = op.n
     rng = np.random.default_rng(1)
@@ -165,7 +175,7 @@ def _mr_outputs(cs, fk, dev, dtype, tag, builder, size, kernels):
     sfx = "" if size is None else f"_e{op.E}"
     out = {f"{k}[{tag}]{sfx}": calls[k]() for k in kernels if k != "primal_prep"}
     if "primal_prep" in kernels:
-        out[f"primal_prep[{tag}]"], out[f"prep[{tag}]"] = fe, prep
+        out[f"primal_prep[{tag}]{sfx}"], out[f"prep[{tag}]{sfx}"] = fe, prep
     return out, {f"{k}[{tag}]{sfx}": calls[k] for k in kernels}
 
 
