@@ -1,16 +1,18 @@
-"""K5 `contrib[ancf3243]` (SVK) and K2 `hv[ancf3243_mr]` on the CPU, at the
-beam lengths at which `tests/test_torch_cuda.py` holds their CUDA kernels
-(which may launch one thread a quadrature point, `fem_kernels.cuh`
-`Points`) to the twins (`test_beam_*`): E = 1, 7, 33, 64, 65, 1,024 and
-1,027 elements, the ragged ones a multiple of neither 8 nor 32.
+"""K1 `primal_prep[ancf3243]`, K2 `hv[ancf3243]` and K5 `contrib[ancf3243]`
+(SVK) and K2 `hv[ancf3243_mr]` on the CPU, at the beam lengths at which
+`tests/test_torch_cuda.py` holds their CUDA kernels (which may launch one
+thread a quadrature point, `fem_kernels.cuh` `Points`) to the twins
+(`test_beam_*`): E = 1, 7, 33, 64, 65, 1,024 and 1,027 elements, the
+ragged ones a multiple of neither 8 nor 32.
 
 On the CPU the wrappers run the plain twins, which the card tests take as
 the reference. Here they go against the JAX package's XLA path at the card
 tests' strained state (u 1e-2, v and dv/dt standard normal), in float64
-within 1e-12 of the largest entry: K5's fe against the element contribution
-`_element_contrib_values`, K2's product from K1's prep cache against its
-`jax.jvp` along the Newton chain (dt p, p, p / dt), damped and undamped,
-and at the beam mirrored in x (det F < 0 at every point). `straight_beam`
+within 1e-12 of the largest entry: K1's and K5's fe against the element
+contribution `_element_contrib_values`, K2's product (SVK and
+Mooney-Rivlin) from K1's prep cache against its `jax.jvp` along the Newton
+chain (dt p, p, p / dt), damped and undamped, and at the beam mirrored in
+x (det F < 0 at every point). `straight_beam`
 spaces the nodes by the element length, so a beam of E elements is the
 first E elements of the longest one: JAX runs once on the longest beam
 (jitted), and each shorter beam's twin goes against its first E columns.
@@ -99,21 +101,23 @@ def k5_ref(beam):
 
 @pytest.fixture(scope="module")
 def k2_refs(beam):
-    """{damping: JAX's Hv at (the strained state, its mirror)}: jax.jvp of
-    the element contribution along (dt p, p, p / dt), one jitted function a
-    material."""
+    """refs(kind, damping): JAX's Hv with material kind ("svk" or "mr") at
+    (the strained state, its mirror): jax.jvp of the element contribution
+    along (dt p, p, p / dt), one jitted function a material, run once."""
     p = jnp.asarray(beam["p"])
-    out = {}
-    for damping in (0.0, 1e3):
-        jmat = _materials("mr", damping)[1]
 
-        def contrib(u, v, a, jmat=jmat):
+    @functools.lru_cache(maxsize=None)
+    def refs(kind, damping):
+        jmat = _materials(kind, damping)[1]
+
+        def contrib(u, v, a):
             return _element_contrib_values(u, v, a, beam["elems"], jmat)
 
         fn = jax.jit(lambda u, v, a: jax.jvp(contrib, (u, v, a), (DT * p, p, p / DT))[1])
-        out[damping] = tuple(fn(*(jnp.asarray(beam[state][:, 3 * k:3 * k + 3])
-                                  for k in range(3))) for state in ("host", "mirrored"))
-    return out
+        return tuple(fn(*(jnp.asarray(beam[state][:, 3 * k:3 * k + 3]) for k in range(3)))
+                     for state in ("host", "mirrored"))
+
+    return refs
 
 
 @pytest.mark.parametrize("E", SIZES)
@@ -126,9 +130,17 @@ def test_beam_contrib_twin_matches_jax(beam, k5_ref, E):
     assert torch.equal(fk.primal_prep(op, packed)[0], fe5)
 
 
-def _twin_hv(beam, E, damping, state):
-    op = _op(beam, E, _materials("mr", damping)[0])
-    assert (op.tag, op.E) == ("ancf3243_mr", E)
+@pytest.mark.parametrize("E", SIZES)
+def test_beam_primal_prep_twin_matches_jax(beam, k5_ref, E):
+    op = _op(beam, E, _materials("svk")[0])
+    fe, prep = fk.primal_prep(op, torch.as_tensor(beam["host"][:op.n]).contiguous())
+    assert prep.shape == (op.Q * op.prep_rows, E) and bool(torch.isfinite(prep).all())
+    assert _rel(fe, _cols(k5_ref, E)) < RTOL
+
+
+def _twin_hv(beam, E, damping, state, kind="mr"):
+    op = _op(beam, E, _materials(kind, damping)[0])
+    assert (op.tag, op.E) == (fk._tag("ancf3243", kind), E)
     _, prep = fk.primal_prep(op, torch.as_tensor(beam[state][:op.n]).contiguous())
     got = fk.hv(op, torch.as_tensor(beam["p"][:op.n]).contiguous(), prep, DT)
     return got, prep.view(op.Q, op.prep_rows, op.E)[:, 18]
@@ -140,13 +152,24 @@ def test_beam_mr_hv_twin_matches_jax(beam, k2_refs, E, damping):
     got, jm1 = _twin_hv(beam, E, damping, "host")
     assert float(jm1.abs().max()) < 0.9  # strained, nothing inverted
     assert bool(torch.isfinite(got).all())
-    assert _rel(got, _cols(k2_refs[damping][0], E)) < RTOL
+    assert _rel(got, _cols(k2_refs("mr", damping)[0], E)) < RTOL
 
 
 @pytest.mark.parametrize("E", SIZES)
 def test_beam_mr_hv_twin_at_an_inverted_point_matches_jax(beam, k2_refs, E):
     got, jm1 = _twin_hv(beam, E, 1e3, "mirrored")
-    want = _cols(k2_refs[1e3][1], E)
+    want = _cols(k2_refs("mr", 1e3)[1], E)
     assert float(jm1.max()) < -1.0  # J < 0 at every point
     assert bool(torch.isfinite(got).all()) and np.isfinite(want).all()
     assert _rel(got, want) < RTOL
+
+
+@pytest.mark.parametrize("state", ["host", "mirrored"])
+@pytest.mark.parametrize("damping", [0.0, 1e3], ids=["undamped", "damped"])
+@pytest.mark.parametrize("E", SIZES)
+def test_beam_hv_twin_matches_jax(beam, k2_refs, E, damping, state):
+    """K2 `[ancf3243]` (SVK) from K1's prep cache, at the strained beam and
+    at its mirror in x."""
+    got = _twin_hv(beam, E, damping, state, "svk")[0]
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, _cols(k2_refs("svk", damping)[state == "mirrored"], E)) < RTOL

@@ -1050,21 +1050,33 @@ def test_mr_hv_feat10_runs_the_flagship_in_one_wave(cuda_dev):
     assert -(-10584 // fk.TILE) <= occ["blocks_per_sm"] * n_sm
 
 
-# K5 `contrib[ancf3243]` (SVK) and K2 `hv[ancf3243_mr]`, which an
-# instantiation may launch with one thread a quadrature point
-# (`fem_kernels.cuh` `Points`): beams of E elements of `_ancf_system`, E a
-# multiple of neither 8 nor 32 where ragged (1, 7, 33, 65, 1,027: a last
-# block of one element, a row stride E * itemsize off 16 bytes), the
-# lengths of chip_smoke's [kernels] and [ancf_beam_1024] beams (64, 1,024),
-# and one element past each gate of `BEAM_SPLIT` (2,049, 4,097: the parent
-# tile of a split instantiation), at the strained state of `_mr_ancf_case`
-# (u 1e-2, J - 1 within +-0.5).
-BEAM_TILE_SIZES = [1, 7, 33, 64, 65, 1024, 1027, 2049, 4097]
-# Each kernel's launch as PERF.md records the choice: (TE, MAX_E), the split
-# (TE elements x 12 points a block) on beams of up to MAX_E elements, the
-# parent tile (32 elements x 4 groups of points) above.
-BEAM_SPLIT = {("contrib", torch.float32): (8, 4096), ("contrib", torch.float64): (8, 4096),
-              ("hv", torch.float32): (8, 2048), ("hv", torch.float64): (8, 4096)}
+# K1 `primal_prep[ancf3243]`, K2 `hv[ancf3243]` and K5 `contrib[ancf3243]`
+# (SVK) and K2 `hv[ancf3243_mr]`, which an instantiation may launch with one
+# thread a quadrature point (`fem_kernels.cuh` `Points`): beams of E
+# elements of `_ancf_system`, E a multiple of neither 8 nor 32 where ragged
+# (1, 7, 33, 65, 1,027: a last block of one element, a row stride E *
+# itemsize off 16 bytes), the lengths of chip_smoke's [kernels] and
+# [ancf_beam_1024] beams (64, 1,024), and one element past each gate of
+# `BEAM_SPLIT` (2,049, 4,097, 32,769: the parent tile of a split
+# instantiation), at the strained state of `_mr_ancf_case` (u 1e-2, J - 1
+# within +-0.5).
+BEAM_TILE_SIZES = [1, 7, 33, 64, 65, 1024, 1027, 2049, 4097, 32769]
+# K2 `[ancf3243_mr]` on the strained state: all but 32,769, which is past no
+# gate of its own (2,048, 4,096) and where the random state's |J - 1|
+# reaches 0.905, past the 0.9 that test holds the state to.
+MR_BEAM_TILE_SIZES = BEAM_TILE_SIZES[:-1]
+# Each kernel's launch as PERF.md records the choice, by (kernel, tag,
+# dtype): (TE, MAX_E), the split (TE elements x 12 points a block, `Points`
+# or `Direct`) on beams of up to MAX_E elements, the parent tile (32
+# elements x 4 groups of points) above; None, the parent at every E.
+BEAM_SPLIT = {("contrib", "ancf3243", torch.float32): (8, 4096),
+              ("contrib", "ancf3243", torch.float64): (8, 4096),
+              ("hv", "ancf3243_mr", torch.float32): (8, 2048),
+              ("hv", "ancf3243_mr", torch.float64): (8, 4096),
+              ("primal_prep", "ancf3243", torch.float32): (8, 2048),
+              ("primal_prep", "ancf3243", torch.float64): (8, 32768),
+              ("hv", "ancf3243", torch.float32): (8, 4096),
+              ("hv", "ancf3243", torch.float64): (8, 4096)}
 
 
 def _beam_tile_case(device, dtype, E, material=None):
@@ -1103,7 +1115,7 @@ def test_beam_contrib_matches_twin_repeats_and_is_k1(cuda_dev, E, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("damping", [0.0, 1e3], ids=["undamped", "damped"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-@pytest.mark.parametrize("E", BEAM_TILE_SIZES)
+@pytest.mark.parametrize("E", MR_BEAM_TILE_SIZES)
 def test_beam_mr_hv_matches_twin_and_repeats(cuda_dev, E, dtype, tol, damping):
     """K2 `[ancf3243_mr]` against `hv_plain` in one launch, damped and
     undamped; bitwise repeatable."""
@@ -1140,16 +1152,48 @@ def test_beam_mr_hv_matches_twin_at_an_inverted_point(cuda_dev, E, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("damping", [0.0, 1e3], ids=["undamped", "damped"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("E", BEAM_TILE_SIZES)
+def test_beam_primal_prep_and_hv_match_twins_and_repeat(cuda_dev, E, dtype, tol, damping):
+    """K1 `[ancf3243]` (fe and the prep cache) and K2 `[ancf3243]` (SVK),
+    damped and undamped: each against its twin in one launch, bitwise
+    repeatable; K2 reads the kernel's prep cache."""
+    lam, mu = lame_from_E_nu(1e7, 0.3)
+    system, packed, p = _beam_tile_case(cuda_dev, dtype, E, SVK(lam, mu, damping, damping))
+    op = system.fem
+    assert (op.tag, op.E) == ("ancf3243", E)
+    fk.reset_launch_counts()
+    fe, prep = fk.primal_prep(op, packed)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["primal_prep[ancf3243]"] == 1 and sum(fk.LAUNCHES.values()) == 1
+    fe_want, prep_want = fk.primal_prep_plain(op, packed)
+    assert bool(torch.isfinite(fe).all()) and bool(torch.isfinite(prep).all())
+    assert _rel(fe, fe_want) < tol and _rel(prep, prep_want) < tol
+    fe2, prep2 = fk.primal_prep(op, packed)
+    assert torch.equal(fe2, fe) and torch.equal(prep2, prep)
+    fk.reset_launch_counts()
+    got = fk.hv(op, p, prep, DT)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["hv[ancf3243]"] == 1 and sum(fk.LAUNCHES.values()) == 1
+    assert bool(torch.isfinite(got).all()) and _rel(got, fk.hv_plain(op, p, prep, DT)) < tol
+    assert torch.equal(fk.hv(op, p, prep, DT), got)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("kernel,tag", [("contrib", "ancf3243"), ("hv", "ancf3243_mr")])
+@pytest.mark.parametrize("kernel,tag", [("contrib", "ancf3243"), ("hv", "ancf3243_mr"),
+                                        ("primal_prep", "ancf3243"), ("hv", "ancf3243")])
 def test_beam_tiles_report_the_block_they_launch(cuda_dev, kernel, tag, dtype):
     """`occupancy` reports the block of the launch that runs: the split's TE
     elements x 12 points up to MAX_E elements, the parent's 32 x 4 above,
     each with at least one block an SM; and `launch_blocks` counts the
     split's blocks on a ragged beam."""
-    te, max_e = BEAM_SPLIT[(kernel, dtype)]
-    for E, shape in ((1, (te, te * 12)), (65, (te, te * 12)), (max_e, (te, te * 12)),
-                     (max_e + 1, (32, 128)), (None, (32, 128))):
+    split = BEAM_SPLIT[(kernel, tag, dtype)]
+    te, max_e = split or (32, 0)
+    cases = ((1, (te, te * 12)), (65, (te, te * 12)), (max_e, (te, te * 12)),
+             (max_e + 1, (32, 128)), (None, (32, 128)))
+    for E, shape in cases if split else ((1, (32, 128)), (65, (32, 128)), (None, (32, 128))):
         occ = fk.occupancy(kernel, tag, dtype, E)
         assert (occ["elements"], occ["threads"]) == shape, E
         assert occ["blocks_per_sm"] >= 1

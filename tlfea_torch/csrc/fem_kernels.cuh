@@ -681,10 +681,10 @@ hv_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
                            reinterpret_cast<T*>(smem_raw));
 }
 
-// One thread a quadrature point: K5 and K2 where a mesh has few elements.
+// One thread a quadrature point: K1, K2 and K5 where a mesh has few elements.
 //
 // In the tiles above a thread walks its Q / NG points in turn, and every
-// point's chain waits on loads: at the 64-element ANCF3243 beam K5 and K2
+// point's chain waits on loads: at the 64-element ANCF3243 beam K1, K2 and K5
 // launch 2 blocks of 4 warps, so 2 of 132 SMs work with one warp a
 // sub-partition and nothing hides a stall. Each thread runs about ten
 // dependent trips to L2 (conn, the gather, then each of its three points'
@@ -696,8 +696,11 @@ hv_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
 // rows and the dV row, K2's PR prep rows, and as a reducer its slot's S Me
 // rows) into registers before the block gathers conn -> packed, so they
 // arrive while the gather resolves; with Hold::none it loads them where
-// used. (`kernel_variants.cu` adds Hold::stream, the same loads copied into
-// shared memory by cp.async: a Step-0 form that no instantiation ships.)
+// used. K1's point thread also writes its point's prep rows. `Direct`
+// (below) drops the block's gather and its barrier: each point thread
+// gathers its own element's slots. (`kernel_variants.cu` adds
+// Hold::stream, the same loads copied into shared memory by cp.async: a
+// Step-0 form that no instantiation ships.)
 //
 // The bits stay the parent's: the point thread writes its per-slot terms
 // t_qai = P[i][0] g0 + P[i][1] g1 + P[i][2] g2 (the parent's expression)
@@ -709,21 +712,28 @@ hv_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
 
 // The parent layout (EX elements x NG groups of points) and the split (TE
 // elements x Q points), a compile-time choice per kernel and instantiation
-// (TLFEA_FAMILY_ENTRY_POINTS' K5_TILE, TLFEA_MR_ENTRY_POINTS' K2_TILE). The
-// split runs for E <= MAX_E and the parent above: where the parent's tiles
-// fill the card, its three points a thread cost less than the split's
-// terms through shared memory (PERF.md, Findings: the crossover).
+// (TLFEA_FAMILY_ENTRY_POINTS' K1_TILE, K2_TILE and K5_TILE,
+// TLFEA_MR_ENTRY_POINTS' K2_TILE). The split runs for E <= MAX_E and the
+// parent above: where the parent's tiles fill the card, its three points a
+// thread cost less than the split's terms through shared memory (PERF.md,
+// Findings: the crossover).
 struct Groups {
   static constexpr bool SPLIT = false;
 };
 
-template <int TE_, Hold HOLD_ = Hold::none, int MAX_E_ = 0x7fffffff>
+template <int TE_, Hold HOLD_ = Hold::none, int MAX_E_ = 0x7fffffff, bool DIRECT_ = false>
 struct Points {
   static constexpr bool SPLIT = true;
   static constexpr int TE = TE_;
   static constexpr Hold HOLD = HOLD_;
   static constexpr int MAX_E = MAX_E_;
+  static constexpr bool DIRECT = DIRECT_;
 };
+
+// The split in which each point thread gathers its own element's slots
+// (below: no staging, one barrier).
+template <int TE, Hold HOLD = Hold::none, int MAX_E = 0x7fffffff>
+using Direct = Points<TE, HOLD, MAX_E, true>;
 
 // Whether layout L launches the split at E elements.
 template <class L>
@@ -802,15 +812,30 @@ struct PointMass {
 };
 
 // The split's shared memory, in rows of TE words: xs (S*CIN staged slot
-// channels), each point's ROWS rows, then the reducers' ME Me rows.
-template <typename T, class F, int TE, Hold HOLD, int CIN, int PR>
+// channels; none with DIRECT), each point's ROWS rows, then the reducers'
+// ME Me rows.
+template <typename T, class F, int TE, Hold HOLD, int CIN, int PR, bool DIRECT = false>
 struct PointSmem {
   static_assert(F::S <= F::Q, "one reducing thread a (slot, element): S <= Q");
+  static constexpr int XS = DIRECT ? 0 : F::S * CIN;
   static constexpr int ROWS = PointOperands<T, F, TE, HOLD, PR>::ROWS;
   static constexpr size_t BYTES =
-      (size_t)(F::S * CIN + F::Q * ROWS + PointMass<T, F, TE, HOLD>::ME) * TE * sizeof(T);
+      (size_t)(XS + F::Q * ROWS + PointMass<T, F, TE, HOLD>::ME) * TE * sizeof(T);
   static_assert(BYTES <= 232448, "the tile exceeds an H100 block's 227 KB of shared memory");
 };
+
+// Without DIRECT the block stages its elements' slot channels into shared
+// memory (`stage`) and waits at a barrier before any point runs. With
+// DIRECT thread (x, q) loads its element's S node indices from conn_t and
+// gathers the channels of its point's contraction into registers itself,
+// centred as `stage` centres them (the same subtraction, so the same bits);
+// as the reducer of (slot q, element x) (tid / TE is q, so a reducer's
+// element is its point's) it holds the channels of its mass term too: K1
+// and K5 the raw dv/dt, K2 the raw direction its contraction reads anyway.
+// Its loads then wait on no other thread, and one barrier is left, the one
+// before the reduce. It gathers 8 times the words `stage` gives a thread,
+// from L2, and holds them: 128 registers in float32 at ANCF3243 where the
+// staging K1 holds 64-72 (PERF.md, Findings).
 
 // The point's terms t_ai = P[i][0] g0 + P[i][1] g1 + P[i][2] g2 and its
 // volume w into its rows at tq[r * TE] (term (a, i) at row a*3 + i, w at row
@@ -833,12 +858,12 @@ __device__ __forceinline__ void point_terms(const PointOperands<T, F, TE, HOLD, 
 
 // The reduce of (slot a, element x): the parent's sum of its NG partials
 // in its order, from the points' terms (point q's rows at terms[q * ROWS *
-// TE], column x), then the consistent mass term over the staged channels
-// xs[(b*CIN + C0 + i) * TE + x] with the Me rows me(b); out = s + m, or s +
-// scale * m if SCALED (K2's 1/dt).
-template <typename T, class F, int TE, int ROWS, int CIN, int C0, bool SCALED, class ME>
-__device__ __forceinline__ void point_reduce(const T* terms, const T* xs, int a, int x,
-                                             const ME& me, T scale, T* out, size_t sE, int e) {
+// TE], column x), then the consistent mass term over the slots' channels
+// xb(b, i) with the Me rows me(b); out = s + m, or s + scale * m if SCALED
+// (K2's 1/dt).
+template <typename T, class F, int TE, int ROWS, bool SCALED, class ME, class XB>
+__device__ __forceinline__ void point_reduce(const T* terms, int a, int x, const ME& me,
+                                             const XB& xb, T scale, T* out, size_t sE, int e) {
   constexpr int S = F::S, Q = F::Q, NG = F::NG;
   T f[3] = {T(0), T(0), T(0)};
 #pragma unroll
@@ -859,7 +884,7 @@ __device__ __forceinline__ void point_reduce(const T* terms, const T* xs, int a,
   for (int b = 0; b < S; ++b) {
     const T mb = me(b);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) m[i] += mb * xs[(b * CIN + C0 + i) * TE + x];
+    for (int i = 0; i < 3; ++i) m[i] += mb * xb(b, i);
   }
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
@@ -870,20 +895,25 @@ __device__ __forceinline__ void point_reduce(const T* terms, const T* xs, int a,
   }
 }
 
-// K5 split (layout Points<TE, HOLD>): K1's f_e without the prep cache, the
-// same arithmetic as primal_prep_tile<..., PREP = false> in its order, so
-// equal to K1's fe bit for bit. smem holds PointSmem<T, F, TE, HOLD, 9, 0>.
-template <typename T, class F, class M, int TE, Hold HOLD>
+// K1 and K5 split (layout Points<TE, HOLD, MAX_E, DIRECT>):
+// primal_prep_tile's f_e in its arithmetic and order, so K5 (PREP = false:
+// `prep` is not touched) equals K1's fe bit for bit. With PREP the point
+// thread also writes its point's PR prep rows, prep[(q*PR + r) * E + e], as
+// primal_prep_tile does: a warp (TE = 8: 8 elements x 4 points) stores each
+// row as four 32-byte sectors in float32. smem holds PointSmem<T, F, TE,
+// HOLD, 9, 0, DIRECT>.
+template <typename T, class F, class M, bool PREP, int TE, Hold HOLD, bool DIRECT>
 __global__ void __launch_bounds__(TE * F::Q)
-contrib_points_kernel(const T* __restrict__ packed, const int* __restrict__ conn_t,
-                      const T* __restrict__ gN_t, const T* __restrict__ dV_t,
-                      const T* __restrict__ Me_t, T* __restrict__ fe, int E, M m) {
+primal_points_kernel(const T* __restrict__ packed, const int* __restrict__ conn_t,
+                     const T* __restrict__ gN_t, const T* __restrict__ dV_t,
+                     const T* __restrict__ Me_t, T* __restrict__ fe, T* __restrict__ prep,
+                     int E, M m) {
   using O = PointOperands<T, F, TE, HOLD, 0>;
   constexpr int S = F::S, NT = TE * F::Q;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);  // (S*9, TE): centred u | centred v | dv
-  T* pts = xs + S * 9 * TE;                // (Q * ROWS, TE)
-  T* mes = pts + F::Q * O::ROWS * TE;      // (ME, TE)
+  T* xs = reinterpret_cast<T*>(smem_raw);  // (S*9, TE): centred u | centred v | dv (staged)
+  T* pts = xs + PointSmem<T, F, TE, HOLD, 9, 0, DIRECT>::XS * TE;  // (Q * ROWS, TE)
+  T* mes = pts + F::Q * O::ROWS * TE;                              // (ME, TE)
   const int x = threadIdx.x, q = threadIdx.y, tid = q * TE + x;
   const int e0 = blockIdx.x * TE, e = e0 + x;
   const size_t sE = (size_t)E;
@@ -893,9 +923,23 @@ contrib_points_kernel(const T* __restrict__ packed, const int* __restrict__ conn
   const O o(gN_t, dV_t, nullptr, q, e, E, tq);
   const PointMass<T, F, TE, HOLD> me(Me_t, mes, ra, rx, re, E, reduces);
   O::issued();
-  stage<T, F, 9, 6, 9, TE, NT>(packed, conn_t, E, e0, xs);
+  const T* pa[DIRECT ? S : 1];  // DIRECT: the element's slot rows of packed
+  T dv[DIRECT ? S : 1][3];      // DIRECT: the reducer's raw dv/dt, slot by slot
+  if constexpr (DIRECT) {
+    if (e < E) {
+#pragma unroll
+      for (int a = 0; a < S; ++a) pa[a] = packed + (size_t)conn_t[a * sE + e] * 9;
+      if (reduces)
+#pragma unroll
+        for (int b = 0; b < S; ++b)
+#pragma unroll
+          for (int i = 0; i < 3; ++i) dv[b][i] = pa[b][6 + i];
+    }
+  } else {
+    stage<T, F, 9, 6, 9, TE, NT>(packed, conn_t, E, e0, xs);
+  }
   O::landed();
-  __syncthreads();
+  if constexpr (!DIRECT) __syncthreads();
 
   if (e < E) {
     const T* xe = xs + x;
@@ -909,8 +953,14 @@ contrib_points_kernel(const T* __restrict__ packed, const int* __restrict__ conn
       T ua[3], va[3];
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
-        ua[i] = xe[(a * 9 + i) * TE];
-        va[i] = xe[(a * 9 + 3 + i) * TE];
+        if constexpr (DIRECT) {
+          const bool tr = trans_slot<F>(a);
+          ua[i] = tr ? pa[a][i] - pa[0][i] : pa[a][i];
+          va[i] = tr ? pa[a][3 + i] - pa[0][3 + i] : pa[a][3 + i];
+        } else {
+          ua[i] = xe[(a * 9 + i) * TE];
+          va[i] = xe[(a * 9 + 3 + i) * TE];
+        }
       }
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
@@ -923,18 +973,28 @@ contrib_points_kernel(const T* __restrict__ packed, const int* __restrict__ conn
       }
     }
     T P[3][3];
-    m.template primal<false>(Du, Fd, P, nullptr, sE);
+    T* pq = nullptr;
+    if constexpr (PREP) pq = prep + (size_t)q * M::PR * sE + e;
+    m.template primal<PREP>(Du, Fd, P, pq, sE);
     point_terms(o, P, o.vol(), tq);
   }
   __syncthreads();
 
-  if (reduces)
-    point_reduce<T, F, TE, O::ROWS, 9, 6, false>(pts, xs, ra, rx, me, T(1), fe, sE, re);
+  if (reduces) {
+    auto xb = [&](int b, int i) {
+      if constexpr (DIRECT)
+        return dv[b][i];
+      else
+        return xs[(b * 9 + 6 + i) * TE + rx];
+    };
+    point_reduce<T, F, TE, O::ROWS, false>(pts, ra, rx, me, xb, T(1), fe, sE, re);
+  }
 }
 
-// K2 split (layout Points<TE, HOLD>): hv_tile's Hessian-vector product in
-// its arithmetic and order. smem holds PointSmem<T, F, TE, HOLD, 3, M::PR>.
-template <typename T, class F, class M, int TE, Hold HOLD>
+// K2 split (layout Points<TE, HOLD, MAX_E, DIRECT>): hv_tile's
+// Hessian-vector product in its arithmetic and order. smem holds
+// PointSmem<T, F, TE, HOLD, 3, M::PR, DIRECT>.
+template <typename T, class F, class M, int TE, Hold HOLD, bool DIRECT>
 __global__ void __launch_bounds__(TE * F::Q)
 hv_points_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
                  const T* __restrict__ prep, const T* __restrict__ gN_t,
@@ -943,9 +1003,9 @@ hv_points_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
   using O = PointOperands<T, F, TE, HOLD, M::PR>;
   constexpr int S = F::S, NT = TE * F::Q;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);  // (S*3, TE): raw direction
-  T* pts = xs + S * 3 * TE;                // (Q * ROWS, TE)
-  T* mes = pts + F::Q * O::ROWS * TE;      // (ME, TE)
+  T* xs = reinterpret_cast<T*>(smem_raw);  // (S*3, TE): raw direction (staged)
+  T* pts = xs + PointSmem<T, F, TE, HOLD, 3, M::PR, DIRECT>::XS * TE;  // (Q * ROWS, TE)
+  T* mes = pts + F::Q * O::ROWS * TE;                                  // (ME, TE)
   const int x = threadIdx.x, q = threadIdx.y, tid = q * TE + x;
   const int e0 = blockIdx.x * TE, e = e0 + x;
   const size_t sE = (size_t)E;
@@ -955,13 +1015,30 @@ hv_points_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
   const O o(gN_t, dV_t, prep, q, e, E, tq);
   const PointMass<T, F, TE, HOLD> me(Me_t, mes, ra, rx, re, E, reduces);
   O::issued();
-  stage<T, F, 3, 0, 3, TE, NT>(p, conn_t, E, e0, xs);
+  T xr[DIRECT ? S : 1][3];  // DIRECT: the element's raw direction, slot by slot
+  if constexpr (DIRECT) {
+    if (e < E)
+#pragma unroll
+      for (int a = 0; a < S; ++a) {
+        const T* pa = p + (size_t)conn_t[a * sE + e] * 3;
+#pragma unroll
+        for (int i = 0; i < 3; ++i) xr[a][i] = pa[i];
+      }
+  } else {
+    stage<T, F, 3, 0, 3, TE, NT>(p, conn_t, E, e0, xs);
+  }
   O::landed();
-  __syncthreads();
+  if constexpr (!DIRECT) __syncthreads();
 
   if (e < E) {
     const T* xe = xs + x;
-    const T p0[3] = {xe[0], xe[TE], xe[2 * TE]};
+    auto slot = [&](int a, int i) {
+      if constexpr (DIRECT)
+        return xr[a][i];
+      else
+        return xe[(a * 3 + i) * TE];
+    };
+    const T p0[3] = {slot(0, 0), slot(0, 1), slot(0, 2)};
     T G[3][3];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
@@ -971,8 +1048,7 @@ hv_points_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
     for (int a = 1; a < S; ++a) {
       T pc[3];
 #pragma unroll
-      for (int i = 0; i < 3; ++i)
-        pc[i] = trans_slot<F>(a) ? xe[(a * 3 + i) * TE] - p0[i] : xe[(a * 3 + i) * TE];
+      for (int i = 0; i < 3; ++i) pc[i] = trans_slot<F>(a) ? slot(a, i) - p0[i] : slot(a, i);
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
         const T gv = o.grad(a, j);
@@ -986,8 +1062,15 @@ hv_points_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
   }
   __syncthreads();
 
-  if (reduces)
-    point_reduce<T, F, TE, O::ROWS, 3, 0, true>(pts, xs, ra, rx, me, T(1) / dt, out, sE, re);
+  if (reduces) {
+    auto xb = [&](int b, int i) {
+      if constexpr (DIRECT)
+        return xr[b][i];
+      else
+        return xs[(b * 3 + i) * TE + rx];
+    };
+    point_reduce<T, F, TE, O::ROWS, true>(pts, ra, rx, me, xb, T(1) / dt, out, sE, re);
+  }
 }
 
 // K3: per-(element, slot) SVK diagonal tangent blocks, sum_q K(F_q, h_qa) dV_q,
@@ -1165,10 +1248,36 @@ int occupancy(K kernel, int threads, size_t smem, int* out, int elems = 0) {
   return 0;
 }
 
-template <typename T, class F, Hold HOLD = Hold::none, class M>
+// K1 and K5 in the split layout L = Points<TE, H, MAX_E, DIRECT> (PREP:
+// K1, with the prep cache; else K5).
+template <typename T, class F, class L, bool PREP, class M>
+int launch_points(const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,
+                  const void* Me_t, void* fe, void* prep, int E, const M& m, void* stream) {
+  constexpr size_t smem = PointSmem<T, F, L::TE, L::HOLD, 9, 0, L::DIRECT>::BYTES;
+  static const cudaError_t attr =
+      allow_smem(primal_points_kernel<T, F, M, PREP, L::TE, L::HOLD, L::DIRECT>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  if (E > 0) {
+    primal_points_kernel<T, F, M, PREP, L::TE, L::HOLD, L::DIRECT>
+        <<<(E + L::TE - 1) / L::TE, dim3(L::TE, F::Q), smem, (cudaStream_t)stream>>>(
+            (const T*)packed, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t,
+            (const T*)Me_t, (T*)fe, (T*)prep, E, m);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K1 in layout L (Groups: the parent tile, loading the gradients as HOLD
+// says; Points<TE, H, MAX_E>: the split up to MAX_E elements, the parent
+// above).
+template <typename T, class F, Hold HOLD = Hold::none, class L = Groups, class M>
 int launch_primal_prep(const void* packed, const void* conn_t, const void* gN_t,
                        const void* dV_t, const void* Me_t, void* fe, void* prep, int E,
                        const M& m, void* stream) {
+  if constexpr (L::SPLIT) {
+    if (split_at<L>(E))
+      return launch_points<T, F, L, true>(packed, conn_t, gN_t, dV_t, Me_t, fe, prep, E, m,
+                                          stream);
+  }
   constexpr size_t smem = TileSmem<T, F, HOLD>::BYTES;
   static const cudaError_t attr = allow_smem(primal_prep_kernel<T, F, M, HOLD>, smem);
   if (attr != cudaSuccess) return (int)attr;
@@ -1181,26 +1290,14 @@ int launch_primal_prep(const void* packed, const void* conn_t, const void* gN_t,
   return (int)cudaGetLastError();
 }
 
-// K5 in layout L (Groups: the parent tile, loading the gradients as HOLD
-// says; Points<TE, H, MAX_E>: the split up to MAX_E elements, the parent
-// above).
+// K5 in layout L (as K1's).
 template <typename T, class F, Hold HOLD = Hold::none, class L = Groups, class M>
 int launch_contrib(const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,
                    const void* Me_t, void* fe, int E, const M& m, void* stream) {
   if constexpr (L::SPLIT) {
-    if (split_at<L>(E)) {
-      constexpr size_t smem = PointSmem<T, F, L::TE, L::HOLD, 9, 0>::BYTES;
-      static const cudaError_t attr =
-          allow_smem(contrib_points_kernel<T, F, M, L::TE, L::HOLD>, smem);
-      if (attr != cudaSuccess) return (int)attr;
-      if (E > 0) {
-        contrib_points_kernel<T, F, M, L::TE, L::HOLD>
-            <<<(E + L::TE - 1) / L::TE, dim3(L::TE, F::Q), smem, (cudaStream_t)stream>>>(
-                (const T*)packed, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t,
-                (const T*)Me_t, (T*)fe, E, m);
-      }
-      return (int)cudaGetLastError();
-    }
+    if (split_at<L>(E))
+      return launch_points<T, F, L, false>(packed, conn_t, gN_t, dV_t, Me_t, fe, nullptr, E, m,
+                                           stream);
   }
   constexpr size_t smem = TileSmem<T, F, HOLD>::BYTES;
   static const cudaError_t attr = allow_smem(contrib_kernel<T, F, M, HOLD>, smem);
@@ -1238,11 +1335,12 @@ int launch_hv(const void* p, const void* conn_t, const void* prep, const void* g
               void* stream) {
   if constexpr (L::SPLIT) {
     if (split_at<L>(E)) {
-      constexpr size_t smem = PointSmem<T, F, L::TE, L::HOLD, 3, M::PR>::BYTES;
-      static const cudaError_t attr = allow_smem(hv_points_kernel<T, F, M, L::TE, L::HOLD>, smem);
+      constexpr size_t smem = PointSmem<T, F, L::TE, L::HOLD, 3, M::PR, L::DIRECT>::BYTES;
+      static const cudaError_t attr =
+          allow_smem(hv_points_kernel<T, F, M, L::TE, L::HOLD, L::DIRECT>, smem);
       if (attr != cudaSuccess) return (int)attr;
       if (E > 0) {
-        hv_points_kernel<T, F, M, L::TE, L::HOLD>
+        hv_points_kernel<T, F, M, L::TE, L::HOLD, L::DIRECT>
             <<<(E + L::TE - 1) / L::TE, dim3(L::TE, F::Q), smem, (cudaStream_t)stream>>>(
                 (const T*)p, (const int*)conn_t, (const T*)prep, (const T*)gN_t,
                 (const T*)dV_t, (const T*)Me_t, (T*)out, E, (T)dt, m);
@@ -1261,20 +1359,27 @@ int launch_hv(const void* p, const void* conn_t, const void* prep, const void* g
   return (int)cudaGetLastError();
 }
 
-// occupancy() of each element kernel at its launch shape.
-template <typename T, class F, class M, Hold HOLD = Hold::none>
-int occupancy_primal_prep(int* out) {
+// occupancy() of each element kernel at its launch on E elements (K1, K2
+// and K5: the layout may depend on E).
+template <typename T, class F, class M, bool PREP, class L>
+int occupancy_points(int* out) {
+  return occupancy(primal_points_kernel<T, F, M, PREP, L::TE, L::HOLD, L::DIRECT>, L::TE * F::Q,
+                   PointSmem<T, F, L::TE, L::HOLD, 9, 0, L::DIRECT>::BYTES, out, L::TE);
+}
+
+template <typename T, class F, class M, Hold HOLD = Hold::none, class L = Groups>
+int occupancy_primal_prep(int E, int* out) {
+  if constexpr (L::SPLIT) {
+    if (split_at<L>(E)) return occupancy_points<T, F, M, true, L>(out);
+  }
   return occupancy(primal_prep_kernel<T, F, M, HOLD>, EX * F::NG, TileSmem<T, F, HOLD>::BYTES,
                    out, EX);
 }
 
-// K5 and K2 at the launch of E elements (the layout may depend on E).
 template <typename T, class F, class M, Hold HOLD = Hold::none, class L = Groups>
 int occupancy_contrib(int E, int* out) {
   if constexpr (L::SPLIT) {
-    if (split_at<L>(E))
-      return occupancy(contrib_points_kernel<T, F, M, L::TE, L::HOLD>, L::TE * F::Q,
-                       PointSmem<T, F, L::TE, L::HOLD, 9, 0>::BYTES, out, L::TE);
+    if (split_at<L>(E)) return occupancy_points<T, F, M, false, L>(out);
   }
   return occupancy(contrib_kernel<T, F, M, HOLD>, EX * F::NG, TileSmem<T, F, HOLD>::BYTES, out,
                    EX);
@@ -1290,8 +1395,8 @@ template <typename T, class F, class M, bool STREAM = false, class L = Groups>
 int occupancy_hv(int E, int* out) {
   if constexpr (L::SPLIT) {
     if (split_at<L>(E))
-      return occupancy(hv_points_kernel<T, F, M, L::TE, L::HOLD>, L::TE * F::Q,
-                       PointSmem<T, F, L::TE, L::HOLD, 3, M::PR>::BYTES, out, L::TE);
+      return occupancy(hv_points_kernel<T, F, M, L::TE, L::HOLD, L::DIRECT>, L::TE * F::Q,
+                       PointSmem<T, F, L::TE, L::HOLD, 3, M::PR, L::DIRECT>::BYTES, out, L::TE);
   }
   return occupancy(hv_kernel<T, F, M, STREAM>, EX * F::NG, HvSmem<T, F, M, STREAM>::BYTES, out,
                    EX);
@@ -1352,15 +1457,15 @@ int occupancy_node_reduce(int* out) {
 // ctypes (tlfea_torch/ops/fem_kernels.py): tlfea_<kernel>_<NAME>_<SUFFIX>;
 // and tlfea_occupancy_<NAME>_<SUFFIX>(kernel, E, out), occupancy() of the
 // kernel at index `kernel` of fem_kernels.KERNEL_NAMES (K1 0, K2 1, K3 2,
-// K5 4, K5t 5) at its launch on E elements (out: 5 ints). K5 runs in
-// layout K5_TILE: tlfea::Groups, or a tlfea::Points<TE, HOLD, MAX_E> (an
-// alias: the argument holds no comma).
-#define TLFEA_FAMILY_ENTRY_POINTS(NAME, FAM, SUFFIX, T, K5_TILE)                        \
+// K5 4, K5t 5) at its launch on E elements (out: 5 ints). K1, K2 and K5 run
+// in layouts K1_TILE, K2_TILE and K5_TILE: tlfea::Groups, or a
+// tlfea::Points<TE, HOLD, MAX_E> (an alias: the argument holds no comma).
+#define TLFEA_FAMILY_ENTRY_POINTS(NAME, FAM, SUFFIX, T, K1_TILE, K2_TILE, K5_TILE)      \
   extern "C" int tlfea_primal_prep_##NAME##_##SUFFIX(                                   \
       const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
       const void* Me_t, void* fe, void* prep, int E, double lam, double mu,             \
       double eta, double lam_d, void* stream) {                                         \
-    return tlfea::launch_primal_prep<T, FAM>(                                           \
+    return tlfea::launch_primal_prep<T, FAM, tlfea::Hold::none, K1_TILE>(               \
         packed, conn_t, gN_t, dV_t, Me_t, fe, prep, E,                                  \
         tlfea::SvkMat<T>{(T)lam, (T)mu, (T)eta, (T)lam_d}, stream);                     \
   }                                                                                     \
@@ -1368,9 +1473,9 @@ int occupancy_node_reduce(int* out) {
       const void* p, const void* conn_t, const void* prep, const void* gN_t,            \
       const void* dV_t, const void* Me_t, void* out, int E, double dt, double lam,      \
       double mu, double eta, double lam_d, void* stream) {                              \
-    return tlfea::launch_hv<T, FAM>(p, conn_t, prep, gN_t, dV_t, Me_t, out, E, dt,      \
-                                    tlfea::SvkMat<T>{(T)lam, (T)mu, (T)eta, (T)lam_d},  \
-                                    stream);                                            \
+    return tlfea::launch_hv<T, FAM, false, K2_TILE>(                                    \
+        p, conn_t, prep, gN_t, dV_t, Me_t, out, E, dt,                                  \
+        tlfea::SvkMat<T>{(T)lam, (T)mu, (T)eta, (T)lam_d}, stream);                     \
   }                                                                                     \
   extern "C" int tlfea_svk_blocks_##NAME##_##SUFFIX(                                    \
       const void* u, const void* conn_t, const void* gN_t, const void* dV_t, void* out, \
@@ -1396,13 +1501,14 @@ int occupancy_node_reduce(int* out) {
   }                                                                                     \
   extern "C" int tlfea_occupancy_##NAME##_##SUFFIX(int kernel, int E, int* out) {       \
     using M = tlfea::SvkMat<T>;                                                         \
+    using tlfea::Hold;                                                                  \
     switch (kernel) {                                                                   \
-      case 0: return tlfea::occupancy_primal_prep<T, FAM, M>(out);                      \
-      case 1: return tlfea::occupancy_hv<T, FAM, M>(E, out);                            \
+      case 0: return tlfea::occupancy_primal_prep<T, FAM, M, Hold::none, K1_TILE>(E, out); \
+      case 1: return tlfea::occupancy_hv<T, FAM, M, false, K2_TILE>(E, out);            \
       case 2: return tlfea::occupancy_svk_blocks<T, FAM>(out);                          \
-      case 4: return tlfea::occupancy_contrib<T, FAM, M, tlfea::Hold::none, K5_TILE>(E, out); \
+      case 4: return tlfea::occupancy_contrib<T, FAM, M, Hold::none, K5_TILE>(E, out);  \
       case 5: return tlfea::occupancy_contrib_tangent<T, FAM, M>(out);                  \
-      default: return (int)cudaErrorInvalidValue;                                       \
+      default: return (int)cudaErrorInvalidValue;                                      \
     }                                                                                   \
   }
 
@@ -1450,7 +1556,7 @@ int occupancy_node_reduce(int* out) {
   extern "C" int tlfea_occupancy_##NAME##_mr_##SUFFIX(int kernel, int E, int* out) {    \
     using M = tlfea::MrMat<T>;                                                          \
     switch (kernel) {                                                                   \
-      case 0: return tlfea::occupancy_primal_prep<T, FAM, M, tlfea::Hold::K1_HOLD>(out); \
+      case 0: return tlfea::occupancy_primal_prep<T, FAM, M, tlfea::Hold::K1_HOLD>(E, out); \
       case 1: return tlfea::occupancy_hv<T, FAM, M, K2_STREAM, K2_TILE>(E, out);        \
       case 4: return tlfea::occupancy_contrib<T, FAM, M, tlfea::Hold::K5_HOLD>(E, out); \
       case 5: return tlfea::occupancy_contrib_tangent<T, FAM, M>(out);                  \

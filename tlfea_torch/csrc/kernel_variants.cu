@@ -12,17 +12,23 @@
 #include "resident.cuh"
 
 using F10regs = tlfea::Family<10, 5, 0x3FFu, 5, 240>;
-TLFEA_FAMILY_ENTRY_POINTS(f10regs, F10regs, f32, float, tlfea::Groups)
+TLFEA_FAMILY_ENTRY_POINTS(f10regs, F10regs, f32, float, tlfea::Groups, tlfea::Groups,
+                          tlfea::Groups)
 using F10regs1 = tlfea::Family<10, 5, 0x3FFu, 1, 240>;
-TLFEA_FAMILY_ENTRY_POINTS(f10regs1, F10regs1, f32, float, tlfea::Groups)
+TLFEA_FAMILY_ENTRY_POINTS(f10regs1, F10regs1, f32, float, tlfea::Groups, tlfea::Groups,
+                          tlfea::Groups)
 using S4smem = tlfea::Family<16, 48, 0x1111u, 4, 0>;
-TLFEA_FAMILY_ENTRY_POINTS(s4smem, S4smem, f32, float, tlfea::Groups)
+TLFEA_FAMILY_ENTRY_POINTS(s4smem, S4smem, f32, float, tlfea::Groups, tlfea::Groups,
+                          tlfea::Groups)
 using S6regs = tlfea::Family<16, 48, 0x1111u, 6, 240>;
-TLFEA_FAMILY_ENTRY_POINTS(s6regs, S6regs, f32, float, tlfea::Groups)
+TLFEA_FAMILY_ENTRY_POINTS(s6regs, S6regs, f32, float, tlfea::Groups, tlfea::Groups,
+                          tlfea::Groups)
 using S8smem = tlfea::Family<16, 48, 0x1111u, 8, 0>;
-TLFEA_FAMILY_ENTRY_POINTS(s8smem, S8smem, f32, float, tlfea::Groups)
+TLFEA_FAMILY_ENTRY_POINTS(s8smem, S8smem, f32, float, tlfea::Groups, tlfea::Groups,
+                          tlfea::Groups)
 using S8regs = tlfea::Family<16, 48, 0x1111u, 8, 240>;
-TLFEA_FAMILY_ENTRY_POINTS(s8regs, S8regs, f32, float, tlfea::Groups)
+TLFEA_FAMILY_ENTRY_POINTS(s8regs, S8regs, f32, float, tlfea::Groups, tlfea::Groups,
+                          tlfea::Groups)
 
 // K1 and K5 with each way of loading a quadrature point's shape gradients
 // (fem_kernels.cuh `Hold`: none, late, early, stream), at each MR family's
@@ -361,41 +367,66 @@ struct PointMass<T, F, TE, Hold::stream> {
 
 }  // namespace tlfea
 
-// K5 `contrib[ancf3243]` (SVK) and K2 `hv[ancf3243_mr]` in the forms of
 // `python -m tlfea_torch.tools.kernel_variants split` (PERF.md, Findings):
-// the parent layout (tlfea::Groups; K2's is the `parent` form above), and
-// one thread a quadrature point (tlfea::Points<TE, HOLD>, fem_kernels.cuh)
-// with TE elements a block and a point's operands loaded where used
-// (`none`), into registers before the gather (`early`) or copied into
-// shared memory by cp.async (`stream`, above): tlfea_contrib_ancf3243_<form>_<SUFFIX>,
+// K1 `primal_prep[ancf3243]`, K2 `hv[ancf3243]` and K5 `contrib[ancf3243]`
+// (SVK) and K2 `hv[ancf3243_mr]` in the parent layout (tlfea::Groups; K2
+// `[ancf3243_mr]`'s is the `parent` form above) and with one thread a
+// quadrature point (fem_kernels.cuh tlfea::Points<TE, HOLD>): TE elements a
+// block and a point's operands loaded where used (`none`), into registers
+// before the gather (`early`) or copied into shared memory by cp.async
+// (`stream`, above); and `split8_direct` (tlfea::Direct<8, early>: each
+// point thread gathers its own element's slots, no staging), at every E
+// (no MAX_E): tlfea_{primal_prep,hv,contrib}_ancf3243_<form>_<SUFFIX>,
 // tlfea_hv_ancf3243_<form>_mr_<SUFFIX>, and
-// tlfea_occupancy_{contrib,hv}_ancf3243_<form>[_mr]_<SUFFIX>(out), form
-// split<TE>_<HOLD>, at every E (no MAX_E). Every form gives the parent's
-// bits, up to the compiler's choice of fused multiply-adds.
-#define VARIANT_K5(FORM, LAYOUT, SUFFIX, T)                                             \
-  extern "C" int tlfea_contrib_ancf3243_##FORM##_##SUFFIX(                              \
-      const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
-      const void* Me_t, void* fe, int E, double lam, double mu, double eta, double lam_d, \
-      void* stream) {                                                                   \
-    return tlfea::launch_contrib<T, B4Mr, tlfea::Hold::none, LAYOUT>(                   \
-        packed, conn_t, gN_t, dV_t, Me_t, fe, E,                                        \
-        tlfea::SvkMat<T>{(T)lam, (T)mu, (T)eta, (T)lam_d}, stream);                     \
-  }                                                                                     \
-  extern "C" int tlfea_occupancy_contrib_ancf3243_##FORM##_##SUFFIX(int* out) {         \
-    return tlfea::occupancy_contrib<T, B4Mr, tlfea::SvkMat<T>, tlfea::Hold::none, LAYOUT>(0, out); \
+// tlfea_occupancy_<kernel>_ancf3243_<form>[_mr]_<SUFFIX>(out), form parent,
+// split<TE>_<HOLD> or split8_direct. Every form gives the parent's bits, up
+// to the compiler's choice of fused multiply-adds.
+#define SVK_ARGS(T) tlfea::SvkMat<T>{(T)lam, (T)mu, (T)eta, (T)lam_d}
+#define VARIANT_LAYOUT_SVK(FORM, L, SUFFIX, T)                                                    \
+  extern "C" int tlfea_primal_prep_ancf3243_##FORM##_##SUFFIX(                                    \
+      const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,                 \
+      const void* Me_t, void* fe, void* prep, int E, double lam, double mu, double eta,           \
+      double lam_d, void* stream) {                                                               \
+    return tlfea::launch_primal_prep<T, B4Mr, tlfea::Hold::none, L>(                              \
+        packed, conn_t, gN_t, dV_t, Me_t, fe, prep, E, SVK_ARGS(T), stream);                      \
+  }                                                                                               \
+  extern "C" int tlfea_hv_ancf3243_##FORM##_##SUFFIX(                                             \
+      const void* p, const void* conn_t, const void* prep, const void* gN_t,                      \
+      const void* dV_t, const void* Me_t, void* out, int E, double dt, double lam, double mu,     \
+      double eta, double lam_d, void* stream) {                                                   \
+    return tlfea::launch_hv<T, B4Mr, false, L>(p, conn_t, prep, gN_t, dV_t, Me_t, out, E, dt,     \
+                                               SVK_ARGS(T), stream);                              \
+  }                                                                                               \
+  extern "C" int tlfea_contrib_ancf3243_##FORM##_##SUFFIX(                                        \
+      const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,                 \
+      const void* Me_t, void* fe, int E, double lam, double mu, double eta, double lam_d,         \
+      void* stream) {                                                                             \
+    return tlfea::launch_contrib<T, B4Mr, tlfea::Hold::none, L>(                                  \
+        packed, conn_t, gN_t, dV_t, Me_t, fe, E, SVK_ARGS(T), stream);                            \
+  }                                                                                               \
+  extern "C" int tlfea_occupancy_primal_prep_ancf3243_##FORM##_##SUFFIX(int* out) {               \
+    using M = tlfea::SvkMat<T>;                                                                   \
+    return tlfea::occupancy_primal_prep<T, B4Mr, M, tlfea::Hold::none, L>(0, out);                \
+  }                                                                                               \
+  extern "C" int tlfea_occupancy_hv_ancf3243_##FORM##_##SUFFIX(int* out) {                        \
+    return tlfea::occupancy_hv<T, B4Mr, tlfea::SvkMat<T>, false, L>(0, out);                      \
+  }                                                                                               \
+  extern "C" int tlfea_occupancy_contrib_ancf3243_##FORM##_##SUFFIX(int* out) {                   \
+    using M = tlfea::SvkMat<T>;                                                                   \
+    return tlfea::occupancy_contrib<T, B4Mr, M, tlfea::Hold::none, L>(0, out);                    \
   }
-#define VARIANT_SPLIT(TE, HOLD, SUFFIX, T)                                              \
-  VARIANT_K5(split##TE##_##HOLD, Split##TE##_##HOLD, SUFFIX, T)                      \
-  extern "C" int tlfea_hv_ancf3243_split##TE##_##HOLD##_mr_##SUFFIX(                    \
-      const void* p, const void* conn_t, const void* prep, const void* gN_t,            \
-      const void* dV_t, const void* Me_t, void* out, int E, double dt, double mu10,     \
-      double mu01, double kappa, double eta, double lam_d, void* stream) {              \
-    return tlfea::launch_hv<T, B4Mr, false, Split##TE##_##HOLD>(                        \
-        p, conn_t, prep, gN_t, dV_t, Me_t, out, E, dt,                                  \
-        tlfea::MrMat<T>{(T)mu10, (T)mu01, (T)kappa, (T)eta, (T)lam_d}, stream);         \
-  }                                                                                     \
-  extern "C" int tlfea_occupancy_hv_ancf3243_split##TE##_##HOLD##_mr_##SUFFIX(int* out) { \
-    return tlfea::occupancy_hv<T, B4Mr, tlfea::MrMat<T>, false, Split##TE##_##HOLD>(0, out); \
+#define VARIANT_SPLIT(TE, HOLD, SUFFIX, T)                                                        \
+  VARIANT_LAYOUT_SVK(split##TE##_##HOLD, Split##TE##_##HOLD, SUFFIX, T)                           \
+  extern "C" int tlfea_hv_ancf3243_split##TE##_##HOLD##_mr_##SUFFIX(                              \
+      const void* p, const void* conn_t, const void* prep, const void* gN_t,                      \
+      const void* dV_t, const void* Me_t, void* out, int E, double dt, double mu10,               \
+      double mu01, double kappa, double eta, double lam_d, void* stream) {                        \
+    return tlfea::launch_hv<T, B4Mr, false, Split##TE##_##HOLD>(                                  \
+        p, conn_t, prep, gN_t, dV_t, Me_t, out, E, dt,                                            \
+        tlfea::MrMat<T>{(T)mu10, (T)mu01, (T)kappa, (T)eta, (T)lam_d}, stream);                   \
+  }                                                                                               \
+  extern "C" int tlfea_occupancy_hv_ancf3243_split##TE##_##HOLD##_mr_##SUFFIX(int* out) {         \
+    return tlfea::occupancy_hv<T, B4Mr, tlfea::MrMat<T>, false, Split##TE##_##HOLD>(0, out);      \
   }
 using Split8_none = tlfea::Points<8, tlfea::Hold::none>;
 using Split16_none = tlfea::Points<16, tlfea::Hold::none>;
@@ -406,17 +437,19 @@ using Split32_early = tlfea::Points<32, tlfea::Hold::early>;
 using Split8_stream = tlfea::Points<8, tlfea::Hold::stream>;
 using Split16_stream = tlfea::Points<16, tlfea::Hold::stream>;
 using Split32_stream = tlfea::Points<32, tlfea::Hold::stream>;
-#define VARIANTS_SPLIT(SUFFIX, T)                  \
-  VARIANT_K5(parent, tlfea::Groups, SUFFIX, T)     \
-  VARIANT_SPLIT(8, none, SUFFIX, T)                \
-  VARIANT_SPLIT(16, none, SUFFIX, T)               \
-  VARIANT_SPLIT(32, none, SUFFIX, T)               \
-  VARIANT_SPLIT(8, early, SUFFIX, T)               \
-  VARIANT_SPLIT(16, early, SUFFIX, T)              \
-  VARIANT_SPLIT(32, early, SUFFIX, T)              \
-  VARIANT_SPLIT(8, stream, SUFFIX, T)              \
-  VARIANT_SPLIT(16, stream, SUFFIX, T)             \
-  VARIANT_SPLIT(32, stream, SUFFIX, T)
+using Split8_direct = tlfea::Direct<8, tlfea::Hold::early>;
+#define VARIANTS_SPLIT(SUFFIX, T)                      \
+  VARIANT_LAYOUT_SVK(parent, tlfea::Groups, SUFFIX, T) \
+  VARIANT_SPLIT(8, none, SUFFIX, T)                    \
+  VARIANT_SPLIT(16, none, SUFFIX, T)                   \
+  VARIANT_SPLIT(32, none, SUFFIX, T)                   \
+  VARIANT_SPLIT(8, early, SUFFIX, T)                   \
+  VARIANT_SPLIT(16, early, SUFFIX, T)                  \
+  VARIANT_SPLIT(32, early, SUFFIX, T)                  \
+  VARIANT_SPLIT(8, stream, SUFFIX, T)                  \
+  VARIANT_SPLIT(16, stream, SUFFIX, T)                 \
+  VARIANT_SPLIT(32, stream, SUFFIX, T)                 \
+  VARIANT_SPLIT(8, direct, SUFFIX, T)
 
 VARIANTS_SPLIT(f32, float)
 VARIANTS_SPLIT(f64, double)

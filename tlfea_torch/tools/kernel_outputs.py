@@ -19,8 +19,9 @@ this, this, parent). Inputs come from a numpy seed, in float32 and float64:
   (`ELEMENT_CASES`), whose K1 and K5 load the shape gradients and whose K2
   runs in the form and layout each instantiation chose (fem_kernels.cuh
   `Hold`, `hv_tile`'s STREAM, `Points`);
-- K1 (fe and the prep cache) and K5 with SVK at the 64- and 1,024-element
-  beams (`[ancf3243]`, whose K5 may launch one thread a quadrature point);
+- K1 (fe and the prep cache), K2 and K5 with SVK at the 64- and
+  1,024-element beams (`[ancf3243]`, whose K1, K2 and K5 may launch one
+  thread a quadrature point);
 - K4 at the 100k box (`tools/ablate_hv`'s "100k");
 - the persistent kernel of every (family, material) pair on one inner solve:
   FEAT10 x SVK and MR at the bench.py "1k" box, ANCF3243 x SVK and MR at
@@ -66,17 +67,17 @@ GRID = 6  # index of `grid` in the stats tensor (resident.STAT_FIELDS)
 # K2, K5 and K5t with Mooney-Rivlin at the builders' full sizes; K2 alone at
 # the bench.py 1k box (864 elements, the size of chip_smoke's
 # [composed_1k_mr]) and at the 1,024-element beam, saved as
-# "hv[feat10_mr]_e864" and "hv[ancf3243_mr]_e1024"; K1 and K5 with SVK at
-# the 64- and 1,024-element beams ("contrib[ancf3243]",
-# "contrib[ancf3243]_e1024", ...).
+# "hv[feat10_mr]_e864" and "hv[ancf3243_mr]_e1024"; K1, K2 and K5 with SVK
+# at the 64- and 1,024-element beams ("contrib[ancf3243]",
+# "hv[ancf3243]_e1024", ...).
 MR_KERNELS = ("primal_prep", "hv", "contrib", "contrib_tangent")
 ELEMENT_CASES = (("feat10_mr", "flagship_problem", None, MR_KERNELS),
                  ("ancf3443_mr", "shell_problem", None, MR_KERNELS),
                  ("ancf3243_mr", "ancf_beam_problem", None, MR_KERNELS),
                  ("feat10_mr", "flagship_problem", "RESIDENT_DIMS", ("hv",)),
                  ("ancf3243_mr", "ancf_beam_problem", "BIG_BEAM", ("hv",)),
-                 ("ancf3243", "ancf_beam_problem", None, ("primal_prep", "contrib")),
-                 ("ancf3243", "ancf_beam_problem", "BIG_BEAM", ("primal_prep", "contrib")))
+                 ("ancf3243", "ancf_beam_problem", None, ("primal_prep", "hv", "contrib")),
+                 ("ancf3243", "ancf_beam_problem", "BIG_BEAM", ("primal_prep", "hv", "contrib")))
 
 
 ROLLOUT_STEPS = 250  # chip_smoke's [resident] rollout
