@@ -1200,3 +1200,116 @@ def test_beam_tiles_report_the_block_they_launch(cuda_dev, kernel, tag, dtype):
     system = _beam_tile_case(cuda_dev, dtype, 65, None if tag == "ancf3243" else
                              _mooney_rivlin())[0]
     assert fk.launch_blocks(kernel, system.fem) == -(-65 // te)
+
+
+# K3 `svk_blocks[ancf3443]` (SVK), which the instantiation may launch with one
+# thread an (element, slot) (`fem_kernels.cuh` `Slots`): shells of 1, 35 (5 x
+# 7: a ragged last block, a row stride E * itemsize off 16 bytes), 576 (24 x
+# 24) and 5,184 (72 x 72, chip_smoke's [shell]) elements, at a random u of
+# 1e-2.
+SHELL_BLOCK_SIZES = [(1, 1), (5, 7), (24, 24), (72, 72)]
+# The launch as PERF.md records the choice, by dtype: TE elements x 16 slots a
+# block at every E.
+SHELL_SLOTS = {torch.float32: 8, torch.float64: 8}
+
+
+def _shell_blocks_case(device, dtype, shell):
+    system, _, _ = _ancf_system(device, dtype, "ancf3443", n=shell)
+    rng = np.random.default_rng(17)
+    u = rng.normal(size=(system.n_coef, 3)) * 1e-2
+    return system, torch.as_tensor(u, dtype=dtype, device=device).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("shell", SHELL_BLOCK_SIZES, ids=[f"{x}x{y}" for x, y in SHELL_BLOCK_SIZES])
+def test_shell_svk_blocks_matches_twin_and_repeats(cuda_dev, shell, dtype, tol):
+    """K3 `[ancf3443]` against its twin in one launch; bitwise repeatable."""
+    system, u = _shell_blocks_case(cuda_dev, dtype, shell)
+    op = system.fem
+    assert (op.tag, op.E) == ("ancf3443", shell[0] * shell[1])
+    fk.reset_launch_counts()
+    got = fk.svk_blocks(op, u)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["svk_blocks[ancf3443]"] == 1 and sum(fk.LAUNCHES.values()) == 1
+    assert bool(torch.isfinite(got).all()) and _rel(got, fk.svk_blocks_plain(op, u)) < tol
+    assert torch.equal(fk.svk_blocks(op, u), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_shell_svk_blocks_reports_the_block_it_launches(cuda_dev, dtype):
+    """`occupancy` reports the block of the K3 `[ancf3443]` launch that runs:
+    TE elements x 16 slots at every E, with at least one block an SM; and
+    `launch_blocks` counts its blocks on the ragged 5 x 7 shell."""
+    te = SHELL_SLOTS[dtype]
+    cases = [(1, (te, te * 16)), (35, (te, te * 16)), (20736, (te, te * 16)),
+             (None, (te, te * 16))]
+    for E, shape in cases:
+        occ = fk.occupancy("svk_blocks", "ancf3443", dtype, E)
+        assert (occ["elements"], occ["threads"]) == shape, E
+        assert occ["blocks_per_sm"] >= 1
+    system, _ = _shell_blocks_case(cuda_dev, dtype, (5, 7))
+    assert fk.launch_blocks("svk_blocks", system.fem) == -(-35 // te)
+
+
+# K5t `contrib_tangent[feat10_mr]` (its operands streamed through shared
+# memory or not as fem_feat10_mr.cu picks): the first E elements of a FEAT10
+# box, E = 1 and 33 (of a 3 x 2 x 1 box: ragged), 96 (the bunny's fallback
+# mesh), 864 (the bench.py 1k box) and 10,584 (the flagship), at a random
+# strained state (u a fiftieth of the smallest cell).
+MR_TANGENT_BOXES = {1: (1.0, 0.4, 0.2, 3, 2, 1), 33: (1.0, 0.4, 0.2, 3, 2, 1),
+                    96: (1.0, 1.0, 2.0, 2, 2, 4), 864: (1.0, 0.25, 0.25, 12, 4, 3),
+                    10584: (2.0, 0.35, 0.3, 42, 7, 6)}
+
+
+def _mr_tangent_case(device, dtype, E, damping):
+    """(op, packed, dpacked) on the first E elements of MR_TANGENT_BOXES[E]."""
+    dims = MR_TANGENT_BOXES[E]
+    nodes, conn = box_t10_mesh(*dims)
+    elems = feat10.build(nodes, conn[:E], rho=1000.0, dtype=dtype, device="cpu")
+    op = fk.FemOperator(elems.to(device), _mooney_rivlin(damping=damping))
+    rng = np.random.default_rng(23)
+    n = len(nodes)
+    scale = 0.02 * min(d / c for d, c in zip(dims[:3], dims[3:]))
+    packed = np.concatenate([rng.normal(size=(n, 3)) * scale, rng.normal(size=(n, 6))], 1)
+    dpacked = rng.normal(size=(n, 9))
+    return (op, *(torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+                  for a in (packed, dpacked)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("damping", [0.0, 1e3], ids=["undamped", "damped"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("E", list(MR_TANGENT_BOXES))
+def test_mr_contrib_tangent_feat10_matches_twin_and_repeats(cuda_dev, E, dtype, tol, damping):
+    """K5t `[feat10_mr]` against its twin in one launch, damped and
+    undamped, at a strained state; bitwise repeatable."""
+    op, packed, dpacked = _mr_tangent_case(cuda_dev, dtype, E, damping)
+    assert (op.tag, op.E) == ("feat10_mr", E)
+    _, prep = fk.primal_prep_plain(op, packed)
+    assert float(prep.view(op.Q, op.prep_rows, op.E)[:, 18].abs().max()) < 0.9
+    fk.reset_launch_counts()
+    got = fk.contrib_tangent(op, packed, dpacked)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["contrib_tangent[feat10_mr]"] == 1 and sum(fk.LAUNCHES.values()) == 1
+    want = fk.contrib_tangent_plain(op, packed, dpacked)
+    assert bool(torch.isfinite(got).all()) and _rel(got, want) < tol
+    assert torch.equal(fk.contrib_tangent(op, packed, dpacked), got)
+
+
+# The blocks of the float32 K5t `[feat10_mr]` launch (its operands streamed
+# through shared memory) that one SM holds, as PERF.md records them: 3, so
+# that the 10k flagship's 331 tiles run in one wave on an H100's 132 SMs.
+MR_TANGENT_FEAT10_BLOCKS_PER_SM = 3
+
+
+@pytest.mark.cuda
+def test_mr_contrib_tangent_feat10_runs_the_flagship_in_one_wave(cuda_dev):
+    """The float32 K5t `[feat10_mr]` launch: as many blocks an SM as PERF.md
+    records, so that the 10k flagship's 331 tiles take one wave of the
+    card's SMs."""
+    occ = fk.occupancy("contrib_tangent", "feat10_mr", torch.float32)
+    assert occ["blocks_per_sm"] == MR_TANGENT_FEAT10_BLOCKS_PER_SM
+    n_sm = torch.cuda.get_device_properties(cuda_dev).multi_processor_count
+    assert -(-10584 // fk.TILE) <= occ["blocks_per_sm"] * n_sm

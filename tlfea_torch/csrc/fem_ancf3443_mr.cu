@@ -18,5 +18,5 @@
 #include "fem_kernels.cuh"
 
 using Ancf3443 = tlfea::Family<16, 48, 0x1111u, 4>;
-TLFEA_MR_ENTRY_POINTS(ancf3443, Ancf3443, f32, float, late, late, false, tlfea::Groups)
-TLFEA_MR_ENTRY_POINTS(ancf3443, Ancf3443, f64, double, late, early, false, tlfea::Groups)
+TLFEA_MR_ENTRY_POINTS(ancf3443, Ancf3443, f32, float, late, late, false, tlfea::Groups, false)
+TLFEA_MR_ENTRY_POINTS(ancf3443, Ancf3443, f64, double, late, early, false, tlfea::Groups, false)

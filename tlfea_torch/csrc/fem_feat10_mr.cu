@@ -16,9 +16,20 @@
 // registers, K1's first point before the gather, and K2 streams (128
 // registers: 3 blocks an SM, so the 10k flagship's 331 tiles run in one
 // wave); in float64 all three load where used.
+//
+// K5t `contrib_tangent` streams a point's operands in float32 as K2 does
+// (fem_kernels.cuh `contrib_tangent_stream_tile`): 233 -> 128 registers, 1
+// -> 3 blocks an SM, the 10k flagship's 331 tiles in one wave instead of
+// three; on an H100 (NVIDIA H100 80GB HBM3, 700 W; `python -m
+// tlfea_torch.tools.kernel_variants tangent`, parent -> stream in one call)
+// 16.71 -> 11.00 us at 10,584 elements, 6.84 -> 6.62 at 864 and 6.72 ->
+// 6.47 at 96, bit for bit the parent. In float64 it loads where used:
+// streamed it holds one block an SM (116 KB of shared memory), is no faster
+// (24.20 -> 24.57 us at 10,584) and differs from the parent in last bits
+// (PERF.md, Findings).
 
 #include "fem_kernels.cuh"
 
 using Feat10 = tlfea::Family<10, 5, 0x3FFu, 5, 0>;
-TLFEA_MR_ENTRY_POINTS(feat10, Feat10, f32, float, early, late, true, tlfea::Groups)
-TLFEA_MR_ENTRY_POINTS(feat10, Feat10, f64, double, none, none, false, tlfea::Groups)
+TLFEA_MR_ENTRY_POINTS(feat10, Feat10, f32, float, early, late, true, tlfea::Groups, true)
+TLFEA_MR_ENTRY_POINTS(feat10, Feat10, f64, double, none, none, false, tlfea::Groups, false)

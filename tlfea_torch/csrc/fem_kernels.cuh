@@ -40,8 +40,9 @@
 // elements' slot values through `conn` into shared memory (centred, see
 // below). Each thread accumulates its points' contributions in registers
 // when they are few, else directly in its own slice of a shared-memory
-// partial buffer (so the shell's 96 tangent-block sums per thread do not
-// spill), and leaves them in that slice. Then the block sums the NG partials
+// partial buffer, and leaves them in that slice (the shell's K3, with 96
+// tangent-block sums a thread, instead takes one thread an (element, slot):
+// `Slots`, below). Then the block sums the NG partials
 // of each (element, slot) in the fixed order g = 0..NG-1, adds the
 // q-independent mass term once, and writes per-(element, slot) values. K4
 // sums those onto the nodes in a fixed order. No atomics anywhere: float32
@@ -85,6 +86,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "mr.cuh"
 #include "svk.cuh"
@@ -210,6 +213,13 @@ __device__ __forceinline__ void cp_async_word(T* dst, const T* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
                "n"((int)sizeof(T))
                : "memory");
+}
+
+// 16 bytes from global into shared memory, asynchronously, past L1; both
+// addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -451,56 +461,35 @@ __device__ __forceinline__ void contract(const T* xe, const T* __restrict__ gN_t
   }
 }
 
-// K5t: `_body` with tangent=True (the custom-JVP tangent, pallas_fem.py:830):
-// out_e = sum_q dP gradN dV + Me d(dv/dt), dP the exact derivative of P at
-// the primal (Du, Fd) of `packed` along (dF, dFd) of `dpacked`
-// [du | dv | d(dv/dt)]. The tangent's 9 channels and the primal's u | v
-// (its dv/dt does not enter) are staged, translation slots centred and the
-// d(dv/dt) channels raw; the primal is recomputed per quadrature point.
-// smem holds smem_bytes<T, F, 15, 3>().
-template <typename T, class F, class M>
-__global__ void __launch_bounds__(EX * F::NG)
-contrib_tangent_kernel(const T* __restrict__ packed, const T* __restrict__ dpacked,
-                       const int* __restrict__ conn_t, const T* __restrict__ gN_t,
-                       const T* __restrict__ dV_t, const T* __restrict__ Me_t,
-                       T* __restrict__ out, int E, M m) {
-  constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = EX * NG;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xt = reinterpret_cast<T*>(smem_raw);  // (S*9, EX): tangent du | dv | d(dv/dt)
-  T* xp = xt + S * 9 * EX;                 // (S*6, EX): primal u | v
-  T* part = xp + S * 6 * EX;               // (NG*S*3, EX)
+// K5t's shared memory, in rows of EX words: xt (S*9 staged tangent
+// channels), xp (S*6 staged primal u | v), the NG*S*3 partial sums, then
+// with STREAM the ring (STAGES * NG points of QP_ROWS rows: the point's S*3
+// gradient rows, then its dV row). Without STREAM, smem_bytes<T, F, 15, 3>().
+template <typename T, class F, bool STREAM>
+struct TangentSmem {
+  static_assert(!STREAM || F::Q % F::NG == 0, "the stream walks whole rounds of NG points");
+  static constexpr int ROUNDS = F::Q / F::NG;
+  static constexpr int STAGES = ROUNDS < 2 ? ROUNDS : 2;
+  static constexpr int QP_ROWS = F::S * 3 + 1;
+  static constexpr int XS = F::S * 15;
+  static constexpr int PART = F::NG * F::S * 3;
+  static constexpr int RING = STREAM ? STAGES * F::NG * QP_ROWS : 0;
+  static constexpr size_t BYTES = (size_t)(XS + PART + RING) * EX * sizeof(T);
+  static_assert(BYTES <= 232448, "the tile exceeds an H100 block's 227 KB of shared memory");
+};
+
+// K5t's last step, after the barrier that follows the flush of the NG
+// partial sums `part` (NG*S*3 rows of EX words): out = the fixed-order sum
+// of the partials plus the consistent mass on the (uncentred) d(dv/dt)
+// channels of the staged tangent xt, thread (x, g) taking slots g, g + NG,
+// ... of element x.
+template <typename T, class F>
+__device__ __forceinline__ void tangent_reduce(const T* part, const T* xt,
+                                               const T* __restrict__ Me_t, T* __restrict__ out,
+                                               int E, int e0) {
+  constexpr int S = F::S, NG = F::NG, NT = EX * NG;
   const int x = threadIdx.x, g = threadIdx.y;
-  const int e0 = blockIdx.x * EX, e = e0 + x;
   const size_t sE = (size_t)E;
-  PartialFor<T, F, S * 3> f(part + g * S * 3 * EX + x);
-  stage<T, F, 9, 6>(dpacked, conn_t, E, e0, xt);
-  stage<T, F, 6, 6, 9>(packed, conn_t, E, e0, xp);
-  __syncthreads();
-
-  if (e < E) {
-#pragma unroll 1
-    for (int q = g; q < Q; q += NG) {
-      T dF[3][3], dFd[3][3], Du[3][3], Fd[3][3];
-      contract<T, F, 0, 9>(xt + x, gN_t, q, sE, e, dF);
-      contract<T, F, 3, 9>(xt + x, gN_t, q, sE, e, dFd);
-      contract<T, F, 0, 6>(xp + x, gN_t, q, sE, e, Du);
-      contract<T, F, 3, 6>(xp + x, gN_t, q, sE, e, Fd);
-      T dP[3][3];
-      m.tangent(Du, dF, Fd, dFd, dP);
-      const T w = dV_t[q * sE + e];
-#pragma unroll
-      for (int a = 0; a < S; ++a) {
-        const T* ga = gN_t + ((size_t)(q * S + a) * 3) * sE + e;
-        const T g0 = ga[0], g1 = ga[sE], g2 = ga[2 * sE];
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-          f[a * 3 + i] += (dP[i][0] * g0 + dP[i][1] * g1 + dP[i][2] * g2) * w;
-      }
-    }
-  }
-  f.flush();
-  __syncthreads();
-
   for (int t = g * EX + x; t < S * EX; t += NT) {
     const int a = t / EX, xx = t - a * EX, ee = e0 + xx;
     if (ee >= E) continue;
@@ -517,6 +506,145 @@ contrib_tangent_kernel(const T* __restrict__ packed, const T* __restrict__ dpack
     }
 #pragma unroll
     for (int i = 0; i < 3; ++i) out[(a * 3 + i) * sE + ee] = s[i] + m[i];
+  }
+}
+
+// K5t with STREAM (contrib_tangent_kernel below): hv_tile's stream given to
+// K5t. Each thread copies its points' operands (the S*3 shape-gradient rows
+// and the dV row) into its own column of a ring in shared memory by
+// cp.async, the first STAGES rounds at block start, so that they arrive
+// while `stage` gathers conn -> dpacked and packed, and the four
+// contractions and the product read them there. At FEAT10 with
+// Mooney-Rivlin (one round: Q = NG) the loading kernel holds 233 registers
+// in float32: the compiler issues the point's gradient loads early and
+// keeps them live through the chain, one 160-thread block an SM, so the 10k
+// flagship's 331 tiles run in three waves; streamed, 128 registers, three
+// blocks an SM, one wave (PERF.md, Findings). The arithmetic and its order
+// are the loading kernel's, so are the bits. smem holds TangentSmem<T, F,
+// true>::BYTES.
+template <typename T, class F, class M>
+__device__ __forceinline__ void contrib_tangent_stream_tile(
+    const T* __restrict__ packed, const T* __restrict__ dpacked, const int* __restrict__ conn_t,
+    const T* __restrict__ gN_t, const T* __restrict__ dV_t, const T* __restrict__ Me_t,
+    T* __restrict__ out, int E, int e0, const M& m, T* smem) {
+  using L = TangentSmem<T, F, true>;
+  constexpr int S = F::S, Q = F::Q, NG = F::NG;
+  constexpr int D = L::STAGES, R = L::QP_ROWS;
+  T* xt = smem;               // (S*9, EX): tangent du | dv | d(dv/dt)
+  T* xp = xt + S * 9 * EX;    // (S*6, EX): primal u | v
+  T* part = xp + S * 6 * EX;  // (NG*S*3, EX)
+  const int x = threadIdx.x, g = threadIdx.y;
+  const int e = e0 + x;
+  const size_t sE = (size_t)E;
+  PartialFor<T, F, S * 3> f(part + g * S * 3 * EX + x);
+  T* mine = part + (L::PART + g * R) * EX + x;  // this thread's column of stage 0
+  // Round k's point q = k NG + g into stage k % D, then one commit (empty
+  // past the last round or for a missing element), so that before round k
+  // exactly D - 1 younger groups exist.
+  auto issue = [&](int k) {
+    if (e < E && k < L::ROUNDS) {
+      const int q = k * NG + g;
+      T* dst = mine + (k % D) * (NG * R * EX);
+      const T* src = gN_t + (size_t)q * S * 3 * sE + e;
+#pragma unroll
+      for (int r = 0; r < S * 3; ++r) cp_async_word(dst + r * EX, src + r * sE);
+      cp_async_word(dst + S * 3 * EX, dV_t + (size_t)q * sE + e);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < D; ++k) issue(k);
+  stage<T, F, 9, 6>(dpacked, conn_t, E, e0, xt);
+  stage<T, F, 6, 6, 9>(packed, conn_t, E, e0, xp);
+  __syncthreads();
+
+  if (e < E) {
+#pragma unroll 1
+    for (int q = g; q < Q; q += NG) {
+      const int k = (q - g) / NG;  // the round
+      const T* st = mine + (k % D) * (NG * R * EX);
+      cp_async_wait<D - 1>();
+      T dF[3][3], dFd[3][3], Du[3][3], Fd[3][3];
+      contract<T, F, 0, 9>(xt + x, st, 0, EX, 0, dF);
+      contract<T, F, 3, 9>(xt + x, st, 0, EX, 0, dFd);
+      contract<T, F, 0, 6>(xp + x, st, 0, EX, 0, Du);
+      contract<T, F, 3, 6>(xp + x, st, 0, EX, 0, Fd);
+      T dP[3][3];
+      m.tangent(Du, dF, Fd, dFd, dP);
+      const T w = st[S * 3 * EX];
+#pragma unroll
+      for (int a = 0; a < S; ++a) {
+        const T g0 = st[(a * 3) * EX], g1 = st[(a * 3 + 1) * EX], g2 = st[(a * 3 + 2) * EX];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          f[a * 3 + i] += (dP[i][0] * g0 + dP[i][1] * g1 + dP[i][2] * g2) * w;
+      }
+      issue(k + D);  // the stage is read: refill it
+    }
+  }
+  cp_async_wait<0>();  // no copy left in flight
+  f.flush();
+  __syncthreads();
+  tangent_reduce<T, F>(part, xt, Me_t, out, E, e0);
+}
+
+// K5t: `_body` with tangent=True (the custom-JVP tangent, pallas_fem.py:830):
+// out_e = sum_q dP gradN dV + Me d(dv/dt), dP the exact derivative of P at
+// the primal (Du, Fd) of `packed` along (dF, dFd) of `dpacked`
+// [du | dv | d(dv/dt)]. The tangent's 9 channels and the primal's u | v
+// (its dv/dt does not enter) are staged, translation slots centred and the
+// d(dv/dt) channels raw; the primal is recomputed per quadrature point.
+// smem holds TangentSmem<T, F, STREAM>::BYTES.
+//
+// STREAM: hv_tile's stream given to K5t (contrib_tangent_stream_tile,
+// above). Without it the kernel loads the gradients where used.
+template <typename T, class F, class M, bool STREAM = false>
+__global__ void __launch_bounds__(EX * F::NG)
+contrib_tangent_kernel(const T* __restrict__ packed, const T* __restrict__ dpacked,
+                       const int* __restrict__ conn_t, const T* __restrict__ gN_t,
+                       const T* __restrict__ dV_t, const T* __restrict__ Me_t,
+                       T* __restrict__ out, int E, M m) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if constexpr (STREAM) {
+    contrib_tangent_stream_tile<T, F, M>(packed, dpacked, conn_t, gN_t, dV_t, Me_t, out, E,
+                                         blockIdx.x * EX, m, reinterpret_cast<T*>(smem_raw));
+  } else {
+    constexpr int S = F::S, Q = F::Q, NG = F::NG;
+    T* xt = reinterpret_cast<T*>(smem_raw);  // (S*9, EX): tangent du | dv | d(dv/dt)
+    T* xp = xt + S * 9 * EX;                 // (S*6, EX): primal u | v
+    T* part = xp + S * 6 * EX;               // (NG*S*3, EX)
+    const int x = threadIdx.x, g = threadIdx.y;
+    const int e0 = blockIdx.x * EX, e = e0 + x;
+    const size_t sE = (size_t)E;
+    PartialFor<T, F, S * 3> f(part + g * S * 3 * EX + x);
+    stage<T, F, 9, 6>(dpacked, conn_t, E, e0, xt);
+    stage<T, F, 6, 6, 9>(packed, conn_t, E, e0, xp);
+    __syncthreads();
+
+    if (e < E) {
+#pragma unroll 1
+      for (int q = g; q < Q; q += NG) {
+        T dF[3][3], dFd[3][3], Du[3][3], Fd[3][3];
+        contract<T, F, 0, 9>(xt + x, gN_t, q, sE, e, dF);
+        contract<T, F, 3, 9>(xt + x, gN_t, q, sE, e, dFd);
+        contract<T, F, 0, 6>(xp + x, gN_t, q, sE, e, Du);
+        contract<T, F, 3, 6>(xp + x, gN_t, q, sE, e, Fd);
+        T dP[3][3];
+        m.tangent(Du, dF, Fd, dFd, dP);
+        const T w = dV_t[q * sE + e];
+#pragma unroll
+        for (int a = 0; a < S; ++a) {
+          const T* ga = gN_t + ((size_t)(q * S + a) * 3) * sE + e;
+          const T g0 = ga[0], g1 = ga[sE], g2 = ga[2 * sE];
+#pragma unroll
+          for (int i = 0; i < 3; ++i)
+            f[a * 3 + i] += (dP[i][0] * g0 + dP[i][1] * g1 + dP[i][2] * g2) * w;
+        }
+      }
+    }
+    f.flush();
+    __syncthreads();
+    tangent_reduce<T, F>(part, xt, Me_t, out, E, e0);
   }
 }
 
@@ -716,14 +844,17 @@ hv_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
 // TLFEA_MR_ENTRY_POINTS' K2_TILE). The split runs for E <= MAX_E and the
 // parent above: where the parent's tiles fill the card, its three points a
 // thread cost less than the split's terms through shared memory (PERF.md,
-// Findings: the crossover).
+// Findings: the crossover). `Groups` is also K3's parent layout
+// (TLFEA_FAMILY_ENTRY_POINTS' K3_TILE; `Slots`, below, the other).
 struct Groups {
   static constexpr bool SPLIT = false;
+  static constexpr bool SLOTS = false;
 };
 
 template <int TE_, Hold HOLD_ = Hold::none, int MAX_E_ = 0x7fffffff, bool DIRECT_ = false>
 struct Points {
   static constexpr bool SPLIT = true;
+  static constexpr bool SLOTS = false;
   static constexpr int TE = TE_;
   static constexpr Hold HOLD = HOLD_;
   static constexpr int MAX_E = MAX_E_;
@@ -1075,7 +1206,8 @@ hv_points_kernel(const T* __restrict__ p, const int* __restrict__ conn_t,
 
 // K3: per-(element, slot) SVK diagonal tangent blocks, sum_q K(F_q, h_qa) dV_q,
 // packed SYM6 (the caller applies the uniform dt weight). Runs once per
-// preconditioner refresh; SYM6 writes 6 channels instead of 9.
+// preconditioner refresh; SYM6 writes 6 channels instead of 9. This is the
+// parent layout (`Groups`); `Slots` (below) the other.
 template <typename T, class F>
 __global__ void __launch_bounds__(EX * F::NG)
 svk_blocks_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
@@ -1146,6 +1278,222 @@ svk_blocks_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
     T sum = T(0);
     for (int h = 0; h < NG; ++h) sum += part[(h * S * 6 + r) * EX + xx];
     out[r * sE + ee] = sum;
+  }
+}
+
+// K3 with one thread an (element, slot): layout Slots<TE, NQ>.
+//
+// In the parent tile thread (x, g) walks the points q = g, g + NG, ... of
+// element x, and for each point computes F, then K for all S slots and adds
+// them into S*6 sums; at the shell (S = 16, 96 sums) the sums live in
+// shared memory, so every point costs a thread 96 shared read-modify-writes,
+// and no point's gradient loads are issued before the previous point's
+// chain and stores end: at 254 registers (float32) two blocks fit an SM, the
+// 5,184-element shell moves its 47.8 MB of gradients at 1.2 TB/s, and its
+// 162 tiles leave 30 SMs with two (PERF.md, Findings).
+//
+// Here a block takes TE elements and S slots, TE * S threads: thread (x, a)
+// owns slot a of element e0 + x, and its 6 block entries for each of the NG
+// groups stay in registers (NG * 6 sums). The block walks its Q points in
+// chunks of NQ. One asynchronous copy by the whole block brings a chunk's
+// NQ * S*3 gradient rows and its NQ dV rows for the tile's TE columns into
+// shared memory (16-byte cp.async where every row segment is whole and
+// aligned, else a word at a time), double-buffered: chunk k + 1 is in
+// flight while chunk k is computed, and each gradient byte leaves HBM once.
+// Phase A: thread (x, t), t < NQ, computes point k NQ + t's F, FFT and trE
+// (svk_point) into shared memory. Phase B: thread (x, a) reads its slot's h
+// and the point's F, FFT, trE and w, runs `svk_diag_block` and adds K[c] w
+// into its sums of group q mod NG, q ascending. At the end it writes
+// ((0 + s_0) + s_1) + ... + s_{NG-1}, the parent's reduce. So every entry
+// takes the parent's operations in the parent's order: the same bits.
+template <int TE_, int NQ_>
+struct Slots {
+  static constexpr bool SPLIT = false;
+  static constexpr bool SLOTS = true;
+  static constexpr int TE = TE_;
+  static constexpr int NQ = NQ_;
+};
+
+// The slot kernel's shared memory: xs (S*3 rows of TE words: the staged,
+// centred u); two buffers of NQ points of QP_ROWS rows (the point's S*3
+// gradient rows, then its dV row) of TE words; then NQ * TE point records
+// of PT words (F 9, the upper FFT 6, trE; padded so that a record starts on
+// 16 bytes and eight records hit distinct banks when read 16 bytes at a
+// time).
+template <typename T, class F, int TE, int NQ>
+struct SlotSmem {
+  static_assert(F::Q % NQ == 0 && NQ % F::NG == 0 && NQ <= F::S,
+                "chunks of whole groups of points, each point one thread of phase A");
+  static constexpr int QP_ROWS = F::S * 3 + 1;
+  static constexpr int PT = 16 + 16 / (int)sizeof(T);
+  static constexpr int XS = F::S * 3 * TE;
+  static constexpr int BUF = NQ * QP_ROWS * TE;
+  static constexpr int PTS = NQ * TE * PT;
+  static constexpr size_t BYTES = (size_t)(XS + 2 * BUF + PTS) * sizeof(T);
+  static_assert(BYTES <= 232448, "the tile exceeds an H100 block's 227 KB of shared memory");
+};
+
+// N values of shared memory at p (16-byte aligned), 16 bytes a load.
+template <typename T, int N>
+__device__ __forceinline__ void lds16(const T* p, T* v) {
+  static_assert(N % (16 / sizeof(T)) == 0, "whole 16-byte loads");
+#pragma unroll
+  for (int i = 0; i < N; i += 16 / (int)sizeof(T)) {
+    if constexpr (sizeof(T) == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + i);
+      v[i] = t.x, v[i + 1] = t.y, v[i + 2] = t.z, v[i + 3] = t.w;
+    } else {
+      const double2 t = *reinterpret_cast<const double2*>(p + i);
+      v[i] = t.x, v[i + 1] = t.y;
+    }
+  }
+}
+
+// A point's F = I + sum_{a >= 1} u_a (x) gradN_qa, F F^T and tr E, in
+// svk_blocks_kernel's expressions and order: u_a[i] at xe[(a*3 + i) * xst]
+// (staged, centred), gradN_qa[j] at gq[(a*3 + j) * gst].
+template <typename T, class F, typename GS>
+__device__ __forceinline__ void svk_point(const T* xe, int xst, const T* gq, GS gst, T F_[3][3],
+                                          T FFT[3][3], T& trE) {
+  constexpr int S = F::S;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) F_[i][j] = T(0);
+#pragma unroll
+  for (int b = 1; b < S; ++b) {
+    T ua[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) ua[i] = xe[(b * 3 + i) * xst];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const T gv = gq[(b * 3 + j) * gst];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) F_[i][j] += ua[i] * gv;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) F_[i][i] += T(1);
+  T trFtF = T(0);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      trFtF += F_[i][j] * F_[i][j];
+      FFT[i][j] = F_[i][0] * F_[j][0] + F_[i][1] * F_[j][1] + F_[i][2] * F_[j][2];
+    }
+  }
+  trE = T(0.5) * (trFtF - T(3));
+}
+
+// Phase A's record of a point at pt: F (9), the upper FFT (6), trE.
+template <typename T>
+__device__ __forceinline__ void svk_point_record(const T F_[3][3], const T FFT[3][3], T trE,
+                                                 T* pt) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) pt[i * 3 + j] = F_[i][j];
+  pt[9] = FFT[0][0], pt[10] = FFT[0][1], pt[11] = FFT[0][2];
+  pt[12] = FFT[1][1], pt[13] = FFT[1][2], pt[14] = FFT[2][2];
+  pt[15] = trE;
+}
+
+// Phase B's K of slot h at the point recorded at pt (16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void svk_slot_block(const T* pt, const T h[3], T lam, T mu, T K[6]) {
+  T v[16];
+  lds16<T, 16>(pt, v);
+  const T F_[3][3] = {{v[0], v[1], v[2]}, {v[3], v[4], v[5]}, {v[6], v[7], v[8]}};
+  const T FFT[3][3] = {{v[9], v[10], v[11]}, {v[10], v[12], v[13]}, {v[11], v[13], v[14]}};
+  svk_diag_block(F_, FFT, v[15], h, lam, mu, K);
+}
+
+template <typename T, class F, int TE, int NQ>
+__global__ void __launch_bounds__(TE * F::S)
+svk_slots_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
+                 const T* __restrict__ gN_t, const T* __restrict__ dV_t, T* __restrict__ out,
+                 int E, T lam, T mu) {
+  using L = SlotSmem<T, F, TE, NQ>;
+  constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = TE * S, R = L::QP_ROWS, PT = L::PT;
+  constexpr int V = 16 / (int)sizeof(T);  // words a 16-byte copy
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);  // (S*3, TE): centred u
+  T* buf = xs + L::XS;                     // (2, NQ, QP_ROWS, TE)
+  T* pts = buf + 2 * L::BUF;               // (NQ, TE, PT)
+  const int x = threadIdx.x, a = threadIdx.y, tid = a * TE + x;
+  const int e0 = blockIdx.x * TE, e = e0 + x;
+  const size_t sE = (size_t)E;
+  // The copy: 16 bytes a copy where the tile is whole and every row segment
+  // starts on 16 bytes, else word by word for the tile's elements.
+  const int ne = E - e0 < TE ? E - e0 : TE;
+  const bool vec = ne == TE && TE % V == 0 && (sE * sizeof(T)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(gN_t) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dV_t) % 16 == 0;
+  auto issue = [&](int k) {  // chunk k into buffer k % 2, one commit
+    T* dst = buf + (k & 1) * L::BUF;
+    auto src = [&](int row, int c) {  // row t * R + r of the chunk, element e0 + c
+      const int t = row / R, r = row - t * R, q = k * NQ + t;
+      return r < S * 3 ? gN_t + ((size_t)q * S * 3 + r) * sE + e0 + c
+                       : dV_t + (size_t)q * sE + e0 + c;
+    };
+    if (vec) {
+      for (int i = tid; i < NQ * R * (TE / V); i += NT) {
+        const int row = i / (TE / V), c = (i - row * (TE / V)) * V;
+        cp_async_16(dst + row * TE + c, src(row, c));
+      }
+    } else {
+      for (int i = tid; i < NQ * R * TE; i += NT) {
+        const int row = i / TE, c = i - row * TE;
+        if (c < ne) cp_async_word(dst + row * TE + c, src(row, c));
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  stage<T, F, 3, 3, 3, TE, NT>(u, conn_t, E, e0, xs);
+
+  T acc[NG][6];
+#pragma unroll
+  for (int h = 0; h < NG; ++h)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) acc[h][c] = T(0);
+#pragma unroll 1
+  for (int k = 0; k < Q / NQ; ++k) {
+    cp_async_wait<0>();  // this thread's copies of chunk k
+    // Chunk k in place for all; everyone done with chunk k - 1's buffer and
+    // point records (and, at k = 0, xs staged).
+    __syncthreads();
+    if (k + 1 < Q / NQ) issue(k + 1);
+    const T* cb = buf + (k & 1) * L::BUF + x;  // this element's column of chunk k
+    if (a < NQ && e < E) {  // phase A: point k NQ + a of element x
+      T F_[3][3], FFT[3][3], trE;
+      svk_point<T, F>(xs + x, TE, cb + a * R * TE, TE, F_, FFT, trE);
+      svk_point_record(F_, FFT, trE, pts + (a * TE + x) * PT);
+    }
+    __syncthreads();
+    if (e < E) {  // phase B: slot a of element x at the chunk's points
+#pragma unroll
+      for (int t = 0; t < NQ; ++t) {
+        T h[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) h[j] = cb[(t * R + a * 3 + j) * TE];
+        const T w = cb[(t * R + S * 3) * TE];
+        T K[6];
+        svk_slot_block(pts + (t * TE + x) * PT, h, lam, mu, K);
+#pragma unroll
+        for (int c = 0; c < 6; ++c) acc[t % NG][c] += K[c] * w;  // q % NG == t % NG
+      }
+    }
+  }
+  if (e < E) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      T sum = T(0);
+#pragma unroll
+      for (int h = 0; h < NG; ++h) sum += acc[h][c];
+      out[(a * 6 + c) * sE + e] = sum;
+    }
   }
 }
 
@@ -1310,15 +1658,17 @@ int launch_contrib(const void* packed, const void* conn_t, const void* gN_t, con
   return (int)cudaGetLastError();
 }
 
-template <typename T, class F, class M>
+// K5t, streaming a point's operands through shared memory if STREAM
+// (contrib_tangent_stream_tile).
+template <typename T, class F, bool STREAM = false, class M>
 int launch_contrib_tangent(const void* packed, const void* dpacked, const void* conn_t,
                            const void* gN_t, const void* dV_t, const void* Me_t, void* out,
                            int E, const M& m, void* stream) {
-  constexpr size_t smem = smem_bytes<T, F, 15, 3>();
-  static const cudaError_t attr = allow_smem(contrib_tangent_kernel<T, F, M>, smem);
+  constexpr size_t smem = TangentSmem<T, F, STREAM>::BYTES;
+  static const cudaError_t attr = allow_smem(contrib_tangent_kernel<T, F, M, STREAM>, smem);
   if (attr != cudaSuccess) return (int)attr;
   if (E > 0) {
-    contrib_tangent_kernel<T, F, M>
+    contrib_tangent_kernel<T, F, M, STREAM>
         <<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
             (const T*)packed, (const T*)dpacked, (const int*)conn_t, (const T*)gN_t,
             (const T*)dV_t, (const T*)Me_t, (T*)out, E, m);
@@ -1385,10 +1735,10 @@ int occupancy_contrib(int E, int* out) {
                    EX);
 }
 
-template <typename T, class F, class M>
+template <typename T, class F, class M, bool STREAM = false>
 int occupancy_contrib_tangent(int* out) {
-  return occupancy(contrib_tangent_kernel<T, F, M>, EX * F::NG, smem_bytes<T, F, 15, 3>(), out,
-                   EX);
+  return occupancy(contrib_tangent_kernel<T, F, M, STREAM>, EX * F::NG,
+                   TangentSmem<T, F, STREAM>::BYTES, out, EX);
 }
 
 template <typename T, class F, class M, bool STREAM = false, class L = Groups>
@@ -1402,22 +1752,40 @@ int occupancy_hv(int E, int* out) {
                    EX);
 }
 
-template <typename T, class F>
-int occupancy_svk_blocks(int* out) {
-  return occupancy(svk_blocks_kernel<T, F>, EX * F::NG, smem_bytes<T, F, 3, 6>(), out, EX);
+template <typename T, class F, class L = Groups>
+int occupancy_svk_blocks(int E, int* out) {
+  if constexpr (L::SLOTS)
+    return occupancy(svk_slots_kernel<T, F, L::TE, L::NQ>, L::TE * F::S,
+                     SlotSmem<T, F, L::TE, L::NQ>::BYTES, out, L::TE);
+  else
+    return occupancy(svk_blocks_kernel<T, F>, EX * F::NG, smem_bytes<T, F, 3, 6>(), out, EX);
 }
 
-template <typename T, class F>
+// K3 in layout L (Groups: the parent tile; Slots<TE, NQ>: one thread an
+// (element, slot)).
+template <typename T, class F, class L = Groups>
 int launch_svk_blocks(const void* u, const void* conn_t, const void* gN_t,
                       const void* dV_t, void* out, int E, double lam, double mu,
                       void* stream) {
-  constexpr size_t smem = smem_bytes<T, F, 3, 6>();
-  static const cudaError_t attr = allow_smem(svk_blocks_kernel<T, F>, smem);
-  if (attr != cudaSuccess) return (int)attr;
-  if (E > 0) {
-    svk_blocks_kernel<T, F><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
-        (const T*)u, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t,
-        (T*)out, E, (T)lam, (T)mu);
+  if constexpr (L::SLOTS) {
+    constexpr size_t smem = SlotSmem<T, F, L::TE, L::NQ>::BYTES;
+    static const cudaError_t attr = allow_smem(svk_slots_kernel<T, F, L::TE, L::NQ>, smem);
+    if (attr != cudaSuccess) return (int)attr;
+    if (E > 0) {
+      svk_slots_kernel<T, F, L::TE, L::NQ>
+          <<<(E + L::TE - 1) / L::TE, dim3(L::TE, F::S), smem, (cudaStream_t)stream>>>(
+              (const T*)u, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t, (T*)out, E,
+              (T)lam, (T)mu);
+    }
+  } else {
+    constexpr size_t smem = smem_bytes<T, F, 3, 6>();
+    static const cudaError_t attr = allow_smem(svk_blocks_kernel<T, F>, smem);
+    if (attr != cudaSuccess) return (int)attr;
+    if (E > 0) {
+      svk_blocks_kernel<T, F><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
+          (const T*)u, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t,
+          (T*)out, E, (T)lam, (T)mu);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -1459,8 +1827,10 @@ int occupancy_node_reduce(int* out) {
 // kernel at index `kernel` of fem_kernels.KERNEL_NAMES (K1 0, K2 1, K3 2,
 // K5 4, K5t 5) at its launch on E elements (out: 5 ints). K1, K2 and K5 run
 // in layouts K1_TILE, K2_TILE and K5_TILE: tlfea::Groups, or a
-// tlfea::Points<TE, HOLD, MAX_E> (an alias: the argument holds no comma).
-#define TLFEA_FAMILY_ENTRY_POINTS(NAME, FAM, SUFFIX, T, K1_TILE, K2_TILE, K5_TILE)      \
+// tlfea::Points<TE, HOLD, MAX_E> (an alias: the argument holds no comma);
+// K3 in layout K3_TILE: tlfea::Groups, or an alias of a tlfea::Slots<TE,
+// NQ>.
+#define TLFEA_FAMILY_ENTRY_POINTS(NAME, FAM, SUFFIX, T, K1_TILE, K2_TILE, K5_TILE, K3_TILE) \
   extern "C" int tlfea_primal_prep_##NAME##_##SUFFIX(                                   \
       const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
       const void* Me_t, void* fe, void* prep, int E, double lam, double mu,             \
@@ -1480,8 +1850,8 @@ int occupancy_node_reduce(int* out) {
   extern "C" int tlfea_svk_blocks_##NAME##_##SUFFIX(                                    \
       const void* u, const void* conn_t, const void* gN_t, const void* dV_t, void* out, \
       int E, double lam, double mu, void* stream) {                                     \
-    return tlfea::launch_svk_blocks<T, FAM>(u, conn_t, gN_t, dV_t, out, E, lam, mu,     \
-                                            stream);                                    \
+    return tlfea::launch_svk_blocks<T, FAM, K3_TILE>(u, conn_t, gN_t, dV_t, out, E, lam, \
+                                                     mu, stream);                       \
   }                                                                                     \
   extern "C" int tlfea_contrib_##NAME##_##SUFFIX(                                       \
       const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
@@ -1505,7 +1875,7 @@ int occupancy_node_reduce(int* out) {
     switch (kernel) {                                                                   \
       case 0: return tlfea::occupancy_primal_prep<T, FAM, M, Hold::none, K1_TILE>(E, out); \
       case 1: return tlfea::occupancy_hv<T, FAM, M, false, K2_TILE>(E, out);            \
-      case 2: return tlfea::occupancy_svk_blocks<T, FAM>(out);                          \
+      case 2: return tlfea::occupancy_svk_blocks<T, FAM, K3_TILE>(E, out);              \
       case 4: return tlfea::occupancy_contrib<T, FAM, M, Hold::none, K5_TILE>(E, out);  \
       case 5: return tlfea::occupancy_contrib_tangent<T, FAM, M>(out);                  \
       default: return (int)cudaErrorInvalidValue;                                      \
@@ -1519,8 +1889,9 @@ int occupancy_node_reduce(int* out) {
 // K5_HOLD say (`Hold`: none, late, early or stream); K2 runs in layout
 // K2_TILE (tlfea::Groups, or an alias of a tlfea::Points<TE, HOLD, MAX_E>) and, in
 // the parent layout, streams a point's operands through shared memory if
-// K2_STREAM (hv_tile).
-#define TLFEA_MR_ENTRY_POINTS(NAME, FAM, SUFFIX, T, K1_HOLD, K5_HOLD, K2_STREAM, K2_TILE) \
+// K2_STREAM (hv_tile); K5t streams them if K5T_STREAM (contrib_tangent_kernel).
+#define TLFEA_MR_ENTRY_POINTS(NAME, FAM, SUFFIX, T, K1_HOLD, K5_HOLD, K2_STREAM, K2_TILE,  \
+                              K5T_STREAM)                                               \
   extern "C" int tlfea_primal_prep_##NAME##_mr_##SUFFIX(                                \
       const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
       const void* Me_t, void* fe, void* prep, int E, double mu10, double mu01,          \
@@ -1549,7 +1920,7 @@ int occupancy_node_reduce(int* out) {
       const void* packed, const void* dpacked, const void* conn_t, const void* gN_t,    \
       const void* dV_t, const void* Me_t, void* out, int E, double mu10, double mu01,   \
       double kappa, double eta, double lam_d, void* stream) {                           \
-    return tlfea::launch_contrib_tangent<T, FAM>(                                       \
+    return tlfea::launch_contrib_tangent<T, FAM, K5T_STREAM>(                           \
         packed, dpacked, conn_t, gN_t, dV_t, Me_t, out, E,                              \
         tlfea::MrMat<T>{(T)mu10, (T)mu01, (T)kappa, (T)eta, (T)lam_d}, stream);         \
   }                                                                                     \
@@ -1559,7 +1930,7 @@ int occupancy_node_reduce(int* out) {
       case 0: return tlfea::occupancy_primal_prep<T, FAM, M, tlfea::Hold::K1_HOLD>(E, out); \
       case 1: return tlfea::occupancy_hv<T, FAM, M, K2_STREAM, K2_TILE>(E, out);        \
       case 4: return tlfea::occupancy_contrib<T, FAM, M, tlfea::Hold::K5_HOLD>(E, out); \
-      case 5: return tlfea::occupancy_contrib_tangent<T, FAM, M>(out);                  \
+      case 5: return tlfea::occupancy_contrib_tangent<T, FAM, M, K5T_STREAM>(out);      \
       default: return (int)cudaErrorInvalidValue;                                       \
     }                                                                                   \
   }

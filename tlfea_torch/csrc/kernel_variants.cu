@@ -2,9 +2,10 @@
 // (quadrature-point groups per element) and REG_BYTES (partial sums in
 // registers) against the shipped ones (FEAT10: NG 5, shared partials;
 // ANCF3443: NG 4, register partials); K1 and K5 with each way of loading
-// the shape gradients (`Hold`); K2 with Mooney-Rivlin in each form;
-// the forms of K4's walk; the persistent kernel with one thread slab a
-// block; and a probe of the barriers the persistent kernel can use:
+// the shape gradients (`Hold`); K2 with Mooney-Rivlin in each form; K3
+// at ANCF3443 and K5t in each form; the forms of K4's walk; the persistent
+// kernel with one thread slab a block; and a probe of the barriers the
+// persistent kernel can use:
 // `python -m tlfea_torch.tools.kernel_variants`.
 // Not part of the library that `build_kernels` builds.
 #include <cooperative_groups.h>
@@ -13,22 +14,22 @@
 
 using F10regs = tlfea::Family<10, 5, 0x3FFu, 5, 240>;
 TLFEA_FAMILY_ENTRY_POINTS(f10regs, F10regs, f32, float, tlfea::Groups, tlfea::Groups,
-                          tlfea::Groups)
+                          tlfea::Groups, tlfea::Groups)
 using F10regs1 = tlfea::Family<10, 5, 0x3FFu, 1, 240>;
 TLFEA_FAMILY_ENTRY_POINTS(f10regs1, F10regs1, f32, float, tlfea::Groups, tlfea::Groups,
-                          tlfea::Groups)
+                          tlfea::Groups, tlfea::Groups)
 using S4smem = tlfea::Family<16, 48, 0x1111u, 4, 0>;
 TLFEA_FAMILY_ENTRY_POINTS(s4smem, S4smem, f32, float, tlfea::Groups, tlfea::Groups,
-                          tlfea::Groups)
+                          tlfea::Groups, tlfea::Groups)
 using S6regs = tlfea::Family<16, 48, 0x1111u, 6, 240>;
 TLFEA_FAMILY_ENTRY_POINTS(s6regs, S6regs, f32, float, tlfea::Groups, tlfea::Groups,
-                          tlfea::Groups)
+                          tlfea::Groups, tlfea::Groups)
 using S8smem = tlfea::Family<16, 48, 0x1111u, 8, 0>;
 TLFEA_FAMILY_ENTRY_POINTS(s8smem, S8smem, f32, float, tlfea::Groups, tlfea::Groups,
-                          tlfea::Groups)
+                          tlfea::Groups, tlfea::Groups)
 using S8regs = tlfea::Family<16, 48, 0x1111u, 8, 240>;
 TLFEA_FAMILY_ENTRY_POINTS(s8regs, S8regs, f32, float, tlfea::Groups, tlfea::Groups,
-                          tlfea::Groups)
+                          tlfea::Groups, tlfea::Groups)
 
 // K1 and K5 with each way of loading a quadrature point's shape gradients
 // (fem_kernels.cuh `Hold`: none, late, early, stream), at each MR family's
@@ -453,6 +454,410 @@ using Split8_direct = tlfea::Direct<8, tlfea::Hold::early>;
 
 VARIANTS_SPLIT(f32, float)
 VARIANTS_SPLIT(f64, double)
+
+// `python -m tlfea_torch.tools.kernel_variants blocks` (PERF.md, Findings):
+// K3 `svk_blocks[ancf3443]` in its forms: `parent`, the library's parent
+// tile (tlfea::Groups); `stream`, the parent's walk with each thread's next
+// round of gradient rows and dV row copied by cp.async into its own column
+// of a two-stage ring (as K1's Hold::stream), its 96 partial sums still in
+// shared memory; `slots<TE>_<NQ>`, fem_kernels.cuh tlfea::Slots<TE, NQ>
+// (one thread an (element, slot), each chunk of NQ points copied into
+// shared memory by the block); `slots<TE>_<NQ>_nocopy` (below), the same
+// reading global memory where used: tlfea_svk_blocks_ancf3443_<form>_<SUFFIX> and
+// tlfea_occupancy_svk_blocks_ancf3443_<form>_<SUFFIX>(E, out). Every form
+// gives the parent's bits, up to the compiler's choice of fused
+// multiply-adds.
+template <typename T, class F>
+__global__ void __launch_bounds__(tlfea::EX * F::NG)
+svk_blocks_stream_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
+                         const T* __restrict__ gN_t, const T* __restrict__ dV_t,
+                         T* __restrict__ out, int E, T lam, T mu) {
+  using tlfea::EX;
+  constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = EX * NG;
+  constexpr int R = S * 3 + 1, ROUNDS = Q / NG, D = ROUNDS < 2 ? ROUNDS : 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);  // (S*3, EX): centred u
+  T* part = xs + S * 3 * EX;               // (NG*S*6, EX)
+  T* ring = part + NG * S * 6 * EX;        // (D, NG, R, EX)
+  const int x = threadIdx.x, g = threadIdx.y;
+  const int e0 = blockIdx.x * EX, e = e0 + x;
+  const size_t sE = (size_t)E;
+  tlfea::PartialFor<T, F, S * 6> acc(part + g * S * 6 * EX + x);
+  T* mine = ring + g * R * EX + x;
+  auto issue = [&](int k) {
+    if (e < E && k < ROUNDS) {
+      const int q = k * NG + g;
+      T* dst = mine + (k % D) * (NG * R * EX);
+      const T* src = gN_t + (size_t)q * S * 3 * sE + e;
+#pragma unroll
+      for (int r = 0; r < S * 3; ++r) tlfea::cp_async_word(dst + r * EX, src + r * sE);
+      tlfea::cp_async_word(dst + S * 3 * EX, dV_t + (size_t)q * sE + e);
+    }
+    tlfea::cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < D; ++k) issue(k);
+  tlfea::stage<T, F, 3, 3>(u, conn_t, E, e0, xs);
+  __syncthreads();
+
+  if (e < E) {
+    const T* xe = xs + x;
+#pragma unroll 1
+    for (int q = g; q < Q; q += NG) {
+      const int k = (q - g) / NG;
+      const T* st = mine + (k % D) * (NG * R * EX);
+      tlfea::cp_async_wait<D - 1>();
+      T F_[3][3], FFT[3][3], trE;
+      tlfea::svk_point<T, F>(xe, EX, st, EX, F_, FFT, trE);
+      const T w = st[S * 3 * EX];
+#pragma unroll
+      for (int a = 0; a < S; ++a) {
+        const T h[3] = {st[(a * 3) * EX], st[(a * 3 + 1) * EX], st[(a * 3 + 2) * EX]};
+        T K[6];
+        tlfea::svk_diag_block(F_, FFT, trE, h, lam, mu, K);
+#pragma unroll
+        for (int c = 0; c < 6; ++c) acc[a * 6 + c] += K[c] * w;
+      }
+      issue(k + D);
+    }
+  }
+  tlfea::cp_async_wait<0>();
+  acc.flush();
+  __syncthreads();
+
+  for (int t = g * EX + x; t < S * 6 * EX; t += NT) {
+    const int r = t / EX, xx = t - r * EX, ee = e0 + xx;
+    if (ee >= E) continue;
+    T sum = T(0);
+    for (int h = 0; h < NG; ++h) sum += part[(h * S * 6 + r) * EX + xx];
+    out[r * sE + ee] = sum;
+  }
+}
+
+template <typename T, class F>
+constexpr size_t stream_blocks_smem() {
+  constexpr int R = F::S * 3 + 1, ROUNDS = F::Q / F::NG, D = ROUNDS < 2 ? ROUNDS : 2;
+  return tlfea::smem_bytes<T, F, 3, 6>() + (size_t)D * F::NG * R * tlfea::EX * sizeof(T);
+}
+
+#define VARIANT_BLOCKS_STREAM(SUFFIX, T)                                                          \
+  extern "C" int tlfea_svk_blocks_ancf3443_stream_##SUFFIX(                                       \
+      const void* u, const void* conn_t, const void* gN_t, const void* dV_t, void* out, int E,    \
+      double lam, double mu, void* stream) {                                                      \
+    constexpr size_t smem = stream_blocks_smem<T, S4Mr>();                                        \
+    static const cudaError_t attr = tlfea::allow_smem(svk_blocks_stream_kernel<T, S4Mr>, smem);   \
+    if (attr != cudaSuccess) return (int)attr;                                                    \
+    if (E > 0)                                                                                    \
+      svk_blocks_stream_kernel<T, S4Mr>                                                           \
+          <<<tlfea::n_tiles(E), dim3(tlfea::EX, S4Mr::NG), smem, (cudaStream_t)stream>>>(         \
+              (const T*)u, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t, (T*)out, E,        \
+              (T)lam, (T)mu);                                                                     \
+    return (int)cudaGetLastError();                                                               \
+  }                                                                                               \
+  extern "C" int tlfea_occupancy_svk_blocks_ancf3443_stream_##SUFFIX(int, int* out) {             \
+    return tlfea::occupancy(svk_blocks_stream_kernel<T, S4Mr>, tlfea::EX * S4Mr::NG,              \
+                            stream_blocks_smem<T, S4Mr>(), out, tlfea::EX);                       \
+  }
+#define VARIANT_BLOCKS(FORM, L, SUFFIX, T)                                                        \
+  extern "C" int tlfea_svk_blocks_ancf3443_##FORM##_##SUFFIX(                                     \
+      const void* u, const void* conn_t, const void* gN_t, const void* dV_t, void* out, int E,    \
+      double lam, double mu, void* stream) {                                                      \
+    return tlfea::launch_svk_blocks<T, S4Mr, L>(u, conn_t, gN_t, dV_t, out, E, lam, mu, stream);  \
+  }                                                                                               \
+  extern "C" int tlfea_occupancy_svk_blocks_ancf3443_##FORM##_##SUFFIX(int E, int* out) {         \
+    return tlfea::occupancy_svk_blocks<T, S4Mr, L>(E, out);                                       \
+  }
+// tlfea::Slots<TE, NQ> without the copy: phase A and phase B read the
+// gradients and dV from global memory where they use them, so the shared
+// memory holds the staged u and the point records only.
+template <typename T, class F, int TE, int NQ>
+__global__ void __launch_bounds__(TE * F::S)
+svk_slots_nocopy_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
+                        const T* __restrict__ gN_t, const T* __restrict__ dV_t,
+                        T* __restrict__ out, int E, T lam, T mu) {
+  using L = tlfea::SlotSmem<T, F, TE, NQ>;
+  constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = TE * S, PT = L::PT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);  // (S*3, TE): centred u
+  T* pts = xs + L::XS;                     // (NQ, TE, PT)
+  const int x = threadIdx.x, a = threadIdx.y;
+  const int e0 = blockIdx.x * TE, e = e0 + x;
+  const size_t sE = (size_t)E;
+  tlfea::stage<T, F, 3, 3, 3, TE, NT>(u, conn_t, E, e0, xs);
+
+  T acc[NG][6];
+#pragma unroll
+  for (int h = 0; h < NG; ++h)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) acc[h][c] = T(0);
+#pragma unroll 1
+  for (int k = 0; k < Q / NQ; ++k) {
+    __syncthreads();
+    if (a < NQ && e < E) {
+      const int q = k * NQ + a;
+      T F_[3][3], FFT[3][3], trE;
+      tlfea::svk_point<T, F>(xs + x, TE, gN_t + (size_t)q * S * 3 * sE + e, sE, F_, FFT, trE);
+      tlfea::svk_point_record(F_, FFT, trE, pts + (a * TE + x) * PT);
+    }
+    __syncthreads();
+    if (e < E) {
+#pragma unroll
+      for (int t = 0; t < NQ; ++t) {
+        const int q = k * NQ + t;
+        T h[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) h[j] = gN_t[((size_t)(q * S + a) * 3 + j) * sE + e];
+        const T w = dV_t[q * sE + e];
+        T K[6];
+        tlfea::svk_slot_block(pts + (t * TE + x) * PT, h, lam, mu, K);
+#pragma unroll
+        for (int c = 0; c < 6; ++c) acc[t % NG][c] += K[c] * w;
+      }
+    }
+  }
+  if (e < E) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      T sum = T(0);
+#pragma unroll
+      for (int h = 0; h < NG; ++h) sum += acc[h][c];
+      out[(a * 6 + c) * sE + e] = sum;
+    }
+  }
+}
+
+template <typename T, int TE, int NQ>
+constexpr size_t nocopy_smem() {
+  using L = tlfea::SlotSmem<T, S4Mr, TE, NQ>;
+  return (size_t)(L::XS + L::PTS) * sizeof(T);
+}
+
+#define VARIANT_BLOCKS_NOCOPY(TE, NQ, SUFFIX, T)                                                  \
+  extern "C" int tlfea_svk_blocks_ancf3443_slots##TE##_##NQ##_nocopy_##SUFFIX(                    \
+      const void* u, const void* conn_t, const void* gN_t, const void* dV_t, void* out, int E,    \
+      double lam, double mu, void* stream) {                                                      \
+    constexpr size_t smem = nocopy_smem<T, TE, NQ>();                                             \
+    static const cudaError_t attr =                                                               \
+        tlfea::allow_smem(svk_slots_nocopy_kernel<T, S4Mr, TE, NQ>, smem);                        \
+    if (attr != cudaSuccess) return (int)attr;                                                    \
+    if (E > 0)                                                                                    \
+      svk_slots_nocopy_kernel<T, S4Mr, TE, NQ>                                                    \
+          <<<(E + TE - 1) / TE, dim3(TE, S4Mr::S), smem, (cudaStream_t)stream>>>(                 \
+              (const T*)u, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t, (T*)out, E,        \
+              (T)lam, (T)mu);                                                                     \
+    return (int)cudaGetLastError();                                                               \
+  }                                                                                               \
+  extern "C" int tlfea_occupancy_svk_blocks_ancf3443_slots##TE##_##NQ##_nocopy_##SUFFIX(          \
+      int, int* out) {                                                                            \
+    return tlfea::occupancy(svk_slots_nocopy_kernel<T, S4Mr, TE, NQ>, TE * S4Mr::S,               \
+                            nocopy_smem<T, TE, NQ>(), out, TE);                                   \
+  }
+using Slots8_4 = tlfea::Slots<8, 4>;
+using Slots8_8 = tlfea::Slots<8, 8>;
+using Slots16_4 = tlfea::Slots<16, 4>;
+using Slots16_8 = tlfea::Slots<16, 8>;
+#define VARIANTS_BLOCKS(SUFFIX, T)                    \
+  VARIANT_BLOCKS(parent, tlfea::Groups, SUFFIX, T)   \
+  VARIANT_BLOCKS_STREAM(SUFFIX, T)                    \
+  VARIANT_BLOCKS(slots8_4, Slots8_4, SUFFIX, T)       \
+  VARIANT_BLOCKS(slots8_8, Slots8_8, SUFFIX, T)       \
+  VARIANT_BLOCKS(slots16_4, Slots16_4, SUFFIX, T)     \
+  VARIANT_BLOCKS(slots16_8, Slots16_8, SUFFIX, T)     \
+  VARIANT_BLOCKS_NOCOPY(8, 4, SUFFIX, T)              \
+  VARIANT_BLOCKS_NOCOPY(8, 8, SUFFIX, T)              \
+  VARIANT_BLOCKS_NOCOPY(16, 4, SUFFIX, T)             \
+  VARIANT_BLOCKS_NOCOPY(16, 8, SUFFIX, T)
+
+VARIANTS_BLOCKS(f32, float)
+VARIANTS_BLOCKS(f64, double)
+
+// `python -m tlfea_torch.tools.kernel_variants tangent` (PERF.md, Findings):
+// K5t `contrib_tangent` in its forms: `parent` (fem_kernels.cuh
+// contrib_tangent_kernel, the operands loaded where used), `stream` (its
+// STREAM: copied into shared memory by cp.async,
+// contrib_tangent_stream_tile), `stream_fused` (below: the stream with the
+// four contractions in one pass), each of the last two also under
+// __launch_bounds__' minimum of 3 blocks an SM (`_lb3`, float32): FEAT10
+// with Mooney-Rivlin, and for the record `stream` at FEAT10 with SVK and at
+// ANCF3443 with Mooney-Rivlin:
+// tlfea_contrib_tangent_<family>_<form>[_mr]_<SUFFIX>(..., E, the material's
+// constants as fem_kernels.MATERIALS orders them, stream) and
+// tlfea_occupancy_contrib_tangent_<family>_<form>[_mr]_<SUFFIX>(out). Every
+// form gives the parent's bits, up to the compiler's choice of fused
+// multiply-adds.
+
+// contrib_tangent_stream_tile with dF, dFd, Du and Fd summed in one pass
+// over the slots, so that each gradient value leaves shared memory once;
+// each of the 36 sums still runs over a ascending from 0.
+template <typename T, class F, class M>
+__device__ __forceinline__ void contrib_tangent_fused_tile(
+    const T* __restrict__ packed, const T* __restrict__ dpacked, const int* __restrict__ conn_t,
+    const T* __restrict__ gN_t, const T* __restrict__ dV_t, const T* __restrict__ Me_t,
+    T* __restrict__ out, int E, int e0, const M& m, T* smem) {
+  using tlfea::EX;
+  using L = tlfea::TangentSmem<T, F, true>;
+  constexpr int S = F::S, Q = F::Q, NG = F::NG;
+  constexpr int D = L::STAGES, R = L::QP_ROWS;
+  T* xt = smem;               // (S*9, EX): tangent du | dv | d(dv/dt)
+  T* xp = xt + S * 9 * EX;    // (S*6, EX): primal u | v
+  T* part = xp + S * 6 * EX;  // (NG*S*3, EX)
+  const int x = threadIdx.x, g = threadIdx.y;
+  const int e = e0 + x;
+  const size_t sE = (size_t)E;
+  tlfea::PartialFor<T, F, S * 3> f(part + g * S * 3 * EX + x);
+  T* mine = part + (L::PART + g * R) * EX + x;
+  auto issue = [&](int k) {
+    if (e < E && k < L::ROUNDS) {
+      const int q = k * NG + g;
+      T* dst = mine + (k % D) * (NG * R * EX);
+      const T* src = gN_t + (size_t)q * S * 3 * sE + e;
+#pragma unroll
+      for (int r = 0; r < S * 3; ++r) tlfea::cp_async_word(dst + r * EX, src + r * sE);
+      tlfea::cp_async_word(dst + S * 3 * EX, dV_t + (size_t)q * sE + e);
+    }
+    tlfea::cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < D; ++k) issue(k);
+  tlfea::stage<T, F, 9, 6>(dpacked, conn_t, E, e0, xt);
+  tlfea::stage<T, F, 6, 6, 9>(packed, conn_t, E, e0, xp);
+  __syncthreads();
+
+  if (e < E) {
+#pragma unroll 1
+    for (int q = g; q < Q; q += NG) {
+      const int k = (q - g) / NG;
+      const T* st = mine + (k % D) * (NG * R * EX);
+      tlfea::cp_async_wait<D - 1>();
+      T dF[3][3], dFd[3][3], Du[3][3], Fd[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) dF[i][j] = dFd[i][j] = Du[i][j] = Fd[i][j] = T(0);
+#pragma unroll
+      for (int a = 1; a < S; ++a) {  // centred slot 0 is zero
+        T du[3], dv[3], ua[3], va[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          du[i] = xt[(a * 9 + i) * EX + x];
+          dv[i] = xt[(a * 9 + 3 + i) * EX + x];
+          ua[i] = xp[(a * 6 + i) * EX + x];
+          va[i] = xp[(a * 6 + 3 + i) * EX + x];
+        }
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const T gv = st[(a * 3 + j) * EX];
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            dF[i][j] += du[i] * gv;
+            dFd[i][j] += dv[i] * gv;
+            Du[i][j] += ua[i] * gv;
+            Fd[i][j] += va[i] * gv;
+          }
+        }
+      }
+      T dP[3][3];
+      m.tangent(Du, dF, Fd, dFd, dP);
+      const T w = st[S * 3 * EX];
+#pragma unroll
+      for (int a = 0; a < S; ++a) {
+        const T g0 = st[(a * 3) * EX], g1 = st[(a * 3 + 1) * EX], g2 = st[(a * 3 + 2) * EX];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          f[a * 3 + i] += (dP[i][0] * g0 + dP[i][1] * g1 + dP[i][2] * g2) * w;
+      }
+      issue(k + D);
+    }
+  }
+  tlfea::cp_async_wait<0>();
+  f.flush();
+  __syncthreads();
+  tlfea::tangent_reduce<T, F>(part, xt, Me_t, out, E, e0);
+}
+
+// The streamed forms that the library does not launch: the fused tile, and
+// either tile under __launch_bounds__' minimum of MINB blocks an SM.
+template <typename T, class F, class M, bool FUSED, int MINB>
+__global__ void __launch_bounds__(tlfea::EX * F::NG, MINB)
+contrib_tangent_form_kernel(const T* __restrict__ packed, const T* __restrict__ dpacked,
+                            const int* __restrict__ conn_t, const T* __restrict__ gN_t,
+                            const T* __restrict__ dV_t, const T* __restrict__ Me_t,
+                            T* __restrict__ out, int E, M m) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  if constexpr (FUSED)
+    contrib_tangent_fused_tile<T, F, M>(packed, dpacked, conn_t, gN_t, dV_t, Me_t, out, E,
+                                        blockIdx.x * tlfea::EX, m, smem);
+  else
+    tlfea::contrib_tangent_stream_tile<T, F, M>(packed, dpacked, conn_t, gN_t, dV_t, Me_t, out,
+                                                E, blockIdx.x * tlfea::EX, m, smem);
+}
+
+// STREAM false: the parent; STREAM and neither FUSED nor a MINB above 1: the
+// library's stream; else contrib_tangent_form_kernel.
+template <typename T, class F, class M, bool STREAM, bool FUSED, int MINB>
+int launch_tangent_form(const void* packed, const void* dpacked, const void* conn_t,
+                        const void* gN_t, const void* dV_t, const void* Me_t, void* out, int E,
+                        const M& m, void* stream) {
+  if constexpr (!STREAM || (!FUSED && MINB == 1)) {
+    return tlfea::launch_contrib_tangent<T, F, STREAM>(packed, dpacked, conn_t, gN_t, dV_t, Me_t,
+                                                       out, E, m, stream);
+  } else {
+    constexpr size_t smem = tlfea::TangentSmem<T, F, true>::BYTES;
+    static const cudaError_t attr =
+        tlfea::allow_smem(contrib_tangent_form_kernel<T, F, M, FUSED, MINB>, smem);
+    if (attr != cudaSuccess) return (int)attr;
+    if (E > 0) {
+      contrib_tangent_form_kernel<T, F, M, FUSED, MINB>
+          <<<tlfea::n_tiles(E), dim3(tlfea::EX, F::NG), smem, (cudaStream_t)stream>>>(
+              (const T*)packed, (const T*)dpacked, (const int*)conn_t, (const T*)gN_t,
+              (const T*)dV_t, (const T*)Me_t, (T*)out, E, m);
+    }
+    return (int)cudaGetLastError();
+  }
+}
+
+template <typename T, class F, class M, bool STREAM, bool FUSED, int MINB>
+int occupancy_tangent_form(int* out) {
+  if constexpr (!STREAM || (!FUSED && MINB == 1))
+    return tlfea::occupancy_contrib_tangent<T, F, M, STREAM>(out);
+  else
+    return tlfea::occupancy(contrib_tangent_form_kernel<T, F, M, FUSED, MINB>,
+                            tlfea::EX * F::NG, tlfea::TangentSmem<T, F, true>::BYTES, out,
+                            tlfea::EX);
+}
+
+// MAT_TAG: _mr or nothing; MAT: tlfea::MrMat (five constants) or
+// tlfea::SvkMat (four, the fifth ignored).
+#define VARIANT_TANGENT(NAME, FAM, MAT_TAG, MAT, SUFFIX, T, FORM, STREAM, FUSED, MINB)          \
+  extern "C" int tlfea_contrib_tangent_##NAME##_##FORM##MAT_TAG##_##SUFFIX(                     \
+      const void* packed, const void* dpacked, const void* conn_t, const void* gN_t,            \
+      const void* dV_t, const void* Me_t, void* out, int E, double c0, double c1, double c2,    \
+      double c3, double c4, void* stream) {                                                     \
+    const double c[5] = {c0, c1, c2, c3, c4};                                                   \
+    return launch_tangent_form<T, FAM, MAT<T>, STREAM, FUSED, MINB>(                            \
+        packed, dpacked, conn_t, gN_t, dV_t, Me_t, out, E, MAT<T>::from(c), stream);            \
+  }                                                                                             \
+  extern "C" int tlfea_occupancy_contrib_tangent_##NAME##_##FORM##MAT_TAG##_##SUFFIX(int* out) { \
+    return occupancy_tangent_form<T, FAM, MAT<T>, STREAM, FUSED, MINB>(out);                    \
+  }
+#define VARIANTS_TANGENT_MR(SUFFIX, T)                                                   \
+  VARIANT_TANGENT(feat10, F10Mr, _mr, tlfea::MrMat, SUFFIX, T, parent, false, false, 1) \
+  VARIANT_TANGENT(feat10, F10Mr, _mr, tlfea::MrMat, SUFFIX, T, stream, true, false, 1)  \
+  VARIANT_TANGENT(feat10, F10Mr, _mr, tlfea::MrMat, SUFFIX, T, stream_fused, true, true, 1)
+
+VARIANTS_TANGENT_MR(f32, float)
+VARIANTS_TANGENT_MR(f64, double)
+VARIANT_TANGENT(feat10, F10Mr, _mr, tlfea::MrMat, f32, float, stream_lb3, true, false, 3)
+VARIANT_TANGENT(feat10, F10Mr, _mr, tlfea::MrMat, f32, float, stream_fused_lb3, true, true, 3)
+VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, f32, float, parent, false, false, 1)
+VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, f32, float, stream, true, false, 1)
+VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, f64, double, parent, false, false, 1)
+VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, f64, double, stream, true, false, 1)
+VARIANT_TANGENT(ancf3443, S4Mr, _mr, tlfea::MrMat, f32, float, parent, false, false, 1)
+VARIANT_TANGENT(ancf3443, S4Mr, _mr, tlfea::MrMat, f32, float, stream, true, false, 1)
+VARIANT_TANGENT(ancf3443, S4Mr, _mr, tlfea::MrMat, f64, double, parent, false, false, 1)
+VARIANT_TANGENT(ancf3443, S4Mr, _mr, tlfea::MrMat, f64, double, stream, true, false, 1)
 
 // An empty kernel on a grid of `blocks` blocks of `threads` threads with
 // `smem` bytes of dynamic shared memory: the floor of any launch of that

@@ -135,7 +135,8 @@ K4_BATCH = {"feat10": 8, "ancf3243": 4, "ancf3443": 4}
 PROFILING_SOURCES = ("hv_phases.cu",)
 # The launch shapes of csrc/fem_kernels.cuh: an element kernel's block in the
 # parent layout takes a tile of TILE elements (EX there; a kernel in the
-# split layout, `Points`, takes fewer: `occupancy`'s "elements"), K4's block
+# split layout, `Points`, or K3 in the slot layout, `Slots`, takes fewer:
+# `occupancy`'s "elements"), K4's block
 # K4_THREADS threads (THREADS), each thread one node and 3 channels.
 TILE, K4_THREADS = 32, 128
 

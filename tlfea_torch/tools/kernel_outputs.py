@@ -15,10 +15,13 @@ this, this, parent). Inputs come from a numpy seed, in float32 and float64:
   K5t at the 10k flagship (`[feat10_mr]`), the 72 x 72 shell
   (`[ancf3443_mr]`) and the 64-element beam (`[ancf3243_mr]`), and K2
   again at the bench.py 1k box (864 elements, `[feat10_mr]`) and at the
-  1,024-element beam (`[ancf3243_mr]`), at chip_smoke's strained state
-  (`ELEMENT_CASES`), whose K1 and K5 load the shape gradients and whose K2
-  runs in the form and layout each instantiation chose (fem_kernels.cuh
-  `Hold`, `hv_tile`'s STREAM, `Points`);
+  1,024-element beam (`[ancf3243_mr]`), and K5t again at the 1k box, at
+  chip_smoke's strained state (`ELEMENT_CASES`), whose K1 and K5 load the
+  shape gradients and whose K2 and K5t run in the form and layout each
+  instantiation chose (fem_kernels.cuh `Hold`, `hv_tile`'s and
+  `contrib_tangent_kernel`'s STREAM, `Points`);
+- K3 `svk_blocks` at the 72 x 72 shell (`[ancf3443]`, which may launch one
+  thread an (element, slot), `Slots`);
 - K1 (fe and the prep cache), K2 and K5 with SVK at the 64- and
   1,024-element beams (`[ancf3243]`, whose K1, K2 and K5 may launch one
   thread a quadrature point);
@@ -67,17 +70,19 @@ GRID = 6  # index of `grid` in the stats tensor (resident.STAT_FIELDS)
 # K2, K5 and K5t with Mooney-Rivlin at the builders' full sizes; K2 alone at
 # the bench.py 1k box (864 elements, the size of chip_smoke's
 # [composed_1k_mr]) and at the 1,024-element beam, saved as
-# "hv[feat10_mr]_e864" and "hv[ancf3243_mr]_e1024"; K1, K2 and K5 with SVK
-# at the 64- and 1,024-element beams ("contrib[ancf3243]",
-# "hv[ancf3243]_e1024", ...).
+# "hv[feat10_mr]_e864" and "hv[ancf3243_mr]_e1024", and K5t at the 1k box;
+# K1, K2 and K5 with SVK at the 64- and 1,024-element beams
+# ("contrib[ancf3243]", "hv[ancf3243]_e1024", ...); K3 with SVK at the 72 x
+# 72 shell ("svk_blocks[ancf3443]").
 MR_KERNELS = ("primal_prep", "hv", "contrib", "contrib_tangent")
 ELEMENT_CASES = (("feat10_mr", "flagship_problem", None, MR_KERNELS),
                  ("ancf3443_mr", "shell_problem", None, MR_KERNELS),
                  ("ancf3243_mr", "ancf_beam_problem", None, MR_KERNELS),
-                 ("feat10_mr", "flagship_problem", "RESIDENT_DIMS", ("hv",)),
+                 ("feat10_mr", "flagship_problem", "RESIDENT_DIMS", ("hv", "contrib_tangent")),
                  ("ancf3243_mr", "ancf_beam_problem", "BIG_BEAM", ("hv",)),
                  ("ancf3243", "ancf_beam_problem", None, ("primal_prep", "hv", "contrib")),
-                 ("ancf3243", "ancf_beam_problem", "BIG_BEAM", ("primal_prep", "hv", "contrib")))
+                 ("ancf3243", "ancf_beam_problem", "BIG_BEAM", ("primal_prep", "hv", "contrib")),
+                 ("ancf3443", "shell_problem", None, ("svk_blocks",)))
 
 
 ROLLOUT_STEPS = 250  # chip_smoke's [resident] rollout
@@ -151,7 +156,7 @@ def save(path: str, no_fma: bool = False) -> None:
 
 
 def _element_outputs(cs, fk, dev, dtype, tag, builder, size, kernels):
-    """`kernels` of K1 (fe, prep), K2, K5 and K5t `[tag]` (Mooney-Rivlin for
+    """`kernels` of K1 (fe, prep), K2, K3, K5 and K5t `[tag]` (Mooney-Rivlin for
     a "_mr" tag, else the builder's SVK) on the random state of chip_smoke's
     `[kernels]` (u scaled by STRAIN_SCALE), keyed "<kernel>[<tag>]" (with
     "_e<E>" where a size is given); and calls that repeat each launch."""
@@ -168,8 +173,10 @@ def _element_outputs(cs, fk, dev, dtype, tag, builder, size, kernels):
     packed = torch.as_tensor(packed, dtype=dtype, device=dev).contiguous()
     p = torch.as_tensor(rng.normal(size=(n, 3)), dtype=dtype, device=dev).contiguous()
     dp = torch.as_tensor(rng.normal(size=(n, 9)), dtype=dtype, device=dev).contiguous()
+    u = (p * 1e-3).contiguous()
     fe, prep = fk.primal_prep(op, packed)
     calls = {"primal_prep": lambda: fk.primal_prep(op, packed),
+             "svk_blocks": lambda: fk.svk_blocks(op, u),
              "hv": lambda: fk.hv(op, p, prep, 1e-3),
              "contrib": lambda: fk.contrib(op, packed),
              "contrib_tangent": lambda: fk.contrib_tangent(op, packed, dp)}

@@ -53,6 +53,33 @@ Parts (all when none is named):
             ptxas's spill stores, blocks an SM, waves, block shape and
             shared memory, and the floor of an empty launch of its grid; the
             shipped row names the forms whose block and bits it has;
+  blocks    K3 `svk_blocks[ancf3443]` (SVK) in each form of `BLOCKS_FORMS`
+            (kernel_variants.cu: the parent tile, thread (x, g) walking
+            points g, g + 4, ... of 32 elements with its 96 sums in shared
+            memory; `stream`, the same walk with each round's gradient rows
+            and dV row copied by cp.async into a two-stage ring;
+            `slots<TE>_<NQ>`, fem_kernels.cuh `Slots`: one thread an
+            (element, slot), TE = 8 or 16 elements a block, chunks of NQ = 4
+            or 8 points copied into shared memory by the block, the sums in
+            registers; `slots<TE>_<NQ>_nocopy`, kernel_variants.cu, the
+            same reading global memory) beside the shipped kernel on the SVK shells of
+            `BLOCKS_SHELLS` (24 x 24, 72 x 72, 144 x 144 elements), float32
+            and float64: each form held bit for bit against the shipped
+            kernel (the shipped within 1e-5, float64 1e-12, of its twin),
+            timed twice in the order A B C ... C B A, with its registers,
+            local bytes, ptxas's spill stores, blocks an SM, waves, block
+            shape, shared memory and the empty launch of its grid; the
+            shipped row names the forms whose block and bits it has;
+  tangent   K5t `contrib_tangent` in its forms (kernel_variants.cu: the
+            parent; `stream`, a point's operands copied into shared memory
+            by cp.async, fem_kernels.cuh `contrib_tangent_stream_tile`;
+            `stream_fused`, kernel_variants.cu, the four contractions in one
+            pass; each of the
+            two also under __launch_bounds__' minimum of 3 blocks an SM,
+            `_lb3`, float32) beside the shipped kernel at `TANGENT_CASES`
+            (`[feat10_mr]` at the bunny's 96 elements, the 1k box and the
+            10k flagship; for the record `stream` at `[feat10]` and at
+            `[ancf3443_mr]`), float32 and float64, as `blocks` reports them;
   k4        K4's walk in its forms (one incidence at a time, batches of
             4-32 per (node, channel), a thread per node) at the 10k box, the
             100k box and the shell, each checked bit for bit against the
@@ -592,6 +619,257 @@ def _split_kernel(lib, cs, label, kernel, system, forms):
             print(f"{line}; {notes[v]}", flush=True)
 
 
+# `blocks`: K3 `svk_blocks[ancf3443]`'s forms in kernel_variants.cu
+# (tlfea_svk_blocks_ancf3443_<form>_<sfx>) on SVK shells of BLOCKS_SHELLS x
+# BLOCKS_SHELLS elements (576, 5,184 and 20,736).
+BLOCKS_SHELLS = (24, 72, 144)
+BLOCKS_FORMS = ["parent", "stream"] + [f"slots{te}_{nq}{c}" for c in ("", "_nocopy")
+                                       for te in (8, 16) for nq in (4, 8)]
+# `tangent`: K5t's forms (tlfea_contrib_tangent_<family>_<form>[_mr]_<sfx>)
+# at (tag, chip_smoke builder, the name of its size argument there or None,
+# forms): K5t `[feat10_mr]` at the bunny's 96-element fallback mesh, the
+# bench.py 1k box (864) and the 10k flagship (10,584); for the record, the
+# stream at K5t `[feat10]` (SVK) at 10k and `[ancf3443_mr]` at the 72 x 72
+# shell. The `_lb3` forms are float32 only.
+TANGENT_FORMS = ["parent", "stream", "stream_fused", "stream_lb3", "stream_fused_lb3"]
+TANGENT_CASES = (("feat10_mr", "flagship_problem", "BUNNY_DIMS", TANGENT_FORMS),
+                 ("feat10_mr", "flagship_problem", "RESIDENT_DIMS", TANGENT_FORMS),
+                 ("feat10_mr", "flagship_problem", None, TANGENT_FORMS),
+                 ("feat10", "flagship_problem", None, ["parent", "stream"]),
+                 ("ancf3443_mr", "shell_problem", None, ["parent", "stream"]))
+
+
+def _ptxas_spills(pattern, key):
+    """{key(match): ptxas's spill stores in bytes} of the entry functions
+    whose mangled names match `pattern`."""
+    out, k = {}, None
+    for line in PTXAS:
+        if "Compiling entry" in line:
+            m = pattern.search(line)
+            k = key(m) if m else None
+        elif k is not None and "spill stores" in line:
+            out[k] = int(line.split(" bytes spill stores")[0].split(",")[-1])
+            k = None
+    return out
+
+
+def _blocks_spills():
+    """{(T "f" or "d", form): spill stores} of `blocks`' forms: the parent
+    svk_blocks_kernel<T, F>, svk_blocks_stream_kernel<T, F>,
+    svk_slots_kernel<T, F, TE, NQ> and svk_slots_nocopy_kernel<T, F, TE, NQ>,
+    F the ANCF3443 family with register partials (REG_BYTES 240)."""
+    fam = r"FamilyILi16ELi48ELj4369ELi4ELi240EE"
+    pat = re.compile(r"svk_(blocks|blocks_stream|slots|slots_nocopy)_kernelI([fd])N(?:S_6|5tlfea6)"
+                     + fam + r"(?:ELi(\d+)ELi(\d+)E)?")
+
+    def key(m):
+        if m[1].startswith("slots"):
+            return m[2], f"slots{m[3]}_{m[4]}" + ("_nocopy" if m[1] == "slots_nocopy" else "")
+        return m[2], "parent" if m[1] == "blocks" else "stream"
+    return _ptxas_spills(pat, key)
+
+
+def _blocks_smem(form, op, itemsize):
+    """The dynamic shared memory of a `blocks` form's launch (fem_kernels.cuh
+    smem_bytes<T, F, 3, 6>, kernel_variants.cu stream_blocks_smem, SlotSmem)."""
+    S, Q, ng, rows = op.S, op.Q, NG["ancf3443"], op.S * 3 + 1
+    if form in ("parent", "stream"):
+        words = (S * 3 + ng * S * 6) * 32
+        return (words + (min(Q // ng, 2) * ng * rows * 32 if form == "stream" else 0)) * itemsize
+    te, nq = (int(v) for v in form[5:].split("_")[:2])
+    buf = 0 if form.endswith("_nocopy") else 2 * nq * rows * te
+    return (S * 3 * te + buf + nq * te * (16 + 16 // itemsize)) * itemsize
+
+
+def _tangent_spills():
+    """{(T, S, material, STREAM, FUSED, MINB): spill stores} of K5t's forms:
+    the library's contrib_tangent_kernel<T, F, M, STREAM> (not FUSED, MINB 1)
+    and kernel_variants.cu's contrib_tangent_form_kernel<T, F, M, FUSED,
+    MINB> (STREAM)."""
+    pat = re.compile(r"contrib_tangent_(form_)?kernelI([fd]).*?FamilyILi(\d+)E.*?"
+                     r"(SvkMat|MrMat)I[fd]EELb([01])E(?:Li(\d+)E)?")
+
+    def key(m):
+        if m[1]:
+            return m[2], int(m[3]), m[4], True, m[5] == "1", int(m[6])
+        return m[2], int(m[3]), m[4], m[5] == "1", False, 1
+    return _ptxas_spills(pat, key)
+
+
+def _tangent_key(dtype, op, form):
+    """The _tangent_spills key of a form of TANGENT_FORMS on op."""
+    return ("f" if dtype == torch.float32 else "d", op.S,
+            "MrMat" if op.kind == "mr" else "SvkMat", form != "parent", "fused" in form,
+            3 if form.endswith("_lb3") else 1)
+
+
+def _tangent_smem(form, op, itemsize):
+    """The dynamic shared memory of a K5t form's launch (TangentSmem)."""
+    ng = NG[op.family]
+    words = op.S * 15 + ng * op.S * 3
+    if form != "parent":
+        words += min(op.Q // ng, 2) * ng * (op.S * 3 + 1)
+    return words * 32 * itemsize
+
+
+def _form_rows(lib, cs, label, op, dtype, shipped, calls, occ, notes, forms, smem, spills,
+               entry, occ_entry):
+    """Run, hold bit for bit against `shipped` and time each of `forms`
+    beside the shipped call (`calls`["shipped"], its occupancy and note
+    given): entry(form) -> a call that launches the form into `out` and
+    returns it; occ_entry(form) -> its occupancy() record. Timed twice in
+    the order A B C ... C B A; one line a form, with its registers, local
+    bytes, ptxas's spill stores (spills(form)), blocks an SM, waves, block
+    shape, shared memory and the empty launch of its grid."""
+    dev = torch.device("cuda")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    I = ctypes.c_int
+    empty = lib.tlfea_empty_launch
+    empty.argtypes, empty.restype = [I, I, I, ctypes.c_void_p], ctypes.c_int
+    s = torch.cuda.current_stream().cuda_stream
+    for v in forms:
+        call, out = entry(v)
+        call()
+        torch.cuda.synchronize()
+        if torch.equal(out, shipped):
+            notes[v] = "bitwise the shipped"
+        else:
+            notes[v] = (f"DIFFERS from the shipped in {int((out != shipped).sum())} of "
+                        f"{out.numel()} entries (max rel "
+                        f"{float((out - shipped).abs().max() / shipped.abs().max()):.2e})")
+        occ[v] = occ_entry(v)
+        calls[v] = call
+    same = [v for v in forms if occ[v] == occ["shipped"] and notes[v] == "bitwise the shipped"]
+    notes["shipped"] += "; launches the block of " + (" / ".join(same) or "no form")
+    keys = list(calls)
+    times = {k: [] for k in keys}
+    for k in keys + keys[::-1]:
+        times[k].append(cs._device_ms(calls[k], 256)[0] * 1e3)
+    sfx = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    for v in keys:
+        o = occ[v]
+        blocks = -(-op.E // o["elements"])
+        waves = -(-blocks // (o["blocks_per_sm"] * n_sm)) if o["blocks_per_sm"] else 0
+        sp = None if v == "shipped" else spills(v)
+        line = (f"{label}[{op.tag}] {sfx} E={op.E} {v}: {min(times[v]):.2f} us "
+                f"({times[v][0]:.2f}/{times[v][1]:.2f}), {o['regs']} registers, "
+                f"{o['local_bytes']} B local" + ("" if sp is None else f" ({sp} B spill stores)")
+                + f", {o['blocks_per_sm']} blocks an SM, {waves} wave(s) of {blocks} blocks of "
+                f"{o['threads']} threads ({o['elements']} elements)")
+        if v != "shipped":
+            m = smem(v)
+            call = _checked(lambda b=blocks, t=o["threads"], m=m: empty(b, t, m, s), "empty")
+            line += f", {m} B shared; empty launch {cs._device_ms(call, 256)[0] * 1e3:.2f} us"
+        print(f"{line}; {notes[v]}", flush=True)
+
+
+def _occ(fn, *args):
+    res = (ctypes.c_int * 5)()
+    fn.restype = ctypes.c_int
+    if fn(*args, res) != 0:
+        raise RuntimeError(f"{fn.__name__}: occupancy query failed")
+    return {"regs": res[0], "local_bytes": res[1], "blocks_per_sm": res[2], "threads": res[3],
+            "elements": res[4]}
+
+
+def blocks(lib):
+    """K3 `svk_blocks[ancf3443]` in each form of BLOCKS_FORMS beside the
+    shipped kernel on the shells of BLOCKS_SHELLS, float32 and float64 (see
+    the module's docstring)."""
+    cs = _cs()
+    dev = torch.device("cuda")
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    spills = _blocks_spills()
+    for n in BLOCKS_SHELLS:
+        system = cs.shell_problem("cpu", torch.float64, n, n)[0]
+        for dtype in (torch.float32, torch.float64):
+            op = fk.FemOperator(system.elems.to(dev, dtype), system.material)
+            sfx = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+            t = "f" if dtype == torch.float32 else "d"
+            u = _inputs(cs, op, op.tag, dtype, dev)["u"]
+            shipped = fk.svk_blocks(op, u)
+            want = fk.svk_blocks_plain(op, u)
+            torch.cuda.synchronize()
+            rel = float((shipped - want).abs().max() / want.abs().max())
+            if not rel <= (1e-5 if dtype == torch.float32 else 1e-12):
+                raise AssertionError(f"svk_blocks[ancf3443] {sfx} E={op.E} disagrees with its "
+                                     f"twin: {rel:.3e}")
+            s = torch.cuda.current_stream().cuda_stream
+
+            def entry(v, op=op, u=u, s=s, sfx=sfx, like=shipped):
+                f = getattr(lib, f"tlfea_svk_blocks_ancf3443_{v}_{sfx}")
+                f.argtypes, f.restype = [P] * 5 + [I] + [D] * 2 + [P], ctypes.c_int
+                out = torch.empty_like(like)
+                conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in
+                        (u, op.conn_t, op.gN_t, op.dV_t, out, op.E, op.lam, op.mu, s)]
+                return _checked(lambda: f(*conv), f"svk_blocks[ancf3443 {v} {sfx}]"), out
+
+            def occ_entry(v, op=op, sfx=sfx):
+                fn = getattr(lib, f"tlfea_occupancy_svk_blocks_ancf3443_{v}_{sfx}")
+                fn.argtypes = [I, ctypes.POINTER(I)]
+                return _occ(fn, op.E)
+
+            _form_rows(lib, cs, "svk_blocks", op, dtype, shipped,
+                       {"shipped": lambda op=op, u=u: fk.svk_blocks(op, u)},
+                       {"shipped": fk.occupancy("svk_blocks", op.tag, dtype, op.E)},
+                       {"shipped": f"twin rel err {rel:.2e}"}, BLOCKS_FORMS,
+                       lambda v, op=op, dtype=dtype: _blocks_smem(v, op, dtype.itemsize),
+                       lambda v, t=t: spills.get((t, v)), entry, occ_entry)
+
+
+def tangent(lib):
+    """K5t `contrib_tangent` in its forms beside the shipped kernel at
+    TANGENT_CASES, float32 and float64 (see the module's docstring)."""
+    cs = _cs()
+    dev = torch.device("cuda")
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    spills = _tangent_spills()
+    mr = cs.mooney_rivlin()
+    for tag, builder, size, forms in TANGENT_CASES:
+        family, kind = fk._untag(tag)
+        system = getattr(cs, builder)("cpu", torch.float64,
+                                      *(() if size is None else (getattr(cs, size),)),
+                                      material=mr if kind == "mr" else None)[0]
+        for dtype in (torch.float32, torch.float64):
+            op = fk.FemOperator(system.elems.to(dev, dtype), system.material)
+            sfx = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+            x = _inputs(cs, op, tag, dtype, dev)
+            shipped = fk.contrib_tangent(op, x["packed"], x["dp"])
+            want = fk.contrib_tangent_plain(op, x["packed"], x["dp"])
+            torch.cuda.synchronize()
+            rel = float((shipped - want).abs().max() / want.abs().max())
+            if not rel <= (1e-5 if dtype == torch.float32 else 1e-12):
+                raise AssertionError(f"contrib_tangent[{tag}] {sfx} E={op.E} disagrees with "
+                                     f"its twin: {rel:.3e}")
+            s = torch.cuda.current_stream().cuda_stream
+            mat = list(op.mat_args) + [0.0] * (5 - len(op.mat_args))
+            mtag = "_mr" if kind == "mr" else ""
+
+            def entry(v, op=op, x=x, s=s, sfx=sfx, like=shipped, mat=mat, mtag=mtag):
+                f = getattr(lib, f"tlfea_contrib_tangent_{op.family}_{v}{mtag}_{sfx}")
+                f.argtypes, f.restype = [P] * 7 + [I] + [D] * 5 + [P], ctypes.c_int
+                out = torch.empty_like(like)
+                conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in
+                        (x["packed"], x["dp"], op.conn_t, op.gN_t, op.dV_t, op.Me_t, out, op.E,
+                         *mat, s)]
+                return _checked(lambda: f(*conv), f"contrib_tangent[{op.tag} {v} {sfx}]"), out
+
+            def occ_entry(v, op=op, sfx=sfx, mtag=mtag):
+                fn = getattr(lib, f"tlfea_occupancy_contrib_tangent_{op.family}_{v}{mtag}_{sfx}")
+                fn.argtypes = [ctypes.POINTER(I)]
+                return _occ(fn)
+
+            fs = [v for v in forms if dtype == torch.float32 or not v.endswith("_lb3")]
+            _form_rows(lib, cs, "contrib_tangent", op, dtype, shipped,
+                       {"shipped": lambda op=op, x=x: fk.contrib_tangent(op, x["packed"],
+                                                                         x["dp"])},
+                       {"shipped": fk.occupancy("contrib_tangent", op.tag, dtype, op.E)},
+                       {"shipped": f"twin rel err {rel:.2e}"}, fs,
+                       lambda v, op=op, dtype=dtype: _tangent_smem(v, op, dtype.itemsize),
+                       lambda v, op=op, dtype=dtype: spills.get(_tangent_key(dtype, op, v)),
+                       entry, occ_entry)
+
+
 def k4(lib):
     """K4's forms, float32, C = 3 (the gradient's and Hv's node sums) and C =
     6 (the block-Jacobi blocks', and `[kernels]`' random values)."""
@@ -713,8 +991,8 @@ def resident(lib):
               flush=True)
 
 
-PARTS = {"elements": elements, "beams": beams, "hv": hv, "split": split, "k4": k4,
-         "barriers": barriers, "resident": resident}
+PARTS = {"elements": elements, "beams": beams, "hv": hv, "split": split, "blocks": blocks,
+         "tangent": tangent, "k4": k4, "barriers": barriers, "resident": resident}
 
 
 def main():
