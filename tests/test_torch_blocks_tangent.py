@@ -1,10 +1,11 @@
-"""K3 `svk_blocks[ancf3443]` and K5t `contrib_tangent[feat10_mr]` on the CPU,
-at the ragged sizes at which `tests/test_torch_cuda.py` holds their CUDA
-kernels (which may launch one thread an (element, slot), `fem_kernels.cuh`
-`Slots`, and stream a point's operands, `contrib_tangent_stream_tile`) to
-the twins: a 5 x 7 shell (35 elements) and a 1 x 1 shell for K3; the first
-33 elements of a FEAT10 box for K5t, each a multiple of neither 8 nor 32, so
-the last tile is ragged.
+"""K3 `svk_blocks[ancf3443]` and K5t `contrib_tangent` (`[feat10_mr]`,
+`[ancf3443]`, `[ancf3443_mr]`) on the CPU, at the ragged sizes at which
+`tests/test_torch_cuda.py` holds their CUDA kernels (which may launch one
+thread an (element, slot), `fem_kernels.cuh` `Slots`, and stream a point's
+operands, `contrib_tangent_stream_tile`) to the twins: a 5 x 7 shell (35
+elements) and a 1 x 1 shell for K3 and the shell's K5t; the first 33
+elements of a FEAT10 box for K5t `[feat10_mr]`, each a multiple of neither
+8 nor 32, so the last tile is ragged.
 
 On the CPU the wrappers run the plain twins, which the card tests take as
 the reference. Here they go against the JAX package's XLA path, in float64
@@ -15,7 +16,6 @@ scatter (`SVK.tangent_diag_block` at each quadrature point times dV, as
 `jax.jvp` of the element contribution `_element_contrib_values` along
 independent directions (du, dv, d(dv/dt)), damped and undamped.
 """
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -113,6 +113,67 @@ def test_mr_contrib_tangent_twin_on_a_ragged_box_matches_jax(tangent_box, dampin
     jsys = JSystem(elems=elems, material=mat, constraints=JFixedCoefs.from_indices(fixed, nodes))
     op = _port(jsys, dtype)
     assert (op.tag, op.E) == ("feat10_mr", TANGENT_E) and op.E % 8 and op.E % 32
+
+    packed, dpacked = (torch.as_tensor(a, dtype=dtype).contiguous() for a in (host, dhost))
+    got = fk.contrib_tangent(op, packed, dpacked)
+    assert torch.equal(got, fk.contrib_tangent_plain(op, packed, dpacked))
+    want = _slots(jvp(mat, jnp.asarray(host), jnp.asarray(dhost)), op, 3)
+    assert np.isfinite(got.numpy()).all() and _rel(got.numpy(), want) < TOL[dtype]
+
+
+# K5t on the shells of SHELLS: (tag, damping). SVK damped as chip_smoke's
+# shell is; Mooney-Rivlin damped and undamped.
+SHELL_TANGENTS = [("ancf3443", 1e3), ("ancf3443_mr", 1e3), ("ancf3443_mr", 0.0)]
+
+
+@pytest.fixture(scope="module")
+def tangent_shells():
+    """shell -> (coefs, JAX elements, a strained state (u 2e-3, v and dv/dt
+    standard normal), a tangent direction (n, 9), the JAX jvp of the element
+    contribution jitted once a shell, the material an argument)."""
+    cache = {}
+
+    def get(shell):
+        if shell not in cache:
+            coefs, conn = j_ancf3443.shell_grid(*shell, L=0.05, W=0.05)
+            elems = j_ancf3443.build(coefs, conn, 0.05, 0.05, 0.01, rho=1000.0)
+            rng = np.random.default_rng(29)
+            n = len(coefs)
+            host = np.concatenate([rng.normal(size=(n, 3)) * 2e-3, rng.normal(size=(n, 6))], 1)
+            dhost = rng.normal(size=(n, 9))
+
+            @jax.jit
+            def jvp(material, x, dx):
+                def contrib(u, v, a):
+                    return _element_contrib_values(u, v, a, elems, material)
+
+                return jax.jvp(contrib, (x[:, 0:3], x[:, 3:6], x[:, 6:9]),
+                               (dx[:, 0:3], dx[:, 3:6], dx[:, 6:9]))[1]
+
+            cache[shell] = coefs, elems, host, dhost, jvp
+        return cache[shell]
+
+    return get
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("tag,damping", SHELL_TANGENTS,
+                         ids=[f"{t}-{'damped' if d else 'undamped'}" for t, d in SHELL_TANGENTS])
+@pytest.mark.parametrize("shell", SHELLS, ids=[f"{nx}x{ny}" for nx, ny in SHELLS])
+def test_shell_contrib_tangent_twin_on_ragged_shells_matches_jax(tangent_shells, shell, tag,
+                                                                damping, dtype):
+    coefs, elems, host, dhost, jvp = tangent_shells(shell)
+    if tag == "ancf3443":
+        lam, mu = lame_from_E_nu(1e7, 0.3)
+        mat = JSVK(lam=jnp.asarray(lam), mu=jnp.asarray(mu), eta_damp=jnp.asarray(damping),
+                   lam_damp=jnp.asarray(damping))
+    else:
+        mat = _JMooneyRivlin(**_mr_from_E_nu(1e7, 0.3, damping))
+    edge = np.nonzero(coefs[0::4, 0] < 1e-12)[0]
+    fixed = (4 * edge[:, None] + np.arange(4)[None, :]).reshape(-1)
+    jsys = JSystem(elems=elems, material=mat, constraints=JFixedCoefs.from_indices(fixed, coefs))
+    op = _port(jsys, dtype)
+    assert (op.tag, op.E) == (tag, shell[0] * shell[1])
 
     packed, dpacked = (torch.as_tensor(a, dtype=dtype).contiguous() for a in (host, dhost))
     got = fk.contrib_tangent(op, packed, dpacked)

@@ -21,6 +21,7 @@ run it as
 """
 
 from dataclasses import replace
+from functools import lru_cache
 
 import numpy as np
 import pytest
@@ -1251,6 +1252,91 @@ def test_shell_svk_blocks_reports_the_block_it_launches(cuda_dev, dtype):
         assert occ["blocks_per_sm"] >= 1
     system, _ = _shell_blocks_case(cuda_dev, dtype, (5, 7))
     assert fk.launch_blocks("svk_blocks", system.fem) == -(-35 // te)
+
+
+# K5t `contrib_tangent[ancf3443]` (SVK) and `[ancf3443_mr]`, which the
+# instantiations may launch with one thread an (element, slot)
+# (`fem_kernels.cuh` `Slots`, `contrib_tangent_slots_kernel`) up to a gate:
+# shells of 1, 35 (5 x 7: a ragged last block, a row stride E * itemsize off
+# 16 bytes), 576 (24 x 24) and 5,184 (72 x 72, chip_smoke's [shell])
+# elements, and for SVK 7,056 (84 x 84, past its float64 gate), at a
+# strained random state (u ANCF_MR_STRAIN["ancf3443"], v and dv/dt standard
+# normal) and a standard normal direction.
+SHELL_TANGENT_SIZES = [(1, 1), (5, 7), (24, 24), (72, 72)]
+SHELL_TANGENT_CASES = ([(shell, tag) for tag in ("ancf3443", "ancf3443_mr")
+                        for shell in SHELL_TANGENT_SIZES] + [((84, 84), "ancf3443")])
+# The launch as PERF.md records the choice, by (tag, dtype): (TE, MAX_E), TE
+# elements x 16 slots a block on shells of up to MAX_E elements and the
+# parent tile (32 elements x 4 groups) above; None, the parent at every E.
+SHELL_TANGENT_SLOTS = {("ancf3443", torch.float32): (8, 2**31 - 1),
+                       ("ancf3443", torch.float64): (8, 5184),
+                       ("ancf3443_mr", torch.float32): (8, 2**31 - 1),
+                       ("ancf3443_mr", torch.float64): None}
+
+
+@lru_cache(maxsize=None)
+def _shell_elems(shell):
+    """The float64 tables of an nx x ny ANCF3443 shell on the CPU, built once
+    (the build takes seconds at thousands of elements)."""
+    coefs, conn = ancf3443.shell_grid(*shell, L=0.05, W=0.05)
+    return len(coefs), ancf3443.build(coefs, conn, 0.05, 0.05, 0.01, rho=1000.0,
+                                      dtype=torch.float64, device="cpu")
+
+
+def _shell_tangent_case(device, dtype, shell, tag, damping):
+    """(op, packed, dpacked) on an nx x ny shell of material `tag` (SVK or
+    Mooney-Rivlin) with the given damping."""
+    lam, mu = lame_from_E_nu(1e7, 0.3)
+    material = (_mooney_rivlin(damping=damping) if tag == "ancf3443_mr"
+                else SVK(lam, mu, damping, damping))
+    n, elems = _shell_elems(shell)
+    op = fk.FemOperator(elems.to(device, dtype), material)
+    rng = np.random.default_rng(31)
+    packed = np.concatenate([rng.normal(size=(n, 3)) * ANCF_MR_STRAIN["ancf3443"],
+                             rng.normal(size=(n, 6))], 1)
+    dpacked = rng.normal(size=(n, 9))
+    return (op, *(torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+                  for a in (packed, dpacked)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("damping", [0.0, 1e3], ids=["undamped", "damped"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("shell,tag", SHELL_TANGENT_CASES,
+                         ids=[f"{x}x{y}-{t}" for (x, y), t in SHELL_TANGENT_CASES])
+def test_shell_contrib_tangent_matches_twin_and_repeats(cuda_dev, shell, tag, dtype, tol,
+                                                         damping):
+    """K5t `[ancf3443]` and `[ancf3443_mr]` against their twins in one
+    launch, damped and undamped, at a strained state; bitwise repeatable."""
+    op, packed, dpacked = _shell_tangent_case(cuda_dev, dtype, shell, tag, damping)
+    assert (op.tag, op.E) == (tag, shell[0] * shell[1])
+    fk.reset_launch_counts()
+    got = fk.contrib_tangent(op, packed, dpacked)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES[f"contrib_tangent[{tag}]"] == 1 and sum(fk.LAUNCHES.values()) == 1
+    want = fk.contrib_tangent_plain(op, packed, dpacked)
+    assert bool(torch.isfinite(got).all()) and _rel(got, want) < tol
+    assert torch.equal(fk.contrib_tangent(op, packed, dpacked), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("tag", ["ancf3443", "ancf3443_mr"])
+def test_shell_contrib_tangent_reports_the_block_it_launches(cuda_dev, tag, dtype):
+    """`occupancy` reports the block of the K5t `[ancf3443]` / `[ancf3443_mr]`
+    launch that runs, as SHELL_TANGENT_SLOTS records it, on each side of any
+    gate, with at least one block an SM; and `launch_blocks` counts its
+    blocks on the ragged 5 x 7 shell."""
+    slots = SHELL_TANGENT_SLOTS[(tag, dtype)]
+    te, max_e = slots or (32, 0)
+    gate = [max_e, max_e + 1] if slots and max_e < 2**31 - 1 else []
+    for E in [1, 35, 5184, *gate, 20736, None]:
+        occ = fk.occupancy("contrib_tangent", tag, dtype, E)
+        on_slots = slots is not None and (E or 2**31 - 1) <= max_e
+        assert (occ["elements"], occ["threads"]) == ((te, te * 16) if on_slots else (32, 128)), E
+        assert occ["blocks_per_sm"] >= 1
+    op = _shell_tangent_case(cuda_dev, dtype, (5, 7), tag, 1e3)[0]
+    assert fk.launch_blocks("contrib_tangent", op) == -(-35 // (te if slots else 32))
 
 
 # K5t `contrib_tangent[feat10_mr]` (its operands streamed through shared

@@ -35,6 +35,6 @@ using K2F32 = tlfea::Direct<8, tlfea::Hold::early, 4096>;
 using K2F64 = tlfea::Points<8, tlfea::Hold::early, 4096>;
 using K5Points = tlfea::Points<8, tlfea::Hold::early, 4096>;
 TLFEA_FAMILY_ENTRY_POINTS(ancf3243, Ancf3243, f32, float, K1F32, K2F32, K5Points,
-                          tlfea::Groups)
+                          tlfea::Groups, tlfea::Groups)
 TLFEA_FAMILY_ENTRY_POINTS(ancf3243, Ancf3243, f64, double, K1F64, K2F64, K5Points,
-                          tlfea::Groups)
+                          tlfea::Groups, tlfea::Groups)

@@ -29,6 +29,6 @@ using Ancf3243 = tlfea::Family<8, 12, 0x11u, 4>;
 using K2PointsF32 = tlfea::Points<8, tlfea::Hold::early, 2048>;
 using K2PointsF64 = tlfea::Points<8, tlfea::Hold::none, 4096>;
 TLFEA_MR_ENTRY_POINTS(ancf3243, Ancf3243, f32, float, stream, early, false,
-                      K2PointsF32, false)
+                      K2PointsF32, false, tlfea::Groups)
 TLFEA_MR_ENTRY_POINTS(ancf3243, Ancf3243, f64, double, stream, none, false,
-                      K2PointsF64, false)
+                      K2PointsF64, false, tlfea::Groups)

@@ -19,12 +19,29 @@
 // 5,184 and 114.33 -> 100.22 at 20,736; float64 62.96 -> 14.76, 104.82 ->
 // 50.48 and 372.61 -> 185.26, each bit for bit the parent (PERF.md,
 // Findings).
+//
+// K5t `contrib_tangent` launches one thread an (element, slot) too
+// (fem_kernels.cuh `contrib_tangent_slots_kernel`, `Slots<8, 8>`: phase A
+// one thread a point of the chunk, four contractions and the tangent into
+// a dP record; phase B the slot's products; the 3 sums of each group in
+// registers): on an H100 (NVIDIA H100 80GB HBM3, 700 W; `python -m
+// tlfea_torch.tools.kernel_variants tangent`, parent -> Slots<8, 8> in one
+// call, us) float32 33.12 -> 14.94 at 576 elements, 61.71 -> 33.95 at 5,184
+// and 187.76 -> 116.49 at 20,736, at every E. In float64 38.99 -> 21.25 at
+// 576 and 80.26 -> 76.08 at 5,184, but the parent is ahead by 5-13 % at
+// 7,056, 11,664, 14,400 and 20,736 elements (the slots ahead at 9,216 and
+// 17,424, where the parent's tiles leave a second wave nearly empty), so in
+// float64 the slots run up to 5,184 elements, the last measured size before
+// the first loss, and the parent tile above. Each form bit for bit the
+// parent (PERF.md, Findings).
 
 #include "fem_kernels.cuh"
 
 using Ancf3443 = tlfea::Family<16, 48, 0x1111u, 4>;
 using K3Slots = tlfea::Slots<8, 8>;
+using K5tF32 = tlfea::Slots<8, 8>;
+using K5tF64 = tlfea::Slots<8, 8, 5184>;
 TLFEA_FAMILY_ENTRY_POINTS(ancf3443, Ancf3443, f32, float, tlfea::Groups, tlfea::Groups,
-                          tlfea::Groups, K3Slots)
+                          tlfea::Groups, K3Slots, K5tF32)
 TLFEA_FAMILY_ENTRY_POINTS(ancf3443, Ancf3443, f64, double, tlfea::Groups, tlfea::Groups,
-                          tlfea::Groups, K3Slots)
+                          tlfea::Groups, K3Slots, K5tF64)

@@ -31,5 +31,7 @@
 #include "fem_kernels.cuh"
 
 using Feat10 = tlfea::Family<10, 5, 0x3FFu, 5, 0>;
-TLFEA_MR_ENTRY_POINTS(feat10, Feat10, f32, float, early, late, true, tlfea::Groups, true)
-TLFEA_MR_ENTRY_POINTS(feat10, Feat10, f64, double, none, none, false, tlfea::Groups, false)
+TLFEA_MR_ENTRY_POINTS(feat10, Feat10, f32, float, early, late, true,
+                      tlfea::Groups, true, tlfea::Groups)
+TLFEA_MR_ENTRY_POINTS(feat10, Feat10, f64, double, none, none, false,
+                      tlfea::Groups, false, tlfea::Groups)

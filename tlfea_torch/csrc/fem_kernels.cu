@@ -10,9 +10,9 @@
 
 using Feat10 = tlfea::Family<10, 5, 0x3FFu, 5, 0>;
 TLFEA_FAMILY_ENTRY_POINTS(feat10, Feat10, f32, float, tlfea::Groups, tlfea::Groups,
-                          tlfea::Groups, tlfea::Groups)
+                          tlfea::Groups, tlfea::Groups, tlfea::Groups)
 TLFEA_FAMILY_ENTRY_POINTS(feat10, Feat10, f64, double, tlfea::Groups, tlfea::Groups,
-                          tlfea::Groups, tlfea::Groups)
+                          tlfea::Groups, tlfea::Groups, tlfea::Groups)
 
 // K4, batch: the incidences a thread loads at once, 4 or 8 (the wrapper
 // takes 4 for the ANCF families, whose coefficient rows have at most 4);

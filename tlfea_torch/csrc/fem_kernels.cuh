@@ -41,9 +41,9 @@
 // below). Each thread accumulates its points' contributions in registers
 // when they are few, else directly in its own slice of a shared-memory
 // partial buffer, and leaves them in that slice (the shell's K3, with 96
-// tangent-block sums a thread, instead takes one thread an (element, slot):
-// `Slots`, below). Then the block sums the NG partials
-// of each (element, slot) in the fixed order g = 0..NG-1, adds the
+// tangent-block sums a thread, and its K5t, with 48, instead take one
+// thread an (element, slot): `Slots`, below). Then the block sums the NG
+// partials of each (element, slot) in the fixed order g = 0..NG-1, adds the
 // q-independent mass term once, and writes per-(element, slot) values. K4
 // sums those onto the nodes in a fixed order. No atomics anywhere: float32
 // results are bitwise repeatable.
@@ -438,8 +438,9 @@ contrib_kernel(const T* __restrict__ packed, const int* __restrict__ conn_t,
 }
 
 // sum over the non-reference slots a of x_a (x) gradN_qa, x_a staged in
-// xs[(a*W + c0 + i) * EX] (the element's column, W channels a slot).
-template <typename T, class F, int C0, int W>
+// xs[(a*W + c0 + i) * XST] (the element's column, W channels a slot, rows of
+// XST words).
+template <typename T, class F, int C0, int W, int XST = EX>
 __device__ __forceinline__ void contract(const T* xe, const T* __restrict__ gN_t, int q,
                                          size_t sE, int e, T M[3][3]) {
   constexpr int S = F::S;
@@ -451,7 +452,7 @@ __device__ __forceinline__ void contract(const T* xe, const T* __restrict__ gN_t
   for (int a = 1; a < S; ++a) {  // centred slot 0 is zero
     T xa[3];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) xa[i] = xe[(a * W + C0 + i) * EX];
+    for (int i = 0; i < 3; ++i) xa[i] = xe[(a * W + C0 + i) * XST];
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       const T gv = gN_t[((size_t)(q * S + a) * 3 + j) * sE + e];
@@ -597,7 +598,9 @@ __device__ __forceinline__ void contrib_tangent_stream_tile(
 // smem holds TangentSmem<T, F, STREAM>::BYTES.
 //
 // STREAM: hv_tile's stream given to K5t (contrib_tangent_stream_tile,
-// above). Without it the kernel loads the gradients where used.
+// above). Without it the kernel loads the gradients where used. The layout
+// Slots<TE, NQ> launches one thread an (element, slot) instead
+// (contrib_tangent_slots_kernel, below).
 template <typename T, class F, class M, bool STREAM = false>
 __global__ void __launch_bounds__(EX * F::NG)
 contrib_tangent_kernel(const T* __restrict__ packed, const T* __restrict__ dpacked,
@@ -1306,13 +1309,23 @@ svk_blocks_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
 // into its sums of group q mod NG, q ascending. At the end it writes
 // ((0 + s_0) + s_1) + ... + s_{NG-1}, the parent's reduce. So every entry
 // takes the parent's operations in the parent's order: the same bits.
-template <int TE_, int NQ_>
+//
+// MAX_E: the layout launches on meshes of up to MAX_E elements and the
+// parent tile above (a gate at a measured crossover; by default every E).
+template <int TE_, int NQ_, int MAX_E_ = 0x7fffffff>
 struct Slots {
   static constexpr bool SPLIT = false;
   static constexpr bool SLOTS = true;
   static constexpr int TE = TE_;
   static constexpr int NQ = NQ_;
+  static constexpr int MAX_E = MAX_E_;
 };
+
+// Whether layout L launches one thread an (element, slot) on E elements.
+template <class L>
+constexpr bool slots_at(int E) {
+  if constexpr (L::SLOTS) return E <= L::MAX_E; else return false;
+}
 
 // The slot kernel's shared memory: xs (S*3 rows of TE words: the staged,
 // centred u); two buffers of NQ points of QP_ROWS rows (the point's S*3
@@ -1348,6 +1361,61 @@ __device__ __forceinline__ void lds16(const T* p, T* v) {
     }
   }
 }
+
+// N values into shared memory at p (16-byte aligned), 16 bytes a store.
+template <typename T, int N>
+__device__ __forceinline__ void sts16(T* p, const T* v) {
+  static_assert(N % (16 / sizeof(T)) == 0, "whole 16-byte stores");
+#pragma unroll
+  for (int i = 0; i < N; i += 16 / (int)sizeof(T)) {
+    if constexpr (sizeof(T) == 4)
+      *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+    else
+      *reinterpret_cast<double2*>(p + i) = make_double2(v[i], v[i + 1]);
+  }
+}
+
+// The slot kernels' copy (K3's svk_slots_kernel, K5t's
+// contrib_tangent_slots_kernel): chunk k of the tile's points, NQ points of
+// R = S*3 + 1 rows (the point's S*3 gradient rows, then its dV row) for the
+// TE columns e0 .. e0 + TE - 1, into rows of TE words at dst, by the block's
+// NT threads (thread tid), then one commit. 16 bytes a copy where the tile
+// is whole and every row segment starts on 16 bytes, else word by word for
+// the tile's elements.
+template <typename T, class F, int TE, int NQ, int NT>
+struct SlotChunks {
+  static constexpr int S = F::S, R = F::S * 3 + 1;
+  static constexpr int V = 16 / (int)sizeof(T);  // words a 16-byte copy
+  const T* gN_t;
+  const T* dV_t;
+  size_t sE;
+  int e0, ne;
+  bool vec;
+  __device__ __forceinline__ SlotChunks(const T* g, const T* d, int E, int e0_)
+      : gN_t(g), dV_t(d), sE((size_t)E), e0(e0_), ne(E - e0_ < TE ? E - e0_ : TE) {
+    vec = ne == TE && TE % V == 0 && (sE * sizeof(T)) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(g) % 16 == 0 && reinterpret_cast<uintptr_t>(d) % 16 == 0;
+  }
+  __device__ __forceinline__ void issue(T* dst, int k, int tid) const {
+    auto src = [&](int row, int c) {  // row t * R + r of the chunk, element e0 + c
+      const int t = row / R, r = row - t * R, q = k * NQ + t;
+      return r < S * 3 ? gN_t + ((size_t)q * S * 3 + r) * sE + e0 + c
+                       : dV_t + (size_t)q * sE + e0 + c;
+    };
+    if (vec) {
+      for (int i = tid; i < NQ * R * (TE / V); i += NT) {
+        const int row = i / (TE / V), c = (i - row * (TE / V)) * V;
+        cp_async_16(dst + row * TE + c, src(row, c));
+      }
+    } else {
+      for (int i = tid; i < NQ * R * TE; i += NT) {
+        const int row = i / TE, c = i - row * TE;
+        if (c < ne) cp_async_word(dst + row * TE + c, src(row, c));
+      }
+    }
+    cp_async_commit();
+  }
+};
 
 // A point's F = I + sum_{a >= 1} u_a (x) gradN_qa, F F^T and tr E, in
 // svk_blocks_kernel's expressions and order: u_a[i] at xe[(a*3 + i) * xst]
@@ -1416,7 +1484,6 @@ svk_slots_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
                  int E, T lam, T mu) {
   using L = SlotSmem<T, F, TE, NQ>;
   constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = TE * S, R = L::QP_ROWS, PT = L::PT;
-  constexpr int V = 16 / (int)sizeof(T);  // words a 16-byte copy
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);  // (S*3, TE): centred u
   T* buf = xs + L::XS;                     // (2, NQ, QP_ROWS, TE)
@@ -1424,32 +1491,8 @@ svk_slots_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
   const int x = threadIdx.x, a = threadIdx.y, tid = a * TE + x;
   const int e0 = blockIdx.x * TE, e = e0 + x;
   const size_t sE = (size_t)E;
-  // The copy: 16 bytes a copy where the tile is whole and every row segment
-  // starts on 16 bytes, else word by word for the tile's elements.
-  const int ne = E - e0 < TE ? E - e0 : TE;
-  const bool vec = ne == TE && TE % V == 0 && (sE * sizeof(T)) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(gN_t) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(dV_t) % 16 == 0;
-  auto issue = [&](int k) {  // chunk k into buffer k % 2, one commit
-    T* dst = buf + (k & 1) * L::BUF;
-    auto src = [&](int row, int c) {  // row t * R + r of the chunk, element e0 + c
-      const int t = row / R, r = row - t * R, q = k * NQ + t;
-      return r < S * 3 ? gN_t + ((size_t)q * S * 3 + r) * sE + e0 + c
-                       : dV_t + (size_t)q * sE + e0 + c;
-    };
-    if (vec) {
-      for (int i = tid; i < NQ * R * (TE / V); i += NT) {
-        const int row = i / (TE / V), c = (i - row * (TE / V)) * V;
-        cp_async_16(dst + row * TE + c, src(row, c));
-      }
-    } else {
-      for (int i = tid; i < NQ * R * TE; i += NT) {
-        const int row = i / TE, c = i - row * TE;
-        if (c < ne) cp_async_word(dst + row * TE + c, src(row, c));
-      }
-    }
-    cp_async_commit();
-  };
+  const SlotChunks<T, F, TE, NQ, NT> chunks(gN_t, dV_t, E, e0);
+  auto issue = [&](int k) { chunks.issue(buf + (k & 1) * L::BUF, k, tid); };  // into buffer k % 2
   issue(0);
   stage<T, F, 3, 3, 3, TE, NT>(u, conn_t, E, e0, xs);
 
@@ -1494,6 +1537,135 @@ svk_slots_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
       for (int h = 0; h < NG; ++h) sum += acc[h][c];
       out[(a * 6 + c) * sE + e] = sum;
     }
+  }
+}
+
+// K5t with one thread an (element, slot): layout Slots<TE, NQ>.
+//
+// In the parent tile (contrib_tangent_kernel) thread (x, g) walks the points
+// q = g, g + NG, ... of element x; for each it runs the four contractions,
+// reading the point's gradients from global memory, and the material's
+// tangent, then reloads the gradients and adds S*3 products into its sums.
+// At the shell (S = 16, Q = 48) the float32 tile holds 255 registers (with
+// Mooney-Rivlin it spills), two blocks an SM; no point's loads are issued
+// before the previous point's chain ends, and the 5,184-element shell's 162
+// tiles leave 30 SMs with two (PERF.md, Findings).
+//
+// Here, as K3's svk_slots_kernel, a block takes TE elements and S slots, TE
+// * S threads, and walks its Q points in chunks of NQ, each chunk's
+// gradient and dV rows brought into shared memory by one asynchronous copy
+// of the block (SlotChunks), double-buffered. Phase A: thread (x, t), t <
+// NQ, runs the parent's four contractions for point k NQ + t of element x
+// on the chunk, then the material's tangent, and records dP in shared
+// memory. Phase B: thread (x, a) reads its slot's gradient rows and w from
+// the chunk and the point's dP, and adds (dP[i][0] g0 + dP[i][1] g1 +
+// dP[i][2] g2) w into its 3 sums of group q mod NG, q ascending. At the end
+// it replays tangent_reduce for its slot: the groups' sums in the order g =
+// 0..NG-1, plus the consistent mass on the staged d(dv/dt). So every output
+// takes the parent's operations in the parent's order. The shell's
+// instantiations pick TE, NQ and a gate as timed on an H100
+// (fem_ancf3443.cu, fem_ancf3443_mr.cu).
+//
+// Its shared memory: xt (S*9 rows of TE words: the staged tangent), xp (S*6
+// rows: the staged primal u | v), two buffers of NQ points of QP_ROWS rows
+// of TE words, then NQ * TE records of PT words (dP, padded so that a record
+// starts on 16 bytes).
+template <typename T, class F, int TE, int NQ>
+struct TangentSlotSmem {
+  static_assert(F::Q % NQ == 0 && NQ % F::NG == 0 && NQ <= F::S,
+                "chunks of whole groups of points, each point one thread of phase A");
+  static constexpr int V = 16 / (int)sizeof(T);  // words in 16 bytes
+  static constexpr int QP_ROWS = F::S * 3 + 1;
+  static constexpr int PT = (9 + V - 1) / V * V;
+  static constexpr int XT = F::S * 9 * TE;
+  static constexpr int XP = F::S * 6 * TE;
+  static constexpr int BUF = NQ * QP_ROWS * TE;
+  static constexpr int PTS = NQ * TE * PT;
+  static_assert((XT + XP) % V == 0 && BUF % V == 0, "16-byte aligned buffers");
+  static constexpr size_t BYTES = (size_t)(XT + XP + 2 * BUF + PTS) * sizeof(T);
+  static_assert(BYTES <= 232448, "the tile exceeds an H100 block's 227 KB of shared memory");
+};
+
+template <typename T, class F, class M, int TE, int NQ>
+__global__ void __launch_bounds__(TE * F::S)
+contrib_tangent_slots_kernel(const T* __restrict__ packed, const T* __restrict__ dpacked,
+                             const int* __restrict__ conn_t, const T* __restrict__ gN_t,
+                             const T* __restrict__ dV_t, const T* __restrict__ Me_t,
+                             T* __restrict__ out, int E, M m) {
+  using L = TangentSlotSmem<T, F, TE, NQ>;
+  constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = TE * S, R = L::QP_ROWS, PT = L::PT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xt = reinterpret_cast<T*>(smem_raw);  // (S*9, TE): tangent du | dv | d(dv/dt)
+  T* xp = xt + L::XT;                      // (S*6, TE): primal u | v
+  T* buf = xp + L::XP;                     // (2, NQ, QP_ROWS, TE)
+  T* pts = buf + 2 * L::BUF;               // (NQ, TE, PT): dP
+  const int x = threadIdx.x, a = threadIdx.y, tid = a * TE + x;
+  const int e0 = blockIdx.x * TE, e = e0 + x;
+  const size_t sE = (size_t)E;
+  const SlotChunks<T, F, TE, NQ, NT> chunks(gN_t, dV_t, E, e0);
+  chunks.issue(buf, 0, tid);
+  stage<T, F, 9, 6, 9, TE, NT>(dpacked, conn_t, E, e0, xt);
+  stage<T, F, 6, 6, 9, TE, NT>(packed, conn_t, E, e0, xp);
+
+  T acc[NG][3];
+#pragma unroll
+  for (int h = 0; h < NG; ++h)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) acc[h][i] = T(0);
+#pragma unroll 1
+  for (int k = 0; k < Q / NQ; ++k) {
+    cp_async_wait<0>();  // this thread's copies of chunk k
+    // Chunk k in place for all; everyone done with chunk k - 1's buffer and
+    // dP records (and, at k = 0, xt and xp staged).
+    __syncthreads();
+    if (k + 1 < Q / NQ) chunks.issue(buf + ((k + 1) & 1) * L::BUF, k + 1, tid);
+    const T* cb = buf + (k & 1) * L::BUF + x;  // this element's column of chunk k
+    if (a < NQ && e < E) {  // phase A: point k NQ + a of element x
+      const T* gq = cb + a * R * TE;
+      T dF[3][3], dFd[3][3], Du[3][3], Fd[3][3];
+      contract<T, F, 0, 9, TE>(xt + x, gq, 0, TE, 0, dF);
+      contract<T, F, 3, 9, TE>(xt + x, gq, 0, TE, 0, dFd);
+      contract<T, F, 0, 6, TE>(xp + x, gq, 0, TE, 0, Du);
+      contract<T, F, 3, 6, TE>(xp + x, gq, 0, TE, 0, Fd);
+      T dP[3][3];
+      m.tangent(Du, dF, Fd, dFd, dP);
+      T v[PT] = {};  // dP, then the padding
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) v[i * 3 + j] = dP[i][j];
+      sts16<T, PT>(pts + (a * TE + x) * PT, v);
+    }
+    __syncthreads();
+    if (e < E) {  // phase B: slot a of element x at the chunk's points
+#pragma unroll
+      for (int t = 0; t < NQ; ++t) {
+        const T* gq = cb + t * R * TE;
+        const T g0 = gq[(a * 3) * TE], g1 = gq[(a * 3 + 1) * TE], g2 = gq[(a * 3 + 2) * TE];
+        const T w = gq[S * 3 * TE];
+        T dP[PT];
+        lds16<T, PT>(pts + (t * TE + x) * PT, dP);
+#pragma unroll
+        for (int i = 0; i < 3; ++i)  // q % NG == t % NG
+          acc[t % NG][i] += (dP[i * 3] * g0 + dP[i * 3 + 1] * g1 + dP[i * 3 + 2] * g2) * w;
+      }
+    }
+  }
+  if (e < E) {  // tangent_reduce's sums for slot a of element x
+    T s[3] = {T(0), T(0), T(0)};
+#pragma unroll
+    for (int h = 0; h < NG; ++h)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) s[i] += acc[h][i];
+    T mm[3] = {T(0), T(0), T(0)};
+#pragma unroll
+    for (int b = 0; b < S; ++b) {
+      const T me = Me_t[(a * S + b) * sE + e];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) mm[i] += me * xt[(b * 9 + 6 + i) * TE + x];
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) out[(a * 3 + i) * sE + e] = s[i] + mm[i];
   }
 }
 
@@ -1658,12 +1830,29 @@ int launch_contrib(const void* packed, const void* conn_t, const void* gN_t, con
   return (int)cudaGetLastError();
 }
 
-// K5t, streaming a point's operands through shared memory if STREAM
-// (contrib_tangent_stream_tile).
-template <typename T, class F, bool STREAM = false, class M>
+// K5t in layout L (Groups: the parent tile, streaming a point's operands
+// through shared memory if STREAM, contrib_tangent_stream_tile; Slots<TE,
+// NQ, MAX_E>: one thread an (element, slot) up to MAX_E elements, the
+// parent tile above).
+template <typename T, class F, bool STREAM = false, class L = Groups, class M>
 int launch_contrib_tangent(const void* packed, const void* dpacked, const void* conn_t,
                            const void* gN_t, const void* dV_t, const void* Me_t, void* out,
                            int E, const M& m, void* stream) {
+  if constexpr (L::SLOTS) {
+    if (slots_at<L>(E)) {
+      constexpr size_t smem = TangentSlotSmem<T, F, L::TE, L::NQ>::BYTES;
+      static const cudaError_t attr =
+          allow_smem(contrib_tangent_slots_kernel<T, F, M, L::TE, L::NQ>, smem);
+      if (attr != cudaSuccess) return (int)attr;
+      if (E > 0) {
+        contrib_tangent_slots_kernel<T, F, M, L::TE, L::NQ>
+            <<<(E + L::TE - 1) / L::TE, dim3(L::TE, F::S), smem, (cudaStream_t)stream>>>(
+                (const T*)packed, (const T*)dpacked, (const int*)conn_t, (const T*)gN_t,
+                (const T*)dV_t, (const T*)Me_t, (T*)out, E, m);
+      }
+      return (int)cudaGetLastError();
+    }
+  }
   constexpr size_t smem = TangentSmem<T, F, STREAM>::BYTES;
   static const cudaError_t attr = allow_smem(contrib_tangent_kernel<T, F, M, STREAM>, smem);
   if (attr != cudaSuccess) return (int)attr;
@@ -1735,8 +1924,13 @@ int occupancy_contrib(int E, int* out) {
                    EX);
 }
 
-template <typename T, class F, class M, bool STREAM = false>
-int occupancy_contrib_tangent(int* out) {
+template <typename T, class F, class M, bool STREAM = false, class L = Groups>
+int occupancy_contrib_tangent(int E, int* out) {
+  if constexpr (L::SLOTS) {
+    if (slots_at<L>(E))
+      return occupancy(contrib_tangent_slots_kernel<T, F, M, L::TE, L::NQ>, L::TE * F::S,
+                       TangentSlotSmem<T, F, L::TE, L::NQ>::BYTES, out, L::TE);
+  }
   return occupancy(contrib_tangent_kernel<T, F, M, STREAM>, EX * F::NG,
                    TangentSmem<T, F, STREAM>::BYTES, out, EX);
 }
@@ -1768,6 +1962,7 @@ int launch_svk_blocks(const void* u, const void* conn_t, const void* gN_t,
                       const void* dV_t, void* out, int E, double lam, double mu,
                       void* stream) {
   if constexpr (L::SLOTS) {
+    static_assert(L::MAX_E == Slots<L::TE, L::NQ>::MAX_E, "K3's slots take no gate");
     constexpr size_t smem = SlotSmem<T, F, L::TE, L::NQ>::BYTES;
     static const cudaError_t attr = allow_smem(svk_slots_kernel<T, F, L::TE, L::NQ>, smem);
     if (attr != cudaSuccess) return (int)attr;
@@ -1828,9 +2023,10 @@ int occupancy_node_reduce(int* out) {
 // K5 4, K5t 5) at its launch on E elements (out: 5 ints). K1, K2 and K5 run
 // in layouts K1_TILE, K2_TILE and K5_TILE: tlfea::Groups, or a
 // tlfea::Points<TE, HOLD, MAX_E> (an alias: the argument holds no comma);
-// K3 in layout K3_TILE: tlfea::Groups, or an alias of a tlfea::Slots<TE,
-// NQ>.
-#define TLFEA_FAMILY_ENTRY_POINTS(NAME, FAM, SUFFIX, T, K1_TILE, K2_TILE, K5_TILE, K3_TILE) \
+// K3 and K5t in layouts K3_TILE and K5T_TILE: tlfea::Groups, or an alias of
+// a tlfea::Slots<TE, NQ> (K5t's may carry a gate, Slots<TE, NQ, MAX_E>).
+#define TLFEA_FAMILY_ENTRY_POINTS(NAME, FAM, SUFFIX, T, K1_TILE, K2_TILE, K5_TILE, K3_TILE, \
+                                  K5T_TILE)                                               \
   extern "C" int tlfea_primal_prep_##NAME##_##SUFFIX(                                   \
       const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
       const void* Me_t, void* fe, void* prep, int E, double lam, double mu,             \
@@ -1865,7 +2061,7 @@ int occupancy_node_reduce(int* out) {
       const void* packed, const void* dpacked, const void* conn_t, const void* gN_t,    \
       const void* dV_t, const void* Me_t, void* out, int E, double lam, double mu,      \
       double eta, double lam_d, void* stream) {                                         \
-    return tlfea::launch_contrib_tangent<T, FAM>(                                       \
+    return tlfea::launch_contrib_tangent<T, FAM, false, K5T_TILE>(                      \
         packed, dpacked, conn_t, gN_t, dV_t, Me_t, out, E,                              \
         tlfea::SvkMat<T>{(T)lam, (T)mu, (T)eta, (T)lam_d}, stream);                     \
   }                                                                                     \
@@ -1877,7 +2073,7 @@ int occupancy_node_reduce(int* out) {
       case 1: return tlfea::occupancy_hv<T, FAM, M, false, K2_TILE>(E, out);            \
       case 2: return tlfea::occupancy_svk_blocks<T, FAM, K3_TILE>(E, out);              \
       case 4: return tlfea::occupancy_contrib<T, FAM, M, Hold::none, K5_TILE>(E, out);  \
-      case 5: return tlfea::occupancy_contrib_tangent<T, FAM, M>(out);                  \
+      case 5: return tlfea::occupancy_contrib_tangent<T, FAM, M, false, K5T_TILE>(E, out); \
       default: return (int)cudaErrorInvalidValue;                                      \
     }                                                                                   \
   }
@@ -1889,9 +2085,11 @@ int occupancy_node_reduce(int* out) {
 // K5_HOLD say (`Hold`: none, late, early or stream); K2 runs in layout
 // K2_TILE (tlfea::Groups, or an alias of a tlfea::Points<TE, HOLD, MAX_E>) and, in
 // the parent layout, streams a point's operands through shared memory if
-// K2_STREAM (hv_tile); K5t streams them if K5T_STREAM (contrib_tangent_kernel).
+// K2_STREAM (hv_tile); K5t runs in layout K5T_TILE (tlfea::Groups, or an
+// alias of a tlfea::Slots<TE, NQ>) and, in the parent layout, streams them if
+// K5T_STREAM (contrib_tangent_kernel).
 #define TLFEA_MR_ENTRY_POINTS(NAME, FAM, SUFFIX, T, K1_HOLD, K5_HOLD, K2_STREAM, K2_TILE,  \
-                              K5T_STREAM)                                               \
+                              K5T_STREAM, K5T_TILE)                                     \
   extern "C" int tlfea_primal_prep_##NAME##_mr_##SUFFIX(                                \
       const void* packed, const void* conn_t, const void* gN_t, const void* dV_t,       \
       const void* Me_t, void* fe, void* prep, int E, double mu10, double mu01,          \
@@ -1920,7 +2118,7 @@ int occupancy_node_reduce(int* out) {
       const void* packed, const void* dpacked, const void* conn_t, const void* gN_t,    \
       const void* dV_t, const void* Me_t, void* out, int E, double mu10, double mu01,   \
       double kappa, double eta, double lam_d, void* stream) {                           \
-    return tlfea::launch_contrib_tangent<T, FAM, K5T_STREAM>(                           \
+    return tlfea::launch_contrib_tangent<T, FAM, K5T_STREAM, K5T_TILE>(                 \
         packed, dpacked, conn_t, gN_t, dV_t, Me_t, out, E,                              \
         tlfea::MrMat<T>{(T)mu10, (T)mu01, (T)kappa, (T)eta, (T)lam_d}, stream);         \
   }                                                                                     \
@@ -1930,7 +2128,8 @@ int occupancy_node_reduce(int* out) {
       case 0: return tlfea::occupancy_primal_prep<T, FAM, M, tlfea::Hold::K1_HOLD>(E, out); \
       case 1: return tlfea::occupancy_hv<T, FAM, M, K2_STREAM, K2_TILE>(E, out);        \
       case 4: return tlfea::occupancy_contrib<T, FAM, M, tlfea::Hold::K5_HOLD>(E, out); \
-      case 5: return tlfea::occupancy_contrib_tangent<T, FAM, M, K5T_STREAM>(out);      \
+      case 5:                                                                           \
+        return tlfea::occupancy_contrib_tangent<T, FAM, M, K5T_STREAM, K5T_TILE>(E, out); \
       default: return (int)cudaErrorInvalidValue;                                       \
     }                                                                                   \
   }

@@ -14,22 +14,22 @@
 
 using F10regs = tlfea::Family<10, 5, 0x3FFu, 5, 240>;
 TLFEA_FAMILY_ENTRY_POINTS(f10regs, F10regs, f32, float, tlfea::Groups, tlfea::Groups,
-                          tlfea::Groups, tlfea::Groups)
+                          tlfea::Groups, tlfea::Groups, tlfea::Groups)
 using F10regs1 = tlfea::Family<10, 5, 0x3FFu, 1, 240>;
 TLFEA_FAMILY_ENTRY_POINTS(f10regs1, F10regs1, f32, float, tlfea::Groups, tlfea::Groups,
-                          tlfea::Groups, tlfea::Groups)
+                          tlfea::Groups, tlfea::Groups, tlfea::Groups)
 using S4smem = tlfea::Family<16, 48, 0x1111u, 4, 0>;
 TLFEA_FAMILY_ENTRY_POINTS(s4smem, S4smem, f32, float, tlfea::Groups, tlfea::Groups,
-                          tlfea::Groups, tlfea::Groups)
+                          tlfea::Groups, tlfea::Groups, tlfea::Groups)
 using S6regs = tlfea::Family<16, 48, 0x1111u, 6, 240>;
 TLFEA_FAMILY_ENTRY_POINTS(s6regs, S6regs, f32, float, tlfea::Groups, tlfea::Groups,
-                          tlfea::Groups, tlfea::Groups)
+                          tlfea::Groups, tlfea::Groups, tlfea::Groups)
 using S8smem = tlfea::Family<16, 48, 0x1111u, 8, 0>;
 TLFEA_FAMILY_ENTRY_POINTS(s8smem, S8smem, f32, float, tlfea::Groups, tlfea::Groups,
-                          tlfea::Groups, tlfea::Groups)
+                          tlfea::Groups, tlfea::Groups, tlfea::Groups)
 using S8regs = tlfea::Family<16, 48, 0x1111u, 8, 240>;
 TLFEA_FAMILY_ENTRY_POINTS(s8regs, S8regs, f32, float, tlfea::Groups, tlfea::Groups,
-                          tlfea::Groups, tlfea::Groups)
+                          tlfea::Groups, tlfea::Groups, tlfea::Groups)
 
 // K1 and K5 with each way of loading a quadrature point's shape gradients
 // (fem_kernels.cuh `Hold`: none, late, early, stream), at each MR family's
@@ -678,11 +678,15 @@ VARIANTS_BLOCKS(f64, double)
 // contrib_tangent_stream_tile), `stream_fused` (below: the stream with the
 // four contractions in one pass), each of the last two also under
 // __launch_bounds__' minimum of 3 blocks an SM (`_lb3`, float32): FEAT10
-// with Mooney-Rivlin, and for the record `stream` at FEAT10 with SVK and at
-// ANCF3443 with Mooney-Rivlin:
+// with Mooney-Rivlin, and for the record `stream` at FEAT10 with SVK; and at
+// ANCF3443 with SVK and with Mooney-Rivlin the parent, `stream` and
+// `slots<TE>_<NQ>` (fem_kernels.cuh tlfea::Slots<TE, NQ>,
+// contrib_tangent_slots_kernel: one thread an (element, slot), each chunk of
+// NQ points copied into shared memory by the block; (8, 16) and (16, 8) in
+// float32 only, where they fit two blocks an SM):
 // tlfea_contrib_tangent_<family>_<form>[_mr]_<SUFFIX>(..., E, the material's
 // constants as fem_kernels.MATERIALS orders them, stream) and
-// tlfea_occupancy_contrib_tangent_<family>_<form>[_mr]_<SUFFIX>(out). Every
+// tlfea_occupancy_contrib_tangent_<family>_<form>[_mr]_<SUFFIX>(E, out). Every
 // form gives the parent's bits, up to the compiler's choice of fused
 // multiply-adds.
 
@@ -793,15 +797,19 @@ contrib_tangent_form_kernel(const T* __restrict__ packed, const T* __restrict__ 
                                                 E, blockIdx.x * tlfea::EX, m, smem);
 }
 
-// STREAM false: the parent; STREAM and neither FUSED nor a MINB above 1: the
-// library's stream; else contrib_tangent_form_kernel.
-template <typename T, class F, class M, bool STREAM, bool FUSED, int MINB>
+// L a Slots<TE, NQ>, STREAM false, or STREAM and neither FUSED nor a MINB
+// above 1: the library's launch in that layout; else
+// contrib_tangent_form_kernel.
+template <bool STREAM, bool FUSED, int MINB, class L>
+constexpr bool LIBRARY_FORM = L::SLOTS || !STREAM || (!FUSED && MINB == 1);
+
+template <typename T, class F, class M, bool STREAM, bool FUSED, int MINB, class L>
 int launch_tangent_form(const void* packed, const void* dpacked, const void* conn_t,
                         const void* gN_t, const void* dV_t, const void* Me_t, void* out, int E,
                         const M& m, void* stream) {
-  if constexpr (!STREAM || (!FUSED && MINB == 1)) {
-    return tlfea::launch_contrib_tangent<T, F, STREAM>(packed, dpacked, conn_t, gN_t, dV_t, Me_t,
-                                                       out, E, m, stream);
+  if constexpr (LIBRARY_FORM<STREAM, FUSED, MINB, L>) {
+    return tlfea::launch_contrib_tangent<T, F, STREAM, L>(packed, dpacked, conn_t, gN_t, dV_t,
+                                                          Me_t, out, E, m, stream);
   } else {
     constexpr size_t smem = tlfea::TangentSmem<T, F, true>::BYTES;
     static const cudaError_t attr =
@@ -817,10 +825,10 @@ int launch_tangent_form(const void* packed, const void* dpacked, const void* con
   }
 }
 
-template <typename T, class F, class M, bool STREAM, bool FUSED, int MINB>
-int occupancy_tangent_form(int* out) {
-  if constexpr (!STREAM || (!FUSED && MINB == 1))
-    return tlfea::occupancy_contrib_tangent<T, F, M, STREAM>(out);
+template <typename T, class F, class M, bool STREAM, bool FUSED, int MINB, class L>
+int occupancy_tangent_form(int E, int* out) {
+  if constexpr (LIBRARY_FORM<STREAM, FUSED, MINB, L>)
+    return tlfea::occupancy_contrib_tangent<T, F, M, STREAM, L>(E, out);
   else
     return tlfea::occupancy(contrib_tangent_form_kernel<T, F, M, FUSED, MINB>,
                             tlfea::EX * F::NG, tlfea::TangentSmem<T, F, true>::BYTES, out,
@@ -828,36 +836,63 @@ int occupancy_tangent_form(int* out) {
 }
 
 // MAT_TAG: _mr or nothing; MAT: tlfea::MrMat (five constants) or
-// tlfea::SvkMat (four, the fifth ignored).
-#define VARIANT_TANGENT(NAME, FAM, MAT_TAG, MAT, SUFFIX, T, FORM, STREAM, FUSED, MINB)          \
+// tlfea::SvkMat (four, the fifth ignored); L the layout (tlfea::Groups or a
+// Slots alias).
+#define VARIANT_TANGENT(NAME, FAM, MAT_TAG, MAT, SUFFIX, T, FORM, STREAM, FUSED, MINB, L)       \
   extern "C" int tlfea_contrib_tangent_##NAME##_##FORM##MAT_TAG##_##SUFFIX(                     \
       const void* packed, const void* dpacked, const void* conn_t, const void* gN_t,            \
       const void* dV_t, const void* Me_t, void* out, int E, double c0, double c1, double c2,    \
       double c3, double c4, void* stream) {                                                     \
     const double c[5] = {c0, c1, c2, c3, c4};                                                   \
-    return launch_tangent_form<T, FAM, MAT<T>, STREAM, FUSED, MINB>(                            \
+    return launch_tangent_form<T, FAM, MAT<T>, STREAM, FUSED, MINB, L>(                         \
         packed, dpacked, conn_t, gN_t, dV_t, Me_t, out, E, MAT<T>::from(c), stream);            \
   }                                                                                             \
-  extern "C" int tlfea_occupancy_contrib_tangent_##NAME##_##FORM##MAT_TAG##_##SUFFIX(int* out) { \
-    return occupancy_tangent_form<T, FAM, MAT<T>, STREAM, FUSED, MINB>(out);                    \
+  extern "C" int tlfea_occupancy_contrib_tangent_##NAME##_##FORM##MAT_TAG##_##SUFFIX(           \
+      int E, int* out) {                                                                        \
+    return occupancy_tangent_form<T, FAM, MAT<T>, STREAM, FUSED, MINB, L>(E, out);              \
   }
-#define VARIANTS_TANGENT_MR(SUFFIX, T)                                                   \
-  VARIANT_TANGENT(feat10, F10Mr, _mr, tlfea::MrMat, SUFFIX, T, parent, false, false, 1) \
-  VARIANT_TANGENT(feat10, F10Mr, _mr, tlfea::MrMat, SUFFIX, T, stream, true, false, 1)  \
-  VARIANT_TANGENT(feat10, F10Mr, _mr, tlfea::MrMat, SUFFIX, T, stream_fused, true, true, 1)
+#define VARIANTS_TANGENT_MR(SUFFIX, T)                                                        \
+  VARIANT_TANGENT(feat10, F10Mr, _mr, tlfea::MrMat, SUFFIX, T, parent, false, false, 1,      \
+                  tlfea::Groups)                                                             \
+  VARIANT_TANGENT(feat10, F10Mr, _mr, tlfea::MrMat, SUFFIX, T, stream, true, false, 1,       \
+                  tlfea::Groups)                                                             \
+  VARIANT_TANGENT(feat10, F10Mr, _mr, tlfea::MrMat, SUFFIX, T, stream_fused, true, true, 1,  \
+                  tlfea::Groups)
+// The shell's forms with material MAT (tag MAT_TAG) in every dtype, and those
+// that fit two blocks an SM in float32 only.
+using Slots8_16 = tlfea::Slots<8, 16>;
+#define VARIANTS_TANGENT_SHELL(MAT_TAG, MAT, SUFFIX, T)                                        \
+  VARIANT_TANGENT(ancf3443, S4Mr, MAT_TAG, MAT, SUFFIX, T, parent, false, false, 1,           \
+                  tlfea::Groups)                                                              \
+  VARIANT_TANGENT(ancf3443, S4Mr, MAT_TAG, MAT, SUFFIX, T, stream, true, false, 1,            \
+                  tlfea::Groups)                                                              \
+  VARIANT_TANGENT(ancf3443, S4Mr, MAT_TAG, MAT, SUFFIX, T, slots8_8, false, false, 1, Slots8_8) \
+  VARIANT_TANGENT(ancf3443, S4Mr, MAT_TAG, MAT, SUFFIX, T, slots8_4, false, false, 1, Slots8_4)
+#define VARIANTS_TANGENT_SHELL_F32(MAT_TAG, MAT)                                               \
+  VARIANT_TANGENT(ancf3443, S4Mr, MAT_TAG, MAT, f32, float, slots8_16, false, false, 1,       \
+                  Slots8_16)                                                                  \
+  VARIANT_TANGENT(ancf3443, S4Mr, MAT_TAG, MAT, f32, float, slots16_8, false, false, 1,       \
+                  Slots16_8)
 
 VARIANTS_TANGENT_MR(f32, float)
 VARIANTS_TANGENT_MR(f64, double)
-VARIANT_TANGENT(feat10, F10Mr, _mr, tlfea::MrMat, f32, float, stream_lb3, true, false, 3)
-VARIANT_TANGENT(feat10, F10Mr, _mr, tlfea::MrMat, f32, float, stream_fused_lb3, true, true, 3)
-VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, f32, float, parent, false, false, 1)
-VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, f32, float, stream, true, false, 1)
-VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, f64, double, parent, false, false, 1)
-VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, f64, double, stream, true, false, 1)
-VARIANT_TANGENT(ancf3443, S4Mr, _mr, tlfea::MrMat, f32, float, parent, false, false, 1)
-VARIANT_TANGENT(ancf3443, S4Mr, _mr, tlfea::MrMat, f32, float, stream, true, false, 1)
-VARIANT_TANGENT(ancf3443, S4Mr, _mr, tlfea::MrMat, f64, double, parent, false, false, 1)
-VARIANT_TANGENT(ancf3443, S4Mr, _mr, tlfea::MrMat, f64, double, stream, true, false, 1)
+VARIANT_TANGENT(feat10, F10Mr, _mr, tlfea::MrMat, f32, float, stream_lb3, true, false, 3,
+                tlfea::Groups)
+VARIANT_TANGENT(feat10, F10Mr, _mr, tlfea::MrMat, f32, float, stream_fused_lb3, true, true, 3,
+                tlfea::Groups)
+VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, f32, float, parent, false, false, 1,
+                tlfea::Groups)
+VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, f32, float, stream, true, false, 1, tlfea::Groups)
+VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, f64, double, parent, false, false, 1,
+                tlfea::Groups)
+VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, f64, double, stream, true, false, 1,
+                tlfea::Groups)
+VARIANTS_TANGENT_SHELL(_mr, tlfea::MrMat, f32, float)
+VARIANTS_TANGENT_SHELL(_mr, tlfea::MrMat, f64, double)
+VARIANTS_TANGENT_SHELL_F32(_mr, tlfea::MrMat)
+VARIANTS_TANGENT_SHELL(, tlfea::SvkMat, f32, float)
+VARIANTS_TANGENT_SHELL(, tlfea::SvkMat, f64, double)
+VARIANTS_TANGENT_SHELL_F32(, tlfea::SvkMat)
 
 // An empty kernel on a grid of `blocks` blocks of `threads` threads with
 // `smem` bytes of dynamic shared memory: the floor of any launch of that

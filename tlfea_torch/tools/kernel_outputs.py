@@ -72,8 +72,8 @@ GRID = 6  # index of `grid` in the stats tensor (resident.STAT_FIELDS)
 # [composed_1k_mr]) and at the 1,024-element beam, saved as
 # "hv[feat10_mr]_e864" and "hv[ancf3243_mr]_e1024", and K5t at the 1k box;
 # K1, K2 and K5 with SVK at the 64- and 1,024-element beams
-# ("contrib[ancf3243]", "hv[ancf3243]_e1024", ...); K3 with SVK at the 72 x
-# 72 shell ("svk_blocks[ancf3443]").
+# ("contrib[ancf3243]", "hv[ancf3243]_e1024", ...); K3 and K5t with SVK at
+# the 72 x 72 shell ("svk_blocks[ancf3443]", "contrib_tangent[ancf3443]").
 MR_KERNELS = ("primal_prep", "hv", "contrib", "contrib_tangent")
 ELEMENT_CASES = (("feat10_mr", "flagship_problem", None, MR_KERNELS),
                  ("ancf3443_mr", "shell_problem", None, MR_KERNELS),
@@ -82,7 +82,7 @@ ELEMENT_CASES = (("feat10_mr", "flagship_problem", None, MR_KERNELS),
                  ("ancf3243_mr", "ancf_beam_problem", "BIG_BEAM", ("hv",)),
                  ("ancf3243", "ancf_beam_problem", None, ("primal_prep", "hv", "contrib")),
                  ("ancf3243", "ancf_beam_problem", "BIG_BEAM", ("primal_prep", "hv", "contrib")),
-                 ("ancf3443", "shell_problem", None, ("svk_blocks",)))
+                 ("ancf3443", "shell_problem", None, ("svk_blocks", "contrib_tangent")))
 
 
 ROLLOUT_STEPS = 250  # chip_smoke's [resident] rollout

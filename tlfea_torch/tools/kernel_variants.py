@@ -78,8 +78,18 @@ Parts (all when none is named):
             two also under __launch_bounds__' minimum of 3 blocks an SM,
             `_lb3`, float32) beside the shipped kernel at `TANGENT_CASES`
             (`[feat10_mr]` at the bunny's 96 elements, the 1k box and the
-            10k flagship; for the record `stream` at `[feat10]` and at
-            `[ancf3443_mr]`), float32 and float64, as `blocks` reports them;
+            10k flagship; for the record `stream` at `[feat10]`); and K5t
+            `[ancf3443]` (SVK) and `[ancf3443_mr]` in the parent, `stream`
+            and `slots<TE>_<NQ>` (fem_kernels.cuh `Slots`,
+            `contrib_tangent_slots_kernel`: one thread an (element, slot),
+            TE = 8 or 16 elements a block, chunks of NQ = 4, 8 or 16 points
+            copied into shared memory by the block; (8, 16) and (16, 8) in
+            float32 only) on the damped shells of `BLOCKS_SHELLS`; float32
+            and float64, as `blocks` reports them;
+  tangent_gate  K5t `[ancf3443]` in the parent and `slots8_8` on the
+            shells between (`TANGENT_GATE_CASES`: 7,056 to 17,424
+            elements), as `tangent` reports them: where the float64 gate
+            goes;
   k4        K4's walk in its forms (one incidence at a time, batches of
             4-32 per (node, channel), a thread per node) at the 10k box, the
             100k box and the shell, each checked bit for bit against the
@@ -626,17 +636,28 @@ BLOCKS_SHELLS = (24, 72, 144)
 BLOCKS_FORMS = ["parent", "stream"] + [f"slots{te}_{nq}{c}" for c in ("", "_nocopy")
                                        for te in (8, 16) for nq in (4, 8)]
 # `tangent`: K5t's forms (tlfea_contrib_tangent_<family>_<form>[_mr]_<sfx>)
-# at (tag, chip_smoke builder, the name of its size argument there or None,
-# forms): K5t `[feat10_mr]` at the bunny's 96-element fallback mesh, the
-# bench.py 1k box (864) and the 10k flagship (10,584); for the record, the
-# stream at K5t `[feat10]` (SVK) at 10k and `[ancf3443_mr]` at the 72 x 72
-# shell. The `_lb3` forms are float32 only.
+# at (tag, chip_smoke problem function, its size arguments: the name of one in
+# chip_smoke, a tuple of numbers, or None, forms): K5t `[feat10_mr]` at the
+# bunny's 96-element fallback mesh, the bench.py 1k box (864) and the 10k
+# flagship (10,584); for the record, the stream at K5t `[feat10]` (SVK) at
+# 10k; K5t `[ancf3443]` (SVK) and `[ancf3443_mr]` on the shells of
+# BLOCKS_SHELLS (576, 5,184 and 20,736 elements), damped as chip_smoke's
+# shells are. The `_lb3` forms, and the slot forms that fit fewer than two
+# blocks an SM in float64, are float32 only (TANGENT_F32_ONLY).
 TANGENT_FORMS = ["parent", "stream", "stream_fused", "stream_lb3", "stream_fused_lb3"]
+TANGENT_SHELL_FORMS = ["parent", "stream", "slots8_8", "slots8_16", "slots16_8", "slots8_4"]
+TANGENT_F32_ONLY = ("stream_lb3", "stream_fused_lb3", "slots8_16", "slots16_8")
 TANGENT_CASES = (("feat10_mr", "flagship_problem", "BUNNY_DIMS", TANGENT_FORMS),
                  ("feat10_mr", "flagship_problem", "RESIDENT_DIMS", TANGENT_FORMS),
                  ("feat10_mr", "flagship_problem", None, TANGENT_FORMS),
                  ("feat10", "flagship_problem", None, ["parent", "stream"]),
-                 ("ancf3443_mr", "shell_problem", None, ["parent", "stream"]))
+                 *((tag, "shell_problem", (n, n), TANGENT_SHELL_FORMS)
+                   for tag in ("ancf3443", "ancf3443_mr") for n in BLOCKS_SHELLS))
+# `tangent_gate`: K5t `[ancf3443]` (SVK) in the parent and the float64
+# shipped slots between the shells of BLOCKS_SHELLS (7,056 to 17,424
+# elements), where fem_ancf3443.cu places its float64 gate.
+TANGENT_GATE_CASES = tuple(("ancf3443", "shell_problem", (n, n), ["parent", "slots8_8"])
+                           for n in (84, 96, 108, 120, 132))
 
 
 def _ptxas_spills(pattern, key):
@@ -682,29 +703,44 @@ def _blocks_smem(form, op, itemsize):
 
 
 def _tangent_spills():
-    """{(T, S, material, STREAM, FUSED, MINB): spill stores} of K5t's forms:
-    the library's contrib_tangent_kernel<T, F, M, STREAM> (not FUSED, MINB 1)
-    and kernel_variants.cu's contrib_tangent_form_kernel<T, F, M, FUSED,
-    MINB> (STREAM)."""
-    pat = re.compile(r"contrib_tangent_(form_)?kernelI([fd]).*?FamilyILi(\d+)E.*?"
-                     r"(SvkMat|MrMat)I[fd]EELb([01])E(?:Li(\d+)E)?")
+    """{(T, S, material, form): spill stores} of K5t's forms: the library's
+    contrib_tangent_kernel<T, F, M, STREAM> (`parent`, `stream`) and
+    contrib_tangent_slots_kernel<T, F, M, TE, NQ> (`slots<TE>_<NQ>`), and
+    kernel_variants.cu's contrib_tangent_form_kernel<T, F, M, FUSED, MINB>
+    (`stream_fused`, `stream_lb3`, `stream_fused_lb3`), at the FEAT10 and
+    ANCF3443 families the forms run at (not the NG and REG_BYTES variants
+    of `elements`)."""
+    fams = {"Li10ELi5ELj1023ELi5ELi0E": 10, "Li16ELi48ELj4369ELi4ELi240E": 16}  # F10Mr, S4Mr
+    pat = re.compile(r"contrib_tangent_(form_|slots_)?kernelI([fd]).*?FamilyI("
+                     + "|".join(fams) + r")E.*?(SvkMat|MrMat)I[fd]EE(?:Lb([01])E|Li(\d+)E)"
+                     r"(?:Li(\d+)E)?")
 
     def key(m):
-        if m[1]:
-            return m[2], int(m[3]), m[4], True, m[5] == "1", int(m[6])
-        return m[2], int(m[3]), m[4], m[5] == "1", False, 1
+        if m[1] == "slots_":
+            form = f"slots{m[6]}_{m[7]}"
+        elif m[1]:
+            form = ("stream_fused" if m[5] == "1" else "stream") + ("_lb3" if m[7] == "3" else "")
+        else:
+            form = "stream" if m[5] == "1" else "parent"
+        return m[2], fams[m[3]], m[4], form
     return _ptxas_spills(pat, key)
 
 
 def _tangent_key(dtype, op, form):
-    """The _tangent_spills key of a form of TANGENT_FORMS on op."""
+    """The _tangent_spills key of a form of TANGENT_FORMS or
+    TANGENT_SHELL_FORMS on op."""
     return ("f" if dtype == torch.float32 else "d", op.S,
-            "MrMat" if op.kind == "mr" else "SvkMat", form != "parent", "fused" in form,
-            3 if form.endswith("_lb3") else 1)
+            "MrMat" if op.kind == "mr" else "SvkMat", form)
 
 
 def _tangent_smem(form, op, itemsize):
-    """The dynamic shared memory of a K5t form's launch (TangentSmem)."""
+    """The dynamic shared memory of a K5t form's launch (TangentSmem, or
+    TangentSlotSmem for `slots<TE>_<NQ>`)."""
+    if form.startswith("slots"):
+        te, nq = (int(v) for v in form[5:].split("_"))
+        v = 16 // itemsize
+        pt = -(-9 // v) * v
+        return (op.S * 15 * te + 2 * nq * (op.S * 3 + 1) * te + nq * te * pt) * itemsize
     ng = NG[op.family]
     words = op.S * 15 + ng * op.S * 3
     if form != "parent":
@@ -817,19 +853,20 @@ def blocks(lib):
                        lambda v, t=t: spills.get((t, v)), entry, occ_entry)
 
 
-def tangent(lib):
+def tangent(lib, cases=TANGENT_CASES):
     """K5t `contrib_tangent` in its forms beside the shipped kernel at
-    TANGENT_CASES, float32 and float64 (see the module's docstring)."""
+    `cases`, float32 and float64 (see the module's docstring)."""
     cs = _cs()
     dev = torch.device("cuda")
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     spills = _tangent_spills()
     mr = cs.mooney_rivlin()
-    for tag, builder, size, forms in TANGENT_CASES:
+    for tag, make, size, forms in cases:
         family, kind = fk._untag(tag)
-        system = getattr(cs, builder)("cpu", torch.float64,
-                                      *(() if size is None else (getattr(cs, size),)),
-                                      material=mr if kind == "mr" else None)[0]
+        args = (() if size is None else size if isinstance(size, tuple)
+                else (getattr(cs, size),))
+        system = getattr(cs, make)("cpu", torch.float64, *args,
+                                   material=mr if kind == "mr" else None)[0]
         for dtype in (torch.float32, torch.float64):
             op = fk.FemOperator(system.elems.to(dev, dtype), system.material)
             sfx = {torch.float32: "f32", torch.float64: "f64"}[dtype]
@@ -856,10 +893,10 @@ def tangent(lib):
 
             def occ_entry(v, op=op, sfx=sfx, mtag=mtag):
                 fn = getattr(lib, f"tlfea_occupancy_contrib_tangent_{op.family}_{v}{mtag}_{sfx}")
-                fn.argtypes = [ctypes.POINTER(I)]
-                return _occ(fn)
+                fn.argtypes = [I, ctypes.POINTER(I)]
+                return _occ(fn, op.E)
 
-            fs = [v for v in forms if dtype == torch.float32 or not v.endswith("_lb3")]
+            fs = [v for v in forms if dtype == torch.float32 or v not in TANGENT_F32_ONLY]
             _form_rows(lib, cs, "contrib_tangent", op, dtype, shipped,
                        {"shipped": lambda op=op, x=x: fk.contrib_tangent(op, x["packed"],
                                                                          x["dp"])},
@@ -992,7 +1029,8 @@ def resident(lib):
 
 
 PARTS = {"elements": elements, "beams": beams, "hv": hv, "split": split, "blocks": blocks,
-         "tangent": tangent, "k4": k4, "barriers": barriers, "resident": resident}
+         "tangent": tangent, "tangent_gate": lambda lib: tangent(lib, TANGENT_GATE_CASES),
+         "k4": k4, "barriers": barriers, "resident": resident}
 
 
 def main():
