@@ -24,7 +24,8 @@ non-zero:
    for the node reduce, beside `Tensor.index_add_`; with each kernel's
    registers and local bytes a thread and blocks an SM (the CUDA runtime),
    and the waves its grid takes over the card's SMs (in the kernels' JSON
-   record `regs` and `waves`, as for the persistent and phase kernels). K5 `contrib` must equal
+   record `regs` and `waves`, as for the persistent and phase kernels, and an
+   element or phase kernel's block as `block`, [threads, elements]). K5 `contrib` must equal
    K1's fe bit for bit in float32, and K5t `contrib_tangent` + K4 along the
    Newton chain (dt p, p, p/dt) must match K2 + K4 along p.
 3. beam: the float32 FEAT10 beam sag (box 10x1x1, dt 1e-3, 150 steps)
@@ -440,11 +441,12 @@ def bound_ms(name, op, C=6, itemsize=4):
 
 
 def occupancy_fields(name, tag, dtype, blocks, launch=None):
-    """({"regs", "waves"}, a log text) of one launch of `blocks` blocks of
-    kernel `name` of `tag`: its registers and local bytes a thread and its
-    blocks an SM from the CUDA runtime (`fem_kernels.occupancy`; launch:
-    an element kernel's E, the persistent kernel's (E, cluster)), and the
-    waves those blocks take over the card's SMs."""
+    """({"regs", "waves"[, "block"]}, a log text) of one launch of `blocks`
+    blocks of kernel `name` of `tag`: its registers and local bytes a thread
+    and its blocks an SM from the CUDA runtime (`fem_kernels.occupancy`;
+    launch: an element kernel's E, the persistent kernel's (E, cluster)),
+    the waves those blocks take over the card's SMs, and a block's [threads,
+    elements] where the record has them (not the persistent kernel's)."""
     import torch
 
     from tlfea_torch.ops import fem_kernels as fk
@@ -455,7 +457,8 @@ def occupancy_fields(name, tag, dtype, blocks, launch=None):
         raise AssertionError(f"{name}[{tag}]: no block of its launch fits an SM: {o}")
     waves = -(-blocks // (o["blocks_per_sm"] * n_sm))
     shape = f" of {o['threads']} threads ({o['elements']} elements)" if "threads" in o else ""
-    return ({"regs": o["regs"], "waves": waves},
+    block = {"block": [o["threads"], o["elements"]]} if "threads" in o else {}
+    return ({"regs": o["regs"], "waves": waves, **block},
             f"{o['regs']} registers and {o['local_bytes']} B local a thread, "
             f"{o['blocks_per_sm']} blocks an SM, {waves} wave(s) of {blocks} blocks{shape} over "
             f"{n_sm} SMs")
@@ -1647,12 +1650,12 @@ def main():
     for v, r in phases.items():
         entries.append((f"hv_phase[{v}]", "tlfea_torch/csrc/" + hp.SOURCE, hp.REPLACES[v],
                         r["launches"], r))
-    # The contract's keys and max_rel_err (the bar), registers and waves of
+    # The contract's keys and max_rel_err (the bar), registers, waves and block of
     # the timed launch (float32; the phase kernels' at 100k), the resident kernel's
     # float64 errors, barriers, per-pass bound and its 1,024-element beam
     # figures, and the phase variants' 10k figures; numbers to four digits.
     keys = ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "regs", "waves", "max_abs_err_f64", "max_rel_err_f64", "per_pass_bound_ms", "barriers",
+            "library_ms", "regs", "waves", "block", "max_abs_err_f64", "max_rel_err_f64", "per_pass_bound_ms", "barriers",
             "grid", "f32_vs_f64_plain", f"ms_e{BIG_BEAM}", f"bound_ms_e{BIG_BEAM}", f"max_rel_err_f64_e{BIG_BEAM}",
             f"grid_e{BIG_BEAM}", "ms_10k", "plain_ms_10k", "bound_ms_10k")
     print(json.dumps({"kernels": [

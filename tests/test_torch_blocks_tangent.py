@@ -1,11 +1,12 @@
-"""K3 `svk_blocks[ancf3443]` and K5t `contrib_tangent` (`[feat10_mr]`,
-`[ancf3443]`, `[ancf3443_mr]`) on the CPU, at the ragged sizes at which
-`tests/test_torch_cuda.py` holds their CUDA kernels (which may launch one
-thread an (element, slot), `fem_kernels.cuh` `Slots`, and stream a point's
-operands, `contrib_tangent_stream_tile`) to the twins: a 5 x 7 shell (35
-elements) and a 1 x 1 shell for K3 and the shell's K5t; the first 33
-elements of a FEAT10 box for K5t `[feat10_mr]`, each a multiple of neither
-8 nor 32, so the last tile is ragged.
+"""K3 `svk_blocks` (`[ancf3443]`, `[feat10]`) and K5t `contrib_tangent`
+(`[feat10]`, `[feat10_mr]`, `[ancf3443]`, `[ancf3443_mr]`) on the CPU, at
+the ragged sizes at which `tests/test_torch_cuda.py` holds their CUDA
+kernels (which may launch one thread an (element, slot), `fem_kernels.cuh`
+`Slots`, and stream a point's operands, `contrib_tangent_stream_tile`) to
+the twins: a 5 x 7 shell (35 elements) and a 1 x 1 shell for the shell's
+K3 and K5t; the first 33 elements of a FEAT10 box for FEAT10's K3 and K5t
+(SVK and Mooney-Rivlin), each a multiple of neither 8, 16 nor 32, so the
+last tile is ragged.
 
 On the CPU the wrappers run the plain twins, which the card tests take as
 the reference. Here they go against the JAX package's XLA path, in float64
@@ -57,27 +58,38 @@ def _port(jsys, dtype):
     return system.fem
 
 
+def _svk(damping):
+    lam, mu = lame_from_E_nu(1e7, 0.3)
+    return JSVK(lam=jnp.asarray(lam), mu=jnp.asarray(mu), eta_damp=jnp.asarray(damping),
+                lam_damp=jnp.asarray(damping))
+
+
+def _einsum_blocks(jsys, u, op):
+    """The einsum branch of `precond_blocks` before its scatter and its dt
+    weight: sum_q K(F_q, gradN_qa) dV_q per element and slot, in the
+    kernels' SYM6 (S*6, E) layout."""
+    elems = jsys.elems
+    F = jnp.einsum("eai,eqaj->eqij", jnp.asarray(u)[elems.conn], elems.grad_N)
+    Kb = jsys.material.tangent_diag_block(F[:, :, None] + jnp.eye(3), elems.grad_N)
+    Kb = (Kb * elems.dV[:, :, None, None, None]).sum(axis=1)  # (E, S, 3, 3)
+    return _slots(np.stack([Kb[..., a, b] for a, b in fk.SYM6], axis=-1), op, 6)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("shell", SHELLS, ids=[f"{nx}x{ny}" for nx, ny in SHELLS])
 def test_svk_blocks_twin_on_ragged_shells_matches_jax(shell, dtype):
     coefs, conn = j_ancf3443.shell_grid(*shell, L=0.05, W=0.05)
-    lam, mu = lame_from_E_nu(1e7, 0.3)
-    mat = JSVK(lam=jnp.asarray(lam), mu=jnp.asarray(mu), eta_damp=jnp.asarray(1e3),
-               lam_damp=jnp.asarray(1e3))
     edge = np.nonzero(coefs[0::4, 0] < 1e-12)[0]
     fixed = (4 * edge[:, None] + np.arange(4)[None, :]).reshape(-1)
     jsys = JSystem(elems=j_ancf3443.build(coefs, conn, 0.05, 0.05, 0.01, rho=1000.0),
-                   material=mat, constraints=JFixedCoefs.from_indices(fixed, coefs))
+                   material=_svk(1e3), constraints=JFixedCoefs.from_indices(fixed, coefs))
     op = _port(jsys, dtype)
     assert (op.tag, op.E) == ("ancf3443", shell[0] * shell[1])
     u = np.random.default_rng(13).normal(size=coefs.shape) * 1e-2
 
     got = fk.svk_blocks(op, torch.as_tensor(u, dtype=dtype))
     assert torch.equal(got, fk.svk_blocks_plain(op, torch.as_tensor(u, dtype=dtype)))
-    F = jnp.einsum("eai,eqaj->eqij", jnp.asarray(u)[jsys.elems.conn], jsys.elems.grad_N)
-    Kb = jsys.material.tangent_diag_block(F[:, :, None] + jnp.eye(3), jsys.elems.grad_N)
-    Kb = (Kb * jsys.elems.dV[:, :, None, None, None]).sum(axis=1)  # (E, S, 3, 3)
-    want = _slots(np.stack([Kb[..., a, b] for a, b in fk.SYM6], axis=-1), op, 6)
+    want = _einsum_blocks(jsys, u, op)
     assert np.isfinite(got.numpy()).all() and _rel(got.numpy(), want) < TOL[dtype]
 
 
@@ -102,6 +114,39 @@ def tangent_box():
                        (dx[:, 0:3], dx[:, 3:6], dx[:, 6:9]))[1]
 
     return nodes, elems, host, dhost, jvp
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_feat10_svk_blocks_twin_on_a_ragged_box_matches_jax(tangent_box, dtype):
+    nodes, elems, _, _, _ = tangent_box
+    fixed = np.nonzero(nodes[:, 0] < 1e-12)[0]
+    jsys = JSystem(elems=elems, material=_svk(1e3),
+                   constraints=JFixedCoefs.from_indices(fixed, nodes))
+    op = _port(jsys, dtype)
+    assert (op.tag, op.E) == ("feat10", TANGENT_E) and op.E % 16 and op.E % 32
+    u = np.random.default_rng(19).normal(size=nodes.shape) * 1e-2
+
+    got = fk.svk_blocks(op, torch.as_tensor(u, dtype=dtype))
+    assert torch.equal(got, fk.svk_blocks_plain(op, torch.as_tensor(u, dtype=dtype)))
+    want = _einsum_blocks(jsys, u, op)
+    assert np.isfinite(got.numpy()).all() and _rel(got.numpy(), want) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("damping", [0.0, 1e3], ids=["undamped", "damped"])
+def test_svk_contrib_tangent_twin_on_a_ragged_box_matches_jax(tangent_box, damping, dtype):
+    nodes, elems, host, dhost, jvp = tangent_box
+    mat = _svk(damping)
+    fixed = np.nonzero(nodes[:, 0] < 1e-12)[0]
+    jsys = JSystem(elems=elems, material=mat, constraints=JFixedCoefs.from_indices(fixed, nodes))
+    op = _port(jsys, dtype)
+    assert (op.tag, op.E) == ("feat10", TANGENT_E) and op.E % 16 and op.E % 32
+
+    packed, dpacked = (torch.as_tensor(a, dtype=dtype).contiguous() for a in (host, dhost))
+    got = fk.contrib_tangent(op, packed, dpacked)
+    assert torch.equal(got, fk.contrib_tangent_plain(op, packed, dpacked))
+    want = _slots(jvp(mat, jnp.asarray(host), jnp.asarray(dhost)), op, 3)
+    assert np.isfinite(got.numpy()).all() and _rel(got.numpy(), want) < TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
@@ -163,12 +208,7 @@ def tangent_shells():
 def test_shell_contrib_tangent_twin_on_ragged_shells_matches_jax(tangent_shells, shell, tag,
                                                                 damping, dtype):
     coefs, elems, host, dhost, jvp = tangent_shells(shell)
-    if tag == "ancf3443":
-        lam, mu = lame_from_E_nu(1e7, 0.3)
-        mat = JSVK(lam=jnp.asarray(lam), mu=jnp.asarray(mu), eta_damp=jnp.asarray(damping),
-                   lam_damp=jnp.asarray(damping))
-    else:
-        mat = _JMooneyRivlin(**_mr_from_E_nu(1e7, 0.3, damping))
+    mat = _svk(damping) if tag == "ancf3443" else _JMooneyRivlin(**_mr_from_E_nu(1e7, 0.3, damping))
     edge = np.nonzero(coefs[0::4, 0] < 1e-12)[0]
     fixed = (4 * edge[:, None] + np.arange(4)[None, :]).reshape(-1)
     jsys = JSystem(elems=elems, material=mat, constraints=JFixedCoefs.from_indices(fixed, coefs))

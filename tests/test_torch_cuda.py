@@ -1351,10 +1351,18 @@ MR_TANGENT_BOXES = {1: (1.0, 0.4, 0.2, 3, 2, 1), 33: (1.0, 0.4, 0.2, 3, 2, 1),
 
 def _mr_tangent_case(device, dtype, E, damping):
     """(op, packed, dpacked) on the first E elements of MR_TANGENT_BOXES[E]."""
+    return _box_case(device, dtype, E, _mooney_rivlin(damping=damping))
+
+
+def _box_case(device, dtype, E, material):
+    """(op, packed, dpacked) of `material` on the first E elements of
+    MR_TANGENT_BOXES[E], at a random strained state (u a fiftieth of the
+    smallest cell, v and dv/dt standard normal) and a standard normal
+    direction."""
     dims = MR_TANGENT_BOXES[E]
     nodes, conn = box_t10_mesh(*dims)
     elems = feat10.build(nodes, conn[:E], rho=1000.0, dtype=dtype, device="cpu")
-    op = fk.FemOperator(elems.to(device), _mooney_rivlin(damping=damping))
+    op = fk.FemOperator(elems.to(device), material)
     rng = np.random.default_rng(23)
     n = len(nodes)
     scale = 0.02 * min(d / c for d, c in zip(dims[:3], dims[3:]))
@@ -1399,3 +1407,72 @@ def test_mr_contrib_tangent_feat10_runs_the_flagship_in_one_wave(cuda_dev):
     assert occ["blocks_per_sm"] == MR_TANGENT_FEAT10_BLOCKS_PER_SM
     n_sm = torch.cuda.get_device_properties(cuda_dev).multi_processor_count
     assert -(-10584 // fk.TILE) <= occ["blocks_per_sm"] * n_sm
+
+
+# K3 `svk_blocks[feat10]` and K5t `contrib_tangent[feat10]` (SVK), which the
+# instantiation launches with one thread an (element, slot) (`fem_kernels.cuh`
+# `Slots<16, 5>`, all 5 points one chunk copied into one buffer): the first E
+# elements of a FEAT10 box, E = 1, 33 (of a 3 x 2 x 1 box: a multiple of
+# neither 16 nor 32, and a row stride E * itemsize off 16 bytes, so the copy
+# goes word by word), 864 (the bench.py 1k box) and 10,584 (the flagship), at
+# `_box_case`'s strained state (K3 at its u).
+FEAT10_TILE_SIZES = [1, 33, 864, 10584]
+# The launch as PERF.md records the choice, by (kernel, dtype): (TE, blocks an
+# SM), TE elements x 10 slots a block at every E.
+FEAT10_SLOTS = {("svk_blocks", torch.float32): (16, 7), ("svk_blocks", torch.float64): (16, 4),
+                ("contrib_tangent", torch.float32): (16, 7),
+                ("contrib_tangent", torch.float64): (16, 3)}
+
+
+def _svk(damping=1e3):
+    lam, mu = lame_from_E_nu(1e7, 0.3)
+    return SVK(lam, mu, damping, damping)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("E", FEAT10_TILE_SIZES)
+def test_feat10_svk_blocks_matches_twin_and_repeats(cuda_dev, E, dtype, tol):
+    """K3 `[feat10]` against its twin in one launch; bitwise repeatable."""
+    op, packed, _ = _box_case(cuda_dev, dtype, E, _svk())
+    assert (op.tag, op.E) == ("feat10", E)
+    u = packed[:, :3].contiguous()
+    fk.reset_launch_counts()
+    got = fk.svk_blocks(op, u)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["svk_blocks[feat10]"] == 1 and sum(fk.LAUNCHES.values()) == 1
+    assert bool(torch.isfinite(got).all()) and _rel(got, fk.svk_blocks_plain(op, u)) < tol
+    assert torch.equal(fk.svk_blocks(op, u), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("damping", [0.0, 1e3], ids=["undamped", "damped"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("E", FEAT10_TILE_SIZES)
+def test_feat10_contrib_tangent_matches_twin_and_repeats(cuda_dev, E, dtype, tol, damping):
+    """K5t `[feat10]` (SVK) against its twin in one launch, damped and
+    undamped, at a strained state; bitwise repeatable."""
+    op, packed, dpacked = _box_case(cuda_dev, dtype, E, _svk(damping))
+    assert (op.tag, op.E) == ("feat10", E)
+    fk.reset_launch_counts()
+    got = fk.contrib_tangent(op, packed, dpacked)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["contrib_tangent[feat10]"] == 1 and sum(fk.LAUNCHES.values()) == 1
+    want = fk.contrib_tangent_plain(op, packed, dpacked)
+    assert bool(torch.isfinite(got).all()) and _rel(got, want) < tol
+    assert torch.equal(fk.contrib_tangent(op, packed, dpacked), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("kernel", ["svk_blocks", "contrib_tangent"])
+def test_feat10_tangent_tiles_report_the_block_they_launch(cuda_dev, kernel, dtype):
+    """`occupancy` reports the block of the K3 / K5t `[feat10]` launch, as
+    FEAT10_SLOTS records it, at every E; and `launch_blocks` counts its
+    blocks on the ragged 33 elements."""
+    te, per_sm = FEAT10_SLOTS[(kernel, dtype)]
+    for E in [1, 33, 864, 10584, 101376, None]:
+        occ = fk.occupancy(kernel, "feat10", dtype, E)
+        assert (occ["elements"], occ["threads"], occ["blocks_per_sm"]) == (te, te * 10, per_sm), E
+    op = _box_case(cuda_dev, dtype, 33, _svk())[0]
+    assert fk.launch_blocks(kernel, op) == -(-33 // te)

@@ -40,9 +40,9 @@
 // elements' slot values through `conn` into shared memory (centred, see
 // below). Each thread accumulates its points' contributions in registers
 // when they are few, else directly in its own slice of a shared-memory
-// partial buffer, and leaves them in that slice (the shell's K3, with 96
-// tangent-block sums a thread, and its K5t, with 48, instead take one
-// thread an (element, slot): `Slots`, below). Then the block sums the NG
+// partial buffer, and leaves them in that slice (K3 and K5t, with S*6 and
+// S*3 sums a thread, instead take one thread an (element, slot) at the shell
+// and at FEAT10 with SVK: `Slots`, below). Then the block sums the NG
 // partials of each (element, slot) in the fixed order g = 0..NG-1, adds the
 // q-independent mass term once, and writes per-(element, slot) values. K4
 // sums those onto the nodes in a fixed order. No atomics anywhere: float32
@@ -1303,6 +1303,13 @@ svk_blocks_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
 // shared memory (16-byte cp.async where every row segment is whole and
 // aligned, else a word at a time), double-buffered: chunk k + 1 is in
 // flight while chunk k is computed, and each gradient byte leaves HBM once.
+// Where one chunk holds all Q points (FEAT10, Slots<16, 5>) the block has
+// one buffer (SlotSmem::NBUF): no next chunk exists to overlap, and the
+// blocks resident on an SM overlap one another's copies instead. At FEAT10
+// the parent tile held 167 registers in float32, 2 blocks an SM, and the
+// 10k flagship's 331 tiles took 2 waves; Slots<16, 5> holds 56, 7 blocks
+// an SM, one wave of 662 blocks: 10.12 -> 6.93 us (float64 16.00 -> 10.88;
+// fem_kernels.cu, PERF.md, Findings).
 // Phase A: thread (x, t), t < NQ, computes point k NQ + t's F, FFT and trE
 // (svk_point) into shared memory. Phase B: thread (x, a) reads its slot's h
 // and the point's F, FFT, trE and w, runs `svk_diag_block` and adds K[c] w
@@ -1328,11 +1335,13 @@ constexpr bool slots_at(int E) {
 }
 
 // The slot kernel's shared memory: xs (S*3 rows of TE words: the staged,
-// centred u); two buffers of NQ points of QP_ROWS rows (the point's S*3
+// centred u); NBUF buffers of NQ points of QP_ROWS rows (the point's S*3
 // gradient rows, then its dV row) of TE words; then NQ * TE point records
 // of PT words (F 9, the upper FFT 6, trE; padded so that a record starts on
 // 16 bytes and eight records hit distinct banks when read 16 bytes at a
-// time).
+// time). Two buffers when the tile walks more than one chunk, so that the
+// next is in flight while one is computed; one when a chunk holds all Q
+// points (FEAT10's NQ = Q = 5), since no next chunk exists to overlap.
 template <typename T, class F, int TE, int NQ>
 struct SlotSmem {
   static_assert(F::Q % NQ == 0 && NQ % F::NG == 0 && NQ <= F::S,
@@ -1340,9 +1349,12 @@ struct SlotSmem {
   static constexpr int QP_ROWS = F::S * 3 + 1;
   static constexpr int PT = 16 + 16 / (int)sizeof(T);
   static constexpr int XS = F::S * 3 * TE;
+  static constexpr int NBUF = F::Q / NQ > 1 ? 2 : 1;
   static constexpr int BUF = NQ * QP_ROWS * TE;
   static constexpr int PTS = NQ * TE * PT;
-  static constexpr size_t BYTES = (size_t)(XS + 2 * BUF + PTS) * sizeof(T);
+  static_assert(XS % (16 / (int)sizeof(T)) == 0 && BUF % (16 / (int)sizeof(T)) == 0,
+                "16-byte aligned buffers and records");
+  static constexpr size_t BYTES = (size_t)(XS + NBUF * BUF + PTS) * sizeof(T);
   static_assert(BYTES <= 232448, "the tile exceeds an H100 block's 227 KB of shared memory");
 };
 
@@ -1486,8 +1498,8 @@ svk_slots_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
   constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = TE * S, R = L::QP_ROWS, PT = L::PT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);  // (S*3, TE): centred u
-  T* buf = xs + L::XS;                     // (2, NQ, QP_ROWS, TE)
-  T* pts = buf + 2 * L::BUF;               // (NQ, TE, PT)
+  T* buf = xs + L::XS;                     // (NBUF, NQ, QP_ROWS, TE)
+  T* pts = buf + L::NBUF * L::BUF;         // (NQ, TE, PT)
   const int x = threadIdx.x, a = threadIdx.y, tid = a * TE + x;
   const int e0 = blockIdx.x * TE, e = e0 + x;
   const size_t sE = (size_t)E;
@@ -1564,12 +1576,17 @@ svk_slots_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
 // 0..NG-1, plus the consistent mass on the staged d(dv/dt). So every output
 // takes the parent's operations in the parent's order. The shell's
 // instantiations pick TE, NQ and a gate as timed on an H100
-// (fem_ancf3443.cu, fem_ancf3443_mr.cu).
+// (fem_ancf3443.cu, fem_ancf3443_mr.cu); FEAT10 with SVK takes Slots<16, 5>,
+// one chunk of all 5 points in one buffer, at every E (fem_kernels.cu: 168
+// registers, 2 blocks an SM and 2 waves of 331 tiles at the 10k flagship ->
+// 56 registers, 7 blocks an SM, one wave of 662 blocks; float32 11.96 ->
+// 9.99 us, float64 21.48 -> 16.73).
 //
 // Its shared memory: xt (S*9 rows of TE words: the staged tangent), xp (S*6
-// rows: the staged primal u | v), two buffers of NQ points of QP_ROWS rows
-// of TE words, then NQ * TE records of PT words (dP, padded so that a record
-// starts on 16 bytes).
+// rows: the staged primal u | v), NBUF buffers of NQ points of QP_ROWS rows
+// of TE words (two, or one when a chunk holds all Q points, as SlotSmem),
+// then NQ * TE records of PT words (dP, padded so that a record starts on
+// 16 bytes).
 template <typename T, class F, int TE, int NQ>
 struct TangentSlotSmem {
   static_assert(F::Q % NQ == 0 && NQ % F::NG == 0 && NQ <= F::S,
@@ -1579,10 +1596,11 @@ struct TangentSlotSmem {
   static constexpr int PT = (9 + V - 1) / V * V;
   static constexpr int XT = F::S * 9 * TE;
   static constexpr int XP = F::S * 6 * TE;
+  static constexpr int NBUF = F::Q / NQ > 1 ? 2 : 1;
   static constexpr int BUF = NQ * QP_ROWS * TE;
   static constexpr int PTS = NQ * TE * PT;
   static_assert((XT + XP) % V == 0 && BUF % V == 0, "16-byte aligned buffers");
-  static constexpr size_t BYTES = (size_t)(XT + XP + 2 * BUF + PTS) * sizeof(T);
+  static constexpr size_t BYTES = (size_t)(XT + XP + NBUF * BUF + PTS) * sizeof(T);
   static_assert(BYTES <= 232448, "the tile exceeds an H100 block's 227 KB of shared memory");
 };
 
@@ -1597,8 +1615,8 @@ contrib_tangent_slots_kernel(const T* __restrict__ packed, const T* __restrict__
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xt = reinterpret_cast<T*>(smem_raw);  // (S*9, TE): tangent du | dv | d(dv/dt)
   T* xp = xt + L::XT;                      // (S*6, TE): primal u | v
-  T* buf = xp + L::XP;                     // (2, NQ, QP_ROWS, TE)
-  T* pts = buf + 2 * L::BUF;               // (NQ, TE, PT): dP
+  T* buf = xp + L::XP;                     // (NBUF, NQ, QP_ROWS, TE)
+  T* pts = buf + L::NBUF * L::BUF;         // (NQ, TE, PT): dP
   const int x = threadIdx.x, a = threadIdx.y, tid = a * TE + x;
   const int e0 = blockIdx.x * TE, e = e0 + x;
   const size_t sE = (size_t)E;

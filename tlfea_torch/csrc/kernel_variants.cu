@@ -456,15 +456,17 @@ VARIANTS_SPLIT(f32, float)
 VARIANTS_SPLIT(f64, double)
 
 // `python -m tlfea_torch.tools.kernel_variants blocks` (PERF.md, Findings):
-// K3 `svk_blocks[ancf3443]` in its forms: `parent`, the library's parent
-// tile (tlfea::Groups); `stream`, the parent's walk with each thread's next
-// round of gradient rows and dV row copied by cp.async into its own column
-// of a two-stage ring (as K1's Hold::stream), its 96 partial sums still in
-// shared memory; `slots<TE>_<NQ>`, fem_kernels.cuh tlfea::Slots<TE, NQ>
+// K3 `svk_blocks[ancf3443]` and `svk_blocks[feat10]` in their forms:
+// `parent`, the library's parent tile (tlfea::Groups); `stream`, the
+// parent's walk with each thread's next round of gradient rows and dV row
+// copied by cp.async into its own column of a ring of up to two stages (as
+// K1's Hold::stream; FEAT10's one round, one stage), its partial sums still
+// in shared memory; `slots<TE>_<NQ>`, fem_kernels.cuh tlfea::Slots<TE, NQ>
 // (one thread an (element, slot), each chunk of NQ points copied into
-// shared memory by the block); `slots<TE>_<NQ>_nocopy` (below), the same
-// reading global memory where used: tlfea_svk_blocks_ancf3443_<form>_<SUFFIX> and
-// tlfea_occupancy_svk_blocks_ancf3443_<form>_<SUFFIX>(E, out). Every form
+// shared memory by the block; at FEAT10 one chunk of all 5 points);
+// `slots<TE>_<NQ>_nocopy` (below, the shell only), the same reading global
+// memory where used: tlfea_svk_blocks_<family>_<form>_<SUFFIX> and
+// tlfea_occupancy_svk_blocks_<family>_<form>_<SUFFIX>(E, out). Every form
 // gives the parent's bits, up to the compiler's choice of fused
 // multiply-adds.
 template <typename T, class F>
@@ -540,32 +542,32 @@ constexpr size_t stream_blocks_smem() {
   return tlfea::smem_bytes<T, F, 3, 6>() + (size_t)D * F::NG * R * tlfea::EX * sizeof(T);
 }
 
-#define VARIANT_BLOCKS_STREAM(SUFFIX, T)                                                          \
-  extern "C" int tlfea_svk_blocks_ancf3443_stream_##SUFFIX(                                       \
+#define VARIANT_BLOCKS_STREAM(NAME, FAM, SUFFIX, T)                                               \
+  extern "C" int tlfea_svk_blocks_##NAME##_stream_##SUFFIX(                                       \
       const void* u, const void* conn_t, const void* gN_t, const void* dV_t, void* out, int E,    \
       double lam, double mu, void* stream) {                                                      \
-    constexpr size_t smem = stream_blocks_smem<T, S4Mr>();                                        \
-    static const cudaError_t attr = tlfea::allow_smem(svk_blocks_stream_kernel<T, S4Mr>, smem);   \
+    constexpr size_t smem = stream_blocks_smem<T, FAM>();                                         \
+    static const cudaError_t attr = tlfea::allow_smem(svk_blocks_stream_kernel<T, FAM>, smem);    \
     if (attr != cudaSuccess) return (int)attr;                                                    \
     if (E > 0)                                                                                    \
-      svk_blocks_stream_kernel<T, S4Mr>                                                           \
-          <<<tlfea::n_tiles(E), dim3(tlfea::EX, S4Mr::NG), smem, (cudaStream_t)stream>>>(         \
+      svk_blocks_stream_kernel<T, FAM>                                                            \
+          <<<tlfea::n_tiles(E), dim3(tlfea::EX, FAM::NG), smem, (cudaStream_t)stream>>>(          \
               (const T*)u, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t, (T*)out, E,        \
               (T)lam, (T)mu);                                                                     \
     return (int)cudaGetLastError();                                                               \
   }                                                                                               \
-  extern "C" int tlfea_occupancy_svk_blocks_ancf3443_stream_##SUFFIX(int, int* out) {             \
-    return tlfea::occupancy(svk_blocks_stream_kernel<T, S4Mr>, tlfea::EX * S4Mr::NG,              \
-                            stream_blocks_smem<T, S4Mr>(), out, tlfea::EX);                       \
+  extern "C" int tlfea_occupancy_svk_blocks_##NAME##_stream_##SUFFIX(int, int* out) {             \
+    return tlfea::occupancy(svk_blocks_stream_kernel<T, FAM>, tlfea::EX * FAM::NG,                \
+                            stream_blocks_smem<T, FAM>(), out, tlfea::EX);                        \
   }
-#define VARIANT_BLOCKS(FORM, L, SUFFIX, T)                                                        \
-  extern "C" int tlfea_svk_blocks_ancf3443_##FORM##_##SUFFIX(                                     \
+#define VARIANT_BLOCKS(NAME, FAM, FORM, L, SUFFIX, T)                                             \
+  extern "C" int tlfea_svk_blocks_##NAME##_##FORM##_##SUFFIX(                                     \
       const void* u, const void* conn_t, const void* gN_t, const void* dV_t, void* out, int E,    \
       double lam, double mu, void* stream) {                                                      \
-    return tlfea::launch_svk_blocks<T, S4Mr, L>(u, conn_t, gN_t, dV_t, out, E, lam, mu, stream);  \
+    return tlfea::launch_svk_blocks<T, FAM, L>(u, conn_t, gN_t, dV_t, out, E, lam, mu, stream);   \
   }                                                                                               \
-  extern "C" int tlfea_occupancy_svk_blocks_ancf3443_##FORM##_##SUFFIX(int E, int* out) {         \
-    return tlfea::occupancy_svk_blocks<T, S4Mr, L>(E, out);                                       \
+  extern "C" int tlfea_occupancy_svk_blocks_##NAME##_##FORM##_##SUFFIX(int E, int* out) {         \
+    return tlfea::occupancy_svk_blocks<T, FAM, L>(E, out);                                        \
   }
 // tlfea::Slots<TE, NQ> without the copy: phase A and phase B read the
 // gradients and dV from global memory where they use them, so the shared
@@ -656,17 +658,23 @@ using Slots8_4 = tlfea::Slots<8, 4>;
 using Slots8_8 = tlfea::Slots<8, 8>;
 using Slots16_4 = tlfea::Slots<16, 4>;
 using Slots16_8 = tlfea::Slots<16, 8>;
-#define VARIANTS_BLOCKS(SUFFIX, T)                    \
-  VARIANT_BLOCKS(parent, tlfea::Groups, SUFFIX, T)   \
-  VARIANT_BLOCKS_STREAM(SUFFIX, T)                    \
-  VARIANT_BLOCKS(slots8_4, Slots8_4, SUFFIX, T)       \
-  VARIANT_BLOCKS(slots8_8, Slots8_8, SUFFIX, T)       \
-  VARIANT_BLOCKS(slots16_4, Slots16_4, SUFFIX, T)     \
-  VARIANT_BLOCKS(slots16_8, Slots16_8, SUFFIX, T)     \
-  VARIANT_BLOCKS_NOCOPY(8, 4, SUFFIX, T)              \
-  VARIANT_BLOCKS_NOCOPY(8, 8, SUFFIX, T)              \
-  VARIANT_BLOCKS_NOCOPY(16, 4, SUFFIX, T)             \
-  VARIANT_BLOCKS_NOCOPY(16, 8, SUFFIX, T)
+using Slots16_5 = tlfea::Slots<16, 5>;
+using Slots32_5 = tlfea::Slots<32, 5>;
+#define VARIANTS_BLOCKS(SUFFIX, T)                                     \
+  VARIANT_BLOCKS(ancf3443, S4Mr, parent, tlfea::Groups, SUFFIX, T)    \
+  VARIANT_BLOCKS_STREAM(ancf3443, S4Mr, SUFFIX, T)                     \
+  VARIANT_BLOCKS(ancf3443, S4Mr, slots8_4, Slots8_4, SUFFIX, T)        \
+  VARIANT_BLOCKS(ancf3443, S4Mr, slots8_8, Slots8_8, SUFFIX, T)        \
+  VARIANT_BLOCKS(ancf3443, S4Mr, slots16_4, Slots16_4, SUFFIX, T)      \
+  VARIANT_BLOCKS(ancf3443, S4Mr, slots16_8, Slots16_8, SUFFIX, T)      \
+  VARIANT_BLOCKS_NOCOPY(8, 4, SUFFIX, T)                               \
+  VARIANT_BLOCKS_NOCOPY(8, 8, SUFFIX, T)                               \
+  VARIANT_BLOCKS_NOCOPY(16, 4, SUFFIX, T)                              \
+  VARIANT_BLOCKS_NOCOPY(16, 8, SUFFIX, T)                              \
+  VARIANT_BLOCKS(feat10, F10Mr, parent, tlfea::Groups, SUFFIX, T)      \
+  VARIANT_BLOCKS_STREAM(feat10, F10Mr, SUFFIX, T)                      \
+  VARIANT_BLOCKS(feat10, F10Mr, slots16_5, Slots16_5, SUFFIX, T)       \
+  VARIANT_BLOCKS(feat10, F10Mr, slots32_5, Slots32_5, SUFFIX, T)
 
 VARIANTS_BLOCKS(f32, float)
 VARIANTS_BLOCKS(f64, double)
@@ -678,7 +686,8 @@ VARIANTS_BLOCKS(f64, double)
 // contrib_tangent_stream_tile), `stream_fused` (below: the stream with the
 // four contractions in one pass), each of the last two also under
 // __launch_bounds__' minimum of 3 blocks an SM (`_lb3`, float32): FEAT10
-// with Mooney-Rivlin, and for the record `stream` at FEAT10 with SVK; and at
+// with Mooney-Rivlin; at FEAT10 with SVK the parent, `stream` and
+// `slots16_5` / `slots32_5` (one chunk of all 5 points); and at
 // ANCF3443 with SVK and with Mooney-Rivlin the parent, `stream` and
 // `slots<TE>_<NQ>` (fem_kernels.cuh tlfea::Slots<TE, NQ>,
 // contrib_tangent_slots_kernel: one thread an (element, slot), each chunk of
@@ -880,13 +889,17 @@ VARIANT_TANGENT(feat10, F10Mr, _mr, tlfea::MrMat, f32, float, stream_lb3, true, 
                 tlfea::Groups)
 VARIANT_TANGENT(feat10, F10Mr, _mr, tlfea::MrMat, f32, float, stream_fused_lb3, true, true, 3,
                 tlfea::Groups)
-VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, f32, float, parent, false, false, 1,
-                tlfea::Groups)
-VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, f32, float, stream, true, false, 1, tlfea::Groups)
-VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, f64, double, parent, false, false, 1,
-                tlfea::Groups)
-VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, f64, double, stream, true, false, 1,
-                tlfea::Groups)
+#define VARIANTS_TANGENT_SVK(SUFFIX, T)                                                           \
+  VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, SUFFIX, T, parent, false, false, 1,           \
+                  tlfea::Groups)                                                                \
+  VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, SUFFIX, T, stream, true, false, 1,            \
+                  tlfea::Groups)                                                                \
+  VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, SUFFIX, T, slots16_5, false, false, 1,        \
+                  Slots16_5)                                                                    \
+  VARIANT_TANGENT(feat10, F10Mr, , tlfea::SvkMat, SUFFIX, T, slots32_5, false, false, 1,        \
+                  Slots32_5)
+VARIANTS_TANGENT_SVK(f32, float)
+VARIANTS_TANGENT_SVK(f64, double)
 VARIANTS_TANGENT_SHELL(_mr, tlfea::MrMat, f32, float)
 VARIANTS_TANGENT_SHELL(_mr, tlfea::MrMat, f64, double)
 VARIANTS_TANGENT_SHELL_F32(_mr, tlfea::MrMat)

@@ -20,8 +20,10 @@ this, this, parent). Inputs come from a numpy seed, in float32 and float64:
   shape gradients and whose K2 and K5t run in the form and layout each
   instantiation chose (fem_kernels.cuh `Hold`, `hv_tile`'s and
   `contrib_tangent_kernel`'s STREAM, `Points`);
-- K3 `svk_blocks` at the 72 x 72 shell (`[ancf3443]`, which may launch one
-  thread an (element, slot), `Slots`);
+- K3 `svk_blocks` and K5t `contrib_tangent` with SVK at the 72 x 72 shell
+  (`[ancf3443]`) and at the bench.py 1k box (`[feat10]`, 864 elements; the
+  10k entries above hold the flagship), each of which may launch one thread
+  an (element, slot), `Slots`;
 - K1 (fe and the prep cache), K2 and K5 with SVK at the 64- and
   1,024-element beams (`[ancf3243]`, whose K1, K2 and K5 may launch one
   thread a quadrature point);
@@ -73,7 +75,8 @@ GRID = 6  # index of `grid` in the stats tensor (resident.STAT_FIELDS)
 # "hv[feat10_mr]_e864" and "hv[ancf3243_mr]_e1024", and K5t at the 1k box;
 # K1, K2 and K5 with SVK at the 64- and 1,024-element beams
 # ("contrib[ancf3243]", "hv[ancf3243]_e1024", ...); K3 and K5t with SVK at
-# the 72 x 72 shell ("svk_blocks[ancf3443]", "contrib_tangent[ancf3443]").
+# the 72 x 72 shell ("svk_blocks[ancf3443]", "contrib_tangent[ancf3443]")
+# and at the 1k box ("svk_blocks[feat10]_e864", ...).
 MR_KERNELS = ("primal_prep", "hv", "contrib", "contrib_tangent")
 ELEMENT_CASES = (("feat10_mr", "flagship_problem", None, MR_KERNELS),
                  ("ancf3443_mr", "shell_problem", None, MR_KERNELS),
@@ -82,7 +85,8 @@ ELEMENT_CASES = (("feat10_mr", "flagship_problem", None, MR_KERNELS),
                  ("ancf3243_mr", "ancf_beam_problem", "BIG_BEAM", ("hv",)),
                  ("ancf3243", "ancf_beam_problem", None, ("primal_prep", "hv", "contrib")),
                  ("ancf3243", "ancf_beam_problem", "BIG_BEAM", ("primal_prep", "hv", "contrib")),
-                 ("ancf3443", "shell_problem", None, ("svk_blocks", "contrib_tangent")))
+                 ("ancf3443", "shell_problem", None, ("svk_blocks", "contrib_tangent")),
+                 ("feat10", "flagship_problem", "RESIDENT_DIMS", ("svk_blocks", "contrib_tangent")))
 
 
 ROLLOUT_STEPS = 250  # chip_smoke's [resident] rollout

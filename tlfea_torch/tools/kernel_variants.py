@@ -69,7 +69,10 @@ Parts (all when none is named):
             timed twice in the order A B C ... C B A, with its registers,
             local bytes, ptxas's spill stores, blocks an SM, waves, block
             shape, shared memory and the empty launch of its grid; the
-            shipped row names the forms whose block and bits it has;
+            shipped row names the forms whose block and bits it has; and
+            K3 `svk_blocks[feat10]` in the parent, `stream` and
+            `slots16_5` / `slots32_5` (one chunk of all 5 points) at
+            `FEAT10_SIZES` (864, 10,584 and 101,376 elements);
   tangent   K5t `contrib_tangent` in its forms (kernel_variants.cu: the
             parent; `stream`, a point's operands copied into shared memory
             by cp.async, fem_kernels.cuh `contrib_tangent_stream_tile`;
@@ -78,7 +81,8 @@ Parts (all when none is named):
             two also under __launch_bounds__' minimum of 3 blocks an SM,
             `_lb3`, float32) beside the shipped kernel at `TANGENT_CASES`
             (`[feat10_mr]` at the bunny's 96 elements, the 1k box and the
-            10k flagship; for the record `stream` at `[feat10]`); and K5t
+            10k flagship); K5t `[feat10]` (SVK) in the parent, `stream`
+            and `slots16_5` / `slots32_5` at `FEAT10_SIZES`; and K5t
             `[ancf3443]` (SVK) and `[ancf3443_mr]` in the parent, `stream`
             and `slots<TE>_<NQ>` (fem_kernels.cuh `Slots`,
             `contrib_tangent_slots_kernel`: one thread an (element, slot),
@@ -90,6 +94,8 @@ Parts (all when none is named):
             shells between (`TANGENT_GATE_CASES`: 7,056 to 17,424
             elements), as `tangent` reports them: where the float64 gate
             goes;
+  blocks_feat10, tangent_feat10  the FEAT10 rows of `blocks` and
+            `tangent` alone;
   k4        K4's walk in its forms (one incidence at a time, batches of
             4-32 per (node, channel), a thread per node) at the 10k box, the
             100k box and the shell, each checked bit for bit against the
@@ -120,6 +126,7 @@ import numpy as np
 import torch
 
 from tlfea_torch.ops import fem_kernels as fk
+from tlfea_torch.tools import ablate_hv
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 VARIANTS = {"feat10": ["f10regs", "f10regs1"],
@@ -629,28 +636,39 @@ def _split_kernel(lib, cs, label, kernel, system, forms):
             print(f"{line}; {notes[v]}", flush=True)
 
 
-# `blocks`: K3 `svk_blocks[ancf3443]`'s forms in kernel_variants.cu
-# (tlfea_svk_blocks_ancf3443_<form>_<sfx>) on SVK shells of BLOCKS_SHELLS x
-# BLOCKS_SHELLS elements (576, 5,184 and 20,736).
+# `blocks`: K3's forms in kernel_variants.cu
+# (tlfea_svk_blocks_<family>_<form>_<sfx>) at (tag, chip_smoke problem
+# function, its size arguments as `tangent` takes them, forms):
+# `[ancf3443]` on SVK shells of BLOCKS_SHELLS x BLOCKS_SHELLS elements (576,
+# 5,184 and 20,736); `[feat10]` at FEAT10_SIZES: the bench.py 1k box (864),
+# the 10k flagship (10,584) and the 100k box (101,376, ablate_hv's "100k":
+# its 60 MB gradient table exceeds the 50 MB L2).
 BLOCKS_SHELLS = (24, 72, 144)
 BLOCKS_FORMS = ["parent", "stream"] + [f"slots{te}_{nq}{c}" for c in ("", "_nocopy")
                                        for te in (8, 16) for nq in (4, 8)]
+FEAT10_SIZES = ("RESIDENT_DIMS", None, (ablate_hv.CONFIGS["100k"],))
+# K3's and K5t's (SVK) cases at FEAT10_SIZES, in the same forms
+FEAT10_CASES = tuple(("feat10", "flagship_problem", size,
+                      ["parent", "stream", "slots16_5", "slots32_5"]) for size in FEAT10_SIZES)
+BLOCKS_CASES = tuple(("ancf3443", "shell_problem", (n, n), BLOCKS_FORMS)
+                     for n in BLOCKS_SHELLS) + FEAT10_CASES
 # `tangent`: K5t's forms (tlfea_contrib_tangent_<family>_<form>[_mr]_<sfx>)
 # at (tag, chip_smoke problem function, its size arguments: the name of one in
-# chip_smoke, a tuple of numbers, or None, forms): K5t `[feat10_mr]` at the
+# chip_smoke, a tuple of the arguments, or None, forms): K5t `[feat10_mr]` at the
 # bunny's 96-element fallback mesh, the bench.py 1k box (864) and the 10k
-# flagship (10,584); for the record, the stream at K5t `[feat10]` (SVK) at
-# 10k; K5t `[ancf3443]` (SVK) and `[ancf3443_mr]` on the shells of
-# BLOCKS_SHELLS (576, 5,184 and 20,736 elements), damped as chip_smoke's
-# shells are. The `_lb3` forms, and the slot forms that fit fewer than two
-# blocks an SM in float64, are float32 only (TANGENT_F32_ONLY).
+# flagship (10,584); K5t `[feat10]` (SVK) in the parent, `stream` and the
+# slots at FEAT10_SIZES (FEAT10_CASES); K5t `[ancf3443]` (SVK) and
+# `[ancf3443_mr]` on the shells of BLOCKS_SHELLS (576, 5,184 and 20,736
+# elements), damped as chip_smoke's shells are. The `_lb3` forms, and the
+# slot forms that fit fewer than two blocks an SM in float64, are float32
+# only (TANGENT_F32_ONLY).
 TANGENT_FORMS = ["parent", "stream", "stream_fused", "stream_lb3", "stream_fused_lb3"]
 TANGENT_SHELL_FORMS = ["parent", "stream", "slots8_8", "slots8_16", "slots16_8", "slots8_4"]
 TANGENT_F32_ONLY = ("stream_lb3", "stream_fused_lb3", "slots8_16", "slots16_8")
 TANGENT_CASES = (("feat10_mr", "flagship_problem", "BUNNY_DIMS", TANGENT_FORMS),
                  ("feat10_mr", "flagship_problem", "RESIDENT_DIMS", TANGENT_FORMS),
                  ("feat10_mr", "flagship_problem", None, TANGENT_FORMS),
-                 ("feat10", "flagship_problem", None, ["parent", "stream"]),
+                 *FEAT10_CASES,
                  *((tag, "shell_problem", (n, n), TANGENT_SHELL_FORMS)
                    for tag in ("ancf3443", "ancf3443_mr") for n in BLOCKS_SHELLS))
 # `tangent_gate`: K5t `[ancf3443]` (SVK) in the parent and the float64
@@ -674,31 +692,44 @@ def _ptxas_spills(pattern, key):
     return out
 
 
+# The mangled families of the variants' kernels (kernel_variants.cu F10Mr,
+# the shipped FEAT10's; S4Mr, the ANCF3443 family with register partials):
+# their slot counts.
+VARIANT_FAMILIES = {"Li10ELi5ELj1023ELi5ELi0E": 10, "Li16ELi48ELj4369ELi4ELi240E": 16}
+
+
 def _blocks_spills():
-    """{(T "f" or "d", form): spill stores} of `blocks`' forms: the parent
+    """{(T "f" or "d", S, form): spill stores} of `blocks`' forms: the parent
     svk_blocks_kernel<T, F>, svk_blocks_stream_kernel<T, F>,
     svk_slots_kernel<T, F, TE, NQ> and svk_slots_nocopy_kernel<T, F, TE, NQ>,
-    F the ANCF3443 family with register partials (REG_BYTES 240)."""
-    fam = r"FamilyILi16ELi48ELj4369ELi4ELi240EE"
+    F a family of VARIANT_FAMILIES."""
+    fams = VARIANT_FAMILIES
     pat = re.compile(r"svk_(blocks|blocks_stream|slots|slots_nocopy)_kernelI([fd])N(?:S_6|5tlfea6)"
-                     + fam + r"(?:ELi(\d+)ELi(\d+)E)?")
+                     r"FamilyI(" + "|".join(fams) + r")E(?:ELi(\d+)ELi(\d+)E)?")
 
     def key(m):
         if m[1].startswith("slots"):
-            return m[2], f"slots{m[3]}_{m[4]}" + ("_nocopy" if m[1] == "slots_nocopy" else "")
-        return m[2], "parent" if m[1] == "blocks" else "stream"
+            return (m[2], fams[m[3]],
+                    f"slots{m[4]}_{m[5]}" + ("_nocopy" if m[1] == "slots_nocopy" else ""))
+        return m[2], fams[m[3]], "parent" if m[1] == "blocks" else "stream"
     return _ptxas_spills(pat, key)
+
+
+def _slot_buffers(op, nq):
+    """SlotSmem's and TangentSlotSmem's NBUF: two chunk buffers, or one when
+    a chunk holds all of op's points."""
+    return 2 if op.Q // nq > 1 else 1
 
 
 def _blocks_smem(form, op, itemsize):
     """The dynamic shared memory of a `blocks` form's launch (fem_kernels.cuh
     smem_bytes<T, F, 3, 6>, kernel_variants.cu stream_blocks_smem, SlotSmem)."""
-    S, Q, ng, rows = op.S, op.Q, NG["ancf3443"], op.S * 3 + 1
+    S, Q, ng, rows = op.S, op.Q, NG[op.family], op.S * 3 + 1
     if form in ("parent", "stream"):
         words = (S * 3 + ng * S * 6) * 32
         return (words + (min(Q // ng, 2) * ng * rows * 32 if form == "stream" else 0)) * itemsize
     te, nq = (int(v) for v in form[5:].split("_")[:2])
-    buf = 0 if form.endswith("_nocopy") else 2 * nq * rows * te
+    buf = 0 if form.endswith("_nocopy") else _slot_buffers(op, nq) * nq * rows * te
     return (S * 3 * te + buf + nq * te * (16 + 16 // itemsize)) * itemsize
 
 
@@ -710,7 +741,7 @@ def _tangent_spills():
     (`stream_fused`, `stream_lb3`, `stream_fused_lb3`), at the FEAT10 and
     ANCF3443 families the forms run at (not the NG and REG_BYTES variants
     of `elements`)."""
-    fams = {"Li10ELi5ELj1023ELi5ELi0E": 10, "Li16ELi48ELj4369ELi4ELi240E": 16}  # F10Mr, S4Mr
+    fams = VARIANT_FAMILIES
     pat = re.compile(r"contrib_tangent_(form_|slots_)?kernelI([fd]).*?FamilyI("
                      + "|".join(fams) + r")E.*?(SvkMat|MrMat)I[fd]EE(?:Lb([01])E|Li(\d+)E)"
                      r"(?:Li(\d+)E)?")
@@ -740,7 +771,8 @@ def _tangent_smem(form, op, itemsize):
         te, nq = (int(v) for v in form[5:].split("_"))
         v = 16 // itemsize
         pt = -(-9 // v) * v
-        return (op.S * 15 * te + 2 * nq * (op.S * 3 + 1) * te + nq * te * pt) * itemsize
+        return (op.S * 15 * te + _slot_buffers(op, nq) * nq * (op.S * 3 + 1) * te
+                + nq * te * pt) * itemsize
     ng = NG[op.family]
     words = op.S * 15 + ng * op.S * 3
     if form != "parent":
@@ -808,18 +840,24 @@ def _occ(fn, *args):
             "elements": res[4]}
 
 
-def blocks(lib):
-    """K3 `svk_blocks[ancf3443]` in each form of BLOCKS_FORMS beside the
-    shipped kernel on the shells of BLOCKS_SHELLS, float32 and float64 (see
-    the module's docstring)."""
+def _case_system(cs, make, size, material=None):
+    """The float64 system on the CPU of a `blocks` or `tangent` case."""
+    args = () if size is None else size if isinstance(size, tuple) else (getattr(cs, size),)
+    return getattr(cs, make)("cpu", torch.float64, *args, material=material)[0]
+
+
+def blocks(lib, cases=BLOCKS_CASES):
+    """K3 `svk_blocks` in its forms beside the shipped kernel at `cases`,
+    float32 and float64 (see the module's docstring)."""
     cs = _cs()
     dev = torch.device("cuda")
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     spills = _blocks_spills()
-    for n in BLOCKS_SHELLS:
-        system = cs.shell_problem("cpu", torch.float64, n, n)[0]
+    for tag, make, size, forms in cases:
+        system = _case_system(cs, make, size)
         for dtype in (torch.float32, torch.float64):
             op = fk.FemOperator(system.elems.to(dev, dtype), system.material)
+            assert op.tag == tag, (op.tag, tag)
             sfx = {torch.float32: "f32", torch.float64: "f64"}[dtype]
             t = "f" if dtype == torch.float32 else "d"
             u = _inputs(cs, op, op.tag, dtype, dev)["u"]
@@ -828,29 +866,29 @@ def blocks(lib):
             torch.cuda.synchronize()
             rel = float((shipped - want).abs().max() / want.abs().max())
             if not rel <= (1e-5 if dtype == torch.float32 else 1e-12):
-                raise AssertionError(f"svk_blocks[ancf3443] {sfx} E={op.E} disagrees with its "
+                raise AssertionError(f"svk_blocks[{tag}] {sfx} E={op.E} disagrees with its "
                                      f"twin: {rel:.3e}")
             s = torch.cuda.current_stream().cuda_stream
 
             def entry(v, op=op, u=u, s=s, sfx=sfx, like=shipped):
-                f = getattr(lib, f"tlfea_svk_blocks_ancf3443_{v}_{sfx}")
+                f = getattr(lib, f"tlfea_svk_blocks_{op.family}_{v}_{sfx}")
                 f.argtypes, f.restype = [P] * 5 + [I] + [D] * 2 + [P], ctypes.c_int
                 out = torch.empty_like(like)
                 conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in
                         (u, op.conn_t, op.gN_t, op.dV_t, out, op.E, op.lam, op.mu, s)]
-                return _checked(lambda: f(*conv), f"svk_blocks[ancf3443 {v} {sfx}]"), out
+                return _checked(lambda: f(*conv), f"svk_blocks[{op.tag} {v} {sfx}]"), out
 
             def occ_entry(v, op=op, sfx=sfx):
-                fn = getattr(lib, f"tlfea_occupancy_svk_blocks_ancf3443_{v}_{sfx}")
+                fn = getattr(lib, f"tlfea_occupancy_svk_blocks_{op.family}_{v}_{sfx}")
                 fn.argtypes = [I, ctypes.POINTER(I)]
                 return _occ(fn, op.E)
 
             _form_rows(lib, cs, "svk_blocks", op, dtype, shipped,
                        {"shipped": lambda op=op, u=u: fk.svk_blocks(op, u)},
                        {"shipped": fk.occupancy("svk_blocks", op.tag, dtype, op.E)},
-                       {"shipped": f"twin rel err {rel:.2e}"}, BLOCKS_FORMS,
+                       {"shipped": f"twin rel err {rel:.2e}"}, forms,
                        lambda v, op=op, dtype=dtype: _blocks_smem(v, op, dtype.itemsize),
-                       lambda v, t=t: spills.get((t, v)), entry, occ_entry)
+                       lambda v, t=t, op=op: spills.get((t, op.S, v)), entry, occ_entry)
 
 
 def tangent(lib, cases=TANGENT_CASES):
@@ -863,10 +901,7 @@ def tangent(lib, cases=TANGENT_CASES):
     mr = cs.mooney_rivlin()
     for tag, make, size, forms in cases:
         family, kind = fk._untag(tag)
-        args = (() if size is None else size if isinstance(size, tuple)
-                else (getattr(cs, size),))
-        system = getattr(cs, make)("cpu", torch.float64, *args,
-                                   material=mr if kind == "mr" else None)[0]
+        system = _case_system(cs, make, size, mr if kind == "mr" else None)
         for dtype in (torch.float32, torch.float64):
             op = fk.FemOperator(system.elems.to(dev, dtype), system.material)
             sfx = {torch.float32: "f32", torch.float64: "f64"}[dtype]
@@ -910,8 +945,6 @@ def tangent(lib, cases=TANGENT_CASES):
 def k4(lib):
     """K4's forms, float32, C = 3 (the gradient's and Hv's node sums) and C =
     6 (the block-Jacobi blocks', and `[kernels]`' random values)."""
-    from tlfea_torch.tools import ablate_hv
-
     cs = _cs()
     dev = torch.device("cuda")
     f = lib.tlfea_node_reduce_form_f32
@@ -1030,6 +1063,8 @@ def resident(lib):
 
 PARTS = {"elements": elements, "beams": beams, "hv": hv, "split": split, "blocks": blocks,
          "tangent": tangent, "tangent_gate": lambda lib: tangent(lib, TANGENT_GATE_CASES),
+         "blocks_feat10": lambda lib: blocks(lib, FEAT10_CASES),
+         "tangent_feat10": lambda lib: tangent(lib, FEAT10_CASES),
          "k4": k4, "barriers": barriers, "resident": resident}
 
 
