@@ -1,9 +1,11 @@
-"""K1 `primal_prep[ancf3243]`, K2 `hv[ancf3243]` and K5 `contrib[ancf3243]`
-(SVK) and K2 `hv[ancf3243_mr]` on the CPU, at the beam lengths at which
+"""K1 `primal_prep[ancf3243]`, K2 `hv[ancf3243]`, K3 `svk_blocks[ancf3243]`
+and K5 `contrib[ancf3243]` (SVK) and K2 `hv[ancf3243_mr]` and K5t
+`contrib_tangent[ancf3243_mr]` on the CPU, at the beam lengths at which
 `tests/test_torch_cuda.py` holds their CUDA kernels (which may launch one
-thread a quadrature point, `fem_kernels.cuh` `Points`) to the twins
-(`test_beam_*`): E = 1, 7, 33, 64, 65, 1,024 and 1,027 elements, the
-ragged ones a multiple of neither 8 nor 32.
+thread a quadrature point, `fem_kernels.cuh` `Points`, or one thread an
+(element, slot), `Slots`) to the twins (`test_beam_*`): E = 1, 7, 33, 64,
+65, 1,024 and 1,027 elements, the ragged ones a multiple of neither 4, 8,
+16 nor 32, and with a row stride E * itemsize off 16 bytes.
 
 On the CPU the wrappers run the plain twins, which the card tests take as
 the reference. Here they go against the JAX package's XLA path at the card
@@ -12,7 +14,11 @@ within 1e-12 of the largest entry: K1's and K5's fe against the element
 contribution `_element_contrib_values`, K2's product (SVK and
 Mooney-Rivlin) from K1's prep cache against its `jax.jvp` along the Newton
 chain (dt p, p, p / dt), damped and undamped, and at the beam mirrored in
-x (det F < 0 at every point). `straight_beam`
+x (det F < 0 at every point). K3's blocks per element and slot go against
+the einsum branch of `precond_blocks` before its scatter, and K5t's
+Mooney-Rivlin tangent against `jax.jvp` of the element contribution along
+a random direction (du, dv, d(dv/dt)), damped, undamped and mirrored; these
+two in float64 within 1e-12 and float32 within 1e-5. `straight_beam`
 spaces the nodes by the element length, so a beam of E elements is the
 first E elements of the longest one: JAX runs once on the longest beam
 (jitted), and each shorter beam's twin goes against its first E columns.
@@ -40,6 +46,8 @@ torch.set_num_threads(2)
 SIZES = [1, 7, 33, 64, 65, 1024, 1027]
 ELEM = (0.1, 0.02, 0.02)  # element length, width, height (`_ancf_system`)
 STRAIN, DT, RTOL = 1e-2, 1e-3, 1e-12
+TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+DTYPES = pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 
 
 def _materials(kind, damping=1e3):
@@ -56,7 +64,8 @@ def _materials(kind, damping=1e3):
 @pytest.fixture(scope="module")
 def beam():
     """The longest beam: coefficients, JAX elements, the strained state
-    (n, 9), its mirror in x and a direction p (n, 3)."""
+    (n, 9), its mirror in x, a direction p (n, 3) and a tangent direction d
+    (n, 9)."""
     coefs, conn = j_ancf3243.straight_beam(max(SIZES), L=ELEM[0])
     elems = j_ancf3243.build(coefs, conn, *ELEM, rho=1000.0)
     rng = np.random.default_rng(21)
@@ -64,8 +73,9 @@ def beam():
     host = np.concatenate([rng.normal(size=(n, 3)) * STRAIN, rng.normal(size=(n, 6))], 1)
     mirrored = host.copy()
     mirrored[:, 0] -= 2.0 * coefs[:, 0]  # every x mirrored (the gradient rows' x too)
-    return dict(coefs=coefs, elems=elems, host=host, mirrored=mirrored,
-                p=rng.normal(size=(n, 3)))
+    p = rng.normal(size=(n, 3))
+    return dict(coefs=coefs, elems=elems, host=host, mirrored=mirrored, p=p,
+                d=rng.normal(size=(n, 9)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,11 +85,11 @@ def _elems(E):
     return coefs, ancf3243.build(coefs, conn, *ELEM, rho=1000.0, device="cpu")
 
 
-def _op(beam, E, material):
-    """The port's operator on the first E elements."""
+def _op(beam, E, material, dtype=torch.float64):
+    """The port's operator on the first E elements, in dtype."""
     coefs, elems = _elems(E)
     assert np.array_equal(coefs, beam["coefs"][:len(coefs)])
-    return fk.FemOperator(elems, material)
+    return fk.FemOperator(elems.to(dtype=dtype), material)
 
 
 def _cols(ref, E):
@@ -88,7 +98,8 @@ def _cols(ref, E):
 
 
 def _rel(got, want):
-    return float(np.abs(got.numpy() - want).max() / np.abs(want).max())
+    got = got.numpy().astype(np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
 
 
 @pytest.fixture(scope="module")
@@ -173,3 +184,92 @@ def test_beam_hv_twin_matches_jax(beam, k2_refs, E, damping, state):
     got = _twin_hv(beam, E, damping, state, "svk")[0]
     assert bool(torch.isfinite(got).all())
     assert _rel(got, _cols(k2_refs("svk", damping)[state == "mirrored"], E)) < RTOL
+
+
+@pytest.fixture(scope="module")
+def k3_ref(beam):
+    """The einsum branch of JAX's `precond_blocks` before its scatter and its
+    dt weight on the longest beam at the strained u: sum_q K(F_q, gradN_qa)
+    dV_q per element and slot, (E_max, S, 6) in the kernels' SYM6 order."""
+    elems, jmat = beam["elems"], _materials("svk")[1]
+
+    @jax.jit
+    def blocks(u):
+        F = jnp.einsum("eai,eqaj->eqij", u[elems.conn], elems.grad_N)
+        Kb = jmat.tangent_diag_block(F[:, :, None] + jnp.eye(3), elems.grad_N)
+        Kb = (Kb * elems.dV[:, :, None, None, None]).sum(axis=1)  # (E, S, 3, 3)
+        return jnp.stack([Kb[..., a, b] for a, b in fk.SYM6], axis=-1)
+
+    return blocks(jnp.asarray(beam["host"][:, :3]))
+
+
+def _rounded(a, dtype):
+    """a as the port holds it in dtype, back in float64."""
+    return torch.as_tensor(np.array(a)).to(dtype).double().numpy()
+
+
+@pytest.fixture(scope="module")
+def k5t_refs(beam):
+    """refs(state, damping, dtype): JAX's Mooney-Rivlin K5t at the strained
+    state or its mirror ("host", "mirrored"): jax.jvp of the element
+    contribution along the tangent direction d, in float64 on the inputs the
+    twin in dtype sees (the state, d and the element tables rounded to
+    dtype; at the mirror the centred x differences of float32 inputs carry
+    up to 3e-4 of the result, which is the inputs' error, not the twin's).
+    One jitted function, the tables and the material its arguments; each
+    (state, damping, dtype) run once."""
+    base = beam["elems"]
+
+    @jax.jit
+    def jvp(elems, material, x, d):
+        def contrib(u, v, a):
+            return _element_contrib_values(u, v, a, elems, material)
+
+        return jax.jvp(contrib, (x[:, 0:3], x[:, 3:6], x[:, 6:9]),
+                       (d[:, 0:3], d[:, 3:6], d[:, 6:9]))[1]
+
+    @functools.lru_cache(maxsize=None)
+    def refs(state, damping, dtype):
+        def r(a):
+            return jnp.asarray(_rounded(a, dtype))
+
+        elems = base.replace(grad_N=r(base.grad_N), dV=r(base.dV), mass_elem=r(base.mass_elem))
+        return jvp(elems, _materials("mr", damping)[1], r(beam[state]), r(beam["d"]))
+
+    return refs
+
+
+@DTYPES
+@pytest.mark.parametrize("E", SIZES)
+def test_beam_svk_blocks_twin_matches_jax(beam, k3_ref, E, dtype):
+    """K3 `[ancf3243]`'s twin against JAX's einsum blocks."""
+    op = _op(beam, E, _materials("svk")[0], dtype)
+    assert (op.tag, op.E) == ("ancf3243", E)
+    u = torch.as_tensor(beam["host"][:op.n, :3], dtype=dtype).contiguous()
+    got = fk.svk_blocks(op, u)
+    assert got.dtype == dtype and torch.equal(got, fk.svk_blocks_plain(op, u))
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, _cols(k3_ref, E)) < TOL[dtype]
+
+
+# K5t `[ancf3243_mr]`'s (state, damping): the strained beam damped and
+# undamped, and its mirror in x (det F < 0 at every point), damped.
+MR_TANGENT_CASES = [("host", 1e3), ("host", 0.0), ("mirrored", 1e3)]
+
+
+@DTYPES
+@pytest.mark.parametrize("state,damping", MR_TANGENT_CASES,
+                         ids=["damped", "undamped", "mirrored"])
+@pytest.mark.parametrize("E", SIZES)
+def test_beam_mr_contrib_tangent_twin_matches_jax(beam, k5t_refs, E, state, damping, dtype):
+    """K5t `[ancf3243_mr]`'s twin against `jax.jvp` of the element
+    contribution."""
+    op = _op(beam, E, _materials("mr", damping)[0], dtype)
+    assert (op.tag, op.E) == ("ancf3243_mr", E)
+    packed, dpacked = (torch.as_tensor(beam[k][:op.n], dtype=dtype).contiguous()
+                       for k in (state, "d"))
+    got = fk.contrib_tangent(op, packed, dpacked)
+    assert got.dtype == dtype and torch.equal(got, fk.contrib_tangent_plain(op, packed, dpacked))
+    want = _cols(k5t_refs(state, damping, dtype), E)
+    assert bool(torch.isfinite(got).all()) and np.isfinite(want).all()
+    assert _rel(got, want) < TOL[dtype]

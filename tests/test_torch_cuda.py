@@ -1203,6 +1203,110 @@ def test_beam_tiles_report_the_block_they_launch(cuda_dev, kernel, tag, dtype):
     assert fk.launch_blocks(kernel, system.fem) == -(-65 // te)
 
 
+# K3 `svk_blocks[ancf3243]` (SVK) and K5t `contrib_tangent[ancf3243_mr]`,
+# which the instantiations may launch with one thread an (element, slot)
+# (`fem_kernels.cuh` `Slots`): the beams of BEAM_TILE_SIZES (K5t at the
+# strained state on MR_BEAM_TILE_SIZES, damped and undamped, and at the
+# mirrored beam on all of them), at `_beam_tile_case`'s state (K3 at its u)
+# and a standard normal tangent direction.
+# The launch as PERF.md records the choice, by (kernel, tag, dtype): (TE,
+# rows, MAX_E, blocks an SM), TE elements x rows (the 8 slots, or 12 where
+# one chunk holds all 12 points) a block on beams of up to MAX_E elements and
+# the parent tile (32 elements x 4 groups of points) above.
+BEAM_SLOTS = {("svk_blocks", "ancf3243", torch.float32): (8, 12, 4096, 10),
+              ("svk_blocks", "ancf3243", torch.float64): (8, 12, 4096, 5),
+              ("contrib_tangent", "ancf3243_mr", torch.float32): (8, 12, 4096, 5),
+              ("contrib_tangent", "ancf3243_mr", torch.float64): (8, 12, 2**31 - 1, 2)}
+
+
+def _beam_tangent_case(device, dtype, E, damping, mirrored=False):
+    """(op, packed, dpacked): K5t `[ancf3243_mr]`'s case on an E-element
+    beam, at the strained state or its mirror in x (det F < 0)."""
+    system, packed, _ = _beam_tile_case(device, dtype, E, _mooney_rivlin(damping=damping))
+    if mirrored:
+        packed = packed.clone()
+        packed[:, 0] -= 2.0 * system.elems.x_ref[:, 0]  # x -> -x
+    dpacked = np.random.default_rng(23).normal(size=(system.n_coef, 9))
+    return system.fem, packed, torch.as_tensor(dpacked, dtype=dtype, device=device).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("E", BEAM_TILE_SIZES)
+def test_beam_svk_blocks_matches_twin_and_repeats(cuda_dev, E, dtype, tol):
+    """K3 `[ancf3243]` against its twin in one launch; bitwise repeatable."""
+    system, packed, _ = _beam_tile_case(cuda_dev, dtype, E)
+    op = system.fem
+    assert (op.tag, op.E) == ("ancf3243", E)
+    u = packed[:, :3].contiguous()
+    fk.reset_launch_counts()
+    got = fk.svk_blocks(op, u)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["svk_blocks[ancf3243]"] == 1 and sum(fk.LAUNCHES.values()) == 1
+    assert bool(torch.isfinite(got).all()) and _rel(got, fk.svk_blocks_plain(op, u)) < tol
+    assert torch.equal(fk.svk_blocks(op, u), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("damping", [0.0, 1e3], ids=["undamped", "damped"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("E", MR_BEAM_TILE_SIZES)
+def test_beam_mr_contrib_tangent_matches_twin_and_repeats(cuda_dev, E, dtype, tol, damping):
+    """K5t `[ancf3243_mr]` against its twin in one launch, damped and
+    undamped, at the strained state; bitwise repeatable."""
+    op, packed, dpacked = _beam_tangent_case(cuda_dev, dtype, E, damping)
+    assert (op.tag, op.E) == ("ancf3243_mr", E)
+    _, prep = fk.primal_prep_plain(op, packed)
+    assert float(prep.view(op.Q, op.prep_rows, op.E)[:, 18].abs().max()) < 0.9
+    fk.reset_launch_counts()
+    got = fk.contrib_tangent(op, packed, dpacked)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["contrib_tangent[ancf3243_mr]"] == 1 and sum(fk.LAUNCHES.values()) == 1
+    want = fk.contrib_tangent_plain(op, packed, dpacked)
+    assert bool(torch.isfinite(got).all()) and _rel(got, want) < tol
+    assert torch.equal(fk.contrib_tangent(op, packed, dpacked), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("E", BEAM_TILE_SIZES)
+def test_beam_mr_contrib_tangent_matches_twin_at_an_inverted_point(cuda_dev, E, dtype, tol):
+    """K5t `[ancf3243_mr]` on the beam mirrored in x (det F < 0 at every
+    point: CUDA's real `cbrt` against the twin's sign-preserving root)."""
+    op, packed, dpacked = _beam_tangent_case(cuda_dev, dtype, E, 1e3, mirrored=True)
+    _, prep = fk.primal_prep_plain(op, packed)
+    assert float(prep.view(op.Q, op.prep_rows, op.E)[:, 18].max()) < -1.0  # J < 0
+    got = fk.contrib_tangent(op, packed, dpacked)
+    want = fk.contrib_tangent_plain(op, packed, dpacked)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(want).all()) and bool(torch.isfinite(got).all())
+    assert _rel(got, want) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("kernel,tag", [("svk_blocks", "ancf3243"),
+                                        ("contrib_tangent", "ancf3243_mr")])
+def test_beam_slot_tiles_report_the_block_they_launch(cuda_dev, kernel, tag, dtype):
+    """`occupancy` reports the block of the K3 `[ancf3243]` / K5t
+    `[ancf3243_mr]` launch that runs, as BEAM_SLOTS records it, on each side
+    of any gate; and `launch_blocks` counts its blocks on the ragged 65
+    elements."""
+    te, rows, max_e, per_sm = BEAM_SLOTS[(kernel, tag, dtype)]
+    gate = [max_e, max_e + 1] if max_e < 2**31 - 1 else []
+    for E in [1, 65, 1024, *gate, 32769, None]:
+        occ = fk.occupancy(kernel, tag, dtype, E)
+        if (E or 2**31 - 1) <= max_e:
+            assert (occ["elements"], occ["threads"], occ["blocks_per_sm"]) == (te, te * rows,
+                                                                             per_sm), E
+        else:
+            assert (occ["elements"], occ["threads"]) == (32, 128), E
+        assert occ["blocks_per_sm"] >= 1
+    system = _beam_tile_case(cuda_dev, dtype, 65, None if tag == "ancf3243" else
+                             _mooney_rivlin())[0]
+    assert fk.launch_blocks(kernel, system.fem) == -(-65 // te)
+
+
 # K3 `svk_blocks[ancf3443]` (SVK), which the instantiation may launch with one
 # thread an (element, slot) (`fem_kernels.cuh` `Slots`): shells of 1, 35 (5 x
 # 7: a ragged last block, a row stride E * itemsize off 16 bytes), 576 (24 x

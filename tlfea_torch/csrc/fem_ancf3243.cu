@@ -25,6 +25,21 @@
 // bit for bit the parent; the parent is faster from 4,096 (K1 float32) and
 // 8,192 elements (K2); K1's float64 split was ahead at every length timed,
 // up to 32,768 elements, by 0.5-2 % above 4,096 (PERF.md, Findings).
+//
+// K3 `svk_blocks` launches one thread an (element, slot) (fem_kernels.cuh
+// `Slots<8, 12>`: 8 elements a block, all 12 points one chunk copied into
+// shared memory by the block, so a block has 12 rows, 8 x 12 threads: phase
+// A one thread a point, phase B rows 0-7 one a slot) up to 4,096 elements,
+// in float32 and float64, and the parent tile above. On an H100 (NVIDIA H100
+// 80GB HBM3, 700.00 W; `python -m tlfea_torch.tools.kernel_variants
+// blocks_beam`, parent -> Slots<8, 12> in one call, us) float32 5.07 -> 3.62
+// at 64 elements, 5.21 -> 3.76 at 1,024, 5.22 -> 4.19 at 2,048 and 5.42 ->
+// 5.21 at 4,096 (168 registers, 3 blocks an SM -> 62, 10), float64 6.96 ->
+// 4.55, 7.10 -> 4.69, 7.19 -> 5.57 and 7.51 -> 6.87 (254 -> 98 registers),
+// each bit for bit the parent; the parent is ahead at 8,192 (6.73 against
+// 7.98, float64 9.22 against 12.56) and 32,768 elements. Three chunks of 4
+// points (`Slots<TE, 4>`, phase A on 4 of 8 rows) took 1.02-1.07x the
+// parent's time at 64-2,048 elements in float32 (PERF.md, Findings).
 
 #include "fem_kernels.cuh"
 
@@ -34,7 +49,8 @@ using K1F64 = tlfea::Points<8, tlfea::Hold::early, 32768>;
 using K2F32 = tlfea::Direct<8, tlfea::Hold::early, 4096>;
 using K2F64 = tlfea::Points<8, tlfea::Hold::early, 4096>;
 using K5Points = tlfea::Points<8, tlfea::Hold::early, 4096>;
-TLFEA_FAMILY_ENTRY_POINTS(ancf3243, Ancf3243, f32, float, K1F32, K2F32, K5Points,
-                          tlfea::Groups, tlfea::Groups)
-TLFEA_FAMILY_ENTRY_POINTS(ancf3243, Ancf3243, f64, double, K1F64, K2F64, K5Points,
-                          tlfea::Groups, tlfea::Groups)
+using K3Slots = tlfea::Slots<8, 12, 4096>;
+TLFEA_FAMILY_ENTRY_POINTS(ancf3243, Ancf3243, f32, float, K1F32, K2F32, K5Points, K3Slots,
+                          tlfea::Groups)
+TLFEA_FAMILY_ENTRY_POINTS(ancf3243, Ancf3243, f64, double, K1F64, K2F64, K5Points, K3Slots,
+                          tlfea::Groups)

@@ -1295,7 +1295,8 @@ svk_blocks_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
 // 5,184-element shell moves its 47.8 MB of gradients at 1.2 TB/s, and its
 // 162 tiles leave 30 SMs with two (PERF.md, Findings).
 //
-// Here a block takes TE elements and S slots, TE * S threads: thread (x, a)
+// Here a block takes TE elements and S slots, TE * S threads (TE * NQ where a
+// chunk holds more points than there are slots, slot_rows): thread (x, a)
 // owns slot a of element e0 + x, and its 6 block entries for each of the NG
 // groups stay in registers (NG * 6 sums). The block walks its Q points in
 // chunks of NQ. One asynchronous copy by the whole block brings a chunk's
@@ -1311,9 +1312,9 @@ svk_blocks_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
 // an SM, one wave of 662 blocks: 10.12 -> 6.93 us (float64 16.00 -> 10.88;
 // fem_kernels.cu, PERF.md, Findings).
 // Phase A: thread (x, t), t < NQ, computes point k NQ + t's F, FFT and trE
-// (svk_point) into shared memory. Phase B: thread (x, a) reads its slot's h
-// and the point's F, FFT, trE and w, runs `svk_diag_block` and adds K[c] w
-// into its sums of group q mod NG, q ascending. At the end it writes
+// (svk_point) into shared memory. Phase B: thread (x, a), a < S, reads its
+// slot's h and the point's F, FFT, trE and w, runs `svk_diag_block` and adds
+// K[c] w into its sums of group q mod NG, q ascending. At the end it writes
 // ((0 + s_0) + s_1) + ... + s_{NG-1}, the parent's reduce. So every entry
 // takes the parent's operations in the parent's order: the same bits.
 //
@@ -1334,6 +1335,15 @@ constexpr bool slots_at(int E) {
   if constexpr (L::SLOTS) return E <= L::MAX_E; else return false;
 }
 
+// The y extent of a slot layout's block: S slot rows, or NQ where a chunk
+// holds more points than the element has slots (the ANCF3243 beam's one
+// chunk of all 12 points, S = 8), so that phase A still takes one thread a
+// point; rows a >= S then own no slot and sit out phase B.
+template <class F, int NQ>
+__host__ __device__ constexpr int slot_rows() {
+  return NQ > F::S ? NQ : F::S;
+}
+
 // The slot kernel's shared memory: xs (S*3 rows of TE words: the staged,
 // centred u); NBUF buffers of NQ points of QP_ROWS rows (the point's S*3
 // gradient rows, then its dV row) of TE words; then NQ * TE point records
@@ -1344,7 +1354,7 @@ constexpr bool slots_at(int E) {
 // points (FEAT10's NQ = Q = 5), since no next chunk exists to overlap.
 template <typename T, class F, int TE, int NQ>
 struct SlotSmem {
-  static_assert(F::Q % NQ == 0 && NQ % F::NG == 0 && NQ <= F::S,
+  static_assert(F::Q % NQ == 0 && NQ % F::NG == 0 && NQ <= F::Q,
                 "chunks of whole groups of points, each point one thread of phase A");
   static constexpr int QP_ROWS = F::S * 3 + 1;
   static constexpr int PT = 16 + 16 / (int)sizeof(T);
@@ -1490,18 +1500,20 @@ __device__ __forceinline__ void svk_slot_block(const T* pt, const T h[3], T lam,
 }
 
 template <typename T, class F, int TE, int NQ>
-__global__ void __launch_bounds__(TE * F::S)
+__global__ void __launch_bounds__((TE * slot_rows<F, NQ>()))
 svk_slots_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
                  const T* __restrict__ gN_t, const T* __restrict__ dV_t, T* __restrict__ out,
                  int E, T lam, T mu) {
   using L = SlotSmem<T, F, TE, NQ>;
-  constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = TE * S, R = L::QP_ROWS, PT = L::PT;
+  constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = TE * slot_rows<F, NQ>(), R = L::QP_ROWS;
+  constexpr int PT = L::PT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);  // (S*3, TE): centred u
   T* buf = xs + L::XS;                     // (NBUF, NQ, QP_ROWS, TE)
   T* pts = buf + L::NBUF * L::BUF;         // (NQ, TE, PT)
   const int x = threadIdx.x, a = threadIdx.y, tid = a * TE + x;
   const int e0 = blockIdx.x * TE, e = e0 + x;
+  const bool owns = slot_rows<F, NQ>() == S || a < S;  // row a owns slot a
   const size_t sE = (size_t)E;
   const SlotChunks<T, F, TE, NQ, NT> chunks(gN_t, dV_t, E, e0);
   auto issue = [&](int k) { chunks.issue(buf + (k & 1) * L::BUF, k, tid); };  // into buffer k % 2
@@ -1527,7 +1539,7 @@ svk_slots_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
       svk_point_record(F_, FFT, trE, pts + (a * TE + x) * PT);
     }
     __syncthreads();
-    if (e < E) {  // phase B: slot a of element x at the chunk's points
+    if (owns && e < E) {  // phase B: slot a of element x at the chunk's points
 #pragma unroll
       for (int t = 0; t < NQ; ++t) {
         T h[3];
@@ -1541,7 +1553,7 @@ svk_slots_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
       }
     }
   }
-  if (e < E) {
+  if (owns && e < E) {
 #pragma unroll
     for (int c = 0; c < 6; ++c) {
       T sum = T(0);
@@ -1564,17 +1576,18 @@ svk_slots_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
 // tiles leave 30 SMs with two (PERF.md, Findings).
 //
 // Here, as K3's svk_slots_kernel, a block takes TE elements and S slots, TE
-// * S threads, and walks its Q points in chunks of NQ, each chunk's
-// gradient and dV rows brought into shared memory by one asynchronous copy
-// of the block (SlotChunks), double-buffered. Phase A: thread (x, t), t <
-// NQ, runs the parent's four contractions for point k NQ + t of element x
-// on the chunk, then the material's tangent, and records dP in shared
-// memory. Phase B: thread (x, a) reads its slot's gradient rows and w from
-// the chunk and the point's dP, and adds (dP[i][0] g0 + dP[i][1] g1 +
-// dP[i][2] g2) w into its 3 sums of group q mod NG, q ascending. At the end
-// it replays tangent_reduce for its slot: the groups' sums in the order g =
-// 0..NG-1, plus the consistent mass on the staged d(dv/dt). So every output
-// takes the parent's operations in the parent's order. The shell's
+// * S threads (TE * NQ where NQ > S, slot_rows), and walks its Q points in
+// chunks of NQ, each chunk's gradient and dV rows brought into shared memory
+// by one asynchronous copy of the block (SlotChunks), double-buffered. Phase
+// A: thread (x, t), t < NQ, runs the parent's four contractions for point k
+// NQ + t of element x on the chunk, then the material's tangent, and records
+// dP in shared memory. Phase B: thread (x, a), a < S, reads its slot's
+// gradient rows and w from the chunk and the point's dP, and adds (dP[i][0]
+// g0 + dP[i][1] g1 + dP[i][2] g2) w into its 3 sums of group q mod NG, q
+// ascending. At the end it replays tangent_reduce for its slot: the groups'
+// sums in the order g = 0..NG-1, plus the consistent mass on the staged
+// d(dv/dt). So every output takes the parent's operations in the parent's
+// order. The shell's
 // instantiations pick TE, NQ and a gate as timed on an H100
 // (fem_ancf3443.cu, fem_ancf3443_mr.cu); FEAT10 with SVK takes Slots<16, 5>,
 // one chunk of all 5 points in one buffer, at every E (fem_kernels.cu: 168
@@ -1589,7 +1602,7 @@ svk_slots_kernel(const T* __restrict__ u, const int* __restrict__ conn_t,
 // 16 bytes).
 template <typename T, class F, int TE, int NQ>
 struct TangentSlotSmem {
-  static_assert(F::Q % NQ == 0 && NQ % F::NG == 0 && NQ <= F::S,
+  static_assert(F::Q % NQ == 0 && NQ % F::NG == 0 && NQ <= F::Q,
                 "chunks of whole groups of points, each point one thread of phase A");
   static constexpr int V = 16 / (int)sizeof(T);  // words in 16 bytes
   static constexpr int QP_ROWS = F::S * 3 + 1;
@@ -1605,13 +1618,14 @@ struct TangentSlotSmem {
 };
 
 template <typename T, class F, class M, int TE, int NQ>
-__global__ void __launch_bounds__(TE * F::S)
+__global__ void __launch_bounds__((TE * slot_rows<F, NQ>()))
 contrib_tangent_slots_kernel(const T* __restrict__ packed, const T* __restrict__ dpacked,
                              const int* __restrict__ conn_t, const T* __restrict__ gN_t,
                              const T* __restrict__ dV_t, const T* __restrict__ Me_t,
                              T* __restrict__ out, int E, M m) {
   using L = TangentSlotSmem<T, F, TE, NQ>;
-  constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = TE * S, R = L::QP_ROWS, PT = L::PT;
+  constexpr int S = F::S, Q = F::Q, NG = F::NG, NT = TE * slot_rows<F, NQ>(), R = L::QP_ROWS;
+  constexpr int PT = L::PT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xt = reinterpret_cast<T*>(smem_raw);  // (S*9, TE): tangent du | dv | d(dv/dt)
   T* xp = xt + L::XT;                      // (S*6, TE): primal u | v
@@ -1619,6 +1633,7 @@ contrib_tangent_slots_kernel(const T* __restrict__ packed, const T* __restrict__
   T* pts = buf + L::NBUF * L::BUF;         // (NQ, TE, PT): dP
   const int x = threadIdx.x, a = threadIdx.y, tid = a * TE + x;
   const int e0 = blockIdx.x * TE, e = e0 + x;
+  const bool owns = slot_rows<F, NQ>() == S || a < S;  // row a owns slot a
   const size_t sE = (size_t)E;
   const SlotChunks<T, F, TE, NQ, NT> chunks(gN_t, dV_t, E, e0);
   chunks.issue(buf, 0, tid);
@@ -1655,7 +1670,7 @@ contrib_tangent_slots_kernel(const T* __restrict__ packed, const T* __restrict__
       sts16<T, PT>(pts + (a * TE + x) * PT, v);
     }
     __syncthreads();
-    if (e < E) {  // phase B: slot a of element x at the chunk's points
+    if (owns && e < E) {  // phase B: slot a of element x at the chunk's points
 #pragma unroll
       for (int t = 0; t < NQ; ++t) {
         const T* gq = cb + t * R * TE;
@@ -1669,7 +1684,7 @@ contrib_tangent_slots_kernel(const T* __restrict__ packed, const T* __restrict__
       }
     }
   }
-  if (e < E) {  // tangent_reduce's sums for slot a of element x
+  if (owns && e < E) {  // tangent_reduce's sums for slot a of element x
     T s[3] = {T(0), T(0), T(0)};
 #pragma unroll
     for (int h = 0; h < NG; ++h)
@@ -1864,7 +1879,8 @@ int launch_contrib_tangent(const void* packed, const void* dpacked, const void* 
       if (attr != cudaSuccess) return (int)attr;
       if (E > 0) {
         contrib_tangent_slots_kernel<T, F, M, L::TE, L::NQ>
-            <<<(E + L::TE - 1) / L::TE, dim3(L::TE, F::S), smem, (cudaStream_t)stream>>>(
+            <<<(E + L::TE - 1) / L::TE, dim3(L::TE, slot_rows<F, L::NQ>()), smem,
+               (cudaStream_t)stream>>>(
                 (const T*)packed, (const T*)dpacked, (const int*)conn_t, (const T*)gN_t,
                 (const T*)dV_t, (const T*)Me_t, (T*)out, E, m);
       }
@@ -1946,8 +1962,9 @@ template <typename T, class F, class M, bool STREAM = false, class L = Groups>
 int occupancy_contrib_tangent(int E, int* out) {
   if constexpr (L::SLOTS) {
     if (slots_at<L>(E))
-      return occupancy(contrib_tangent_slots_kernel<T, F, M, L::TE, L::NQ>, L::TE * F::S,
-                       TangentSlotSmem<T, F, L::TE, L::NQ>::BYTES, out, L::TE);
+      return occupancy(contrib_tangent_slots_kernel<T, F, M, L::TE, L::NQ>,
+                       L::TE * slot_rows<F, L::NQ>(), TangentSlotSmem<T, F, L::TE, L::NQ>::BYTES,
+                       out, L::TE);
   }
   return occupancy(contrib_tangent_kernel<T, F, M, STREAM>, EX * F::NG,
                    TangentSmem<T, F, STREAM>::BYTES, out, EX);
@@ -1966,39 +1983,42 @@ int occupancy_hv(int E, int* out) {
 
 template <typename T, class F, class L = Groups>
 int occupancy_svk_blocks(int E, int* out) {
-  if constexpr (L::SLOTS)
-    return occupancy(svk_slots_kernel<T, F, L::TE, L::NQ>, L::TE * F::S,
-                     SlotSmem<T, F, L::TE, L::NQ>::BYTES, out, L::TE);
-  else
-    return occupancy(svk_blocks_kernel<T, F>, EX * F::NG, smem_bytes<T, F, 3, 6>(), out, EX);
+  if constexpr (L::SLOTS) {
+    if (slots_at<L>(E))
+      return occupancy(svk_slots_kernel<T, F, L::TE, L::NQ>, L::TE * slot_rows<F, L::NQ>(),
+                       SlotSmem<T, F, L::TE, L::NQ>::BYTES, out, L::TE);
+  }
+  return occupancy(svk_blocks_kernel<T, F>, EX * F::NG, smem_bytes<T, F, 3, 6>(), out, EX);
 }
 
-// K3 in layout L (Groups: the parent tile; Slots<TE, NQ>: one thread an
-// (element, slot)).
+// K3 in layout L (Groups: the parent tile; Slots<TE, NQ, MAX_E>: one thread
+// an (element, slot) up to MAX_E elements, the parent tile above).
 template <typename T, class F, class L = Groups>
 int launch_svk_blocks(const void* u, const void* conn_t, const void* gN_t,
                       const void* dV_t, void* out, int E, double lam, double mu,
                       void* stream) {
   if constexpr (L::SLOTS) {
-    static_assert(L::MAX_E == Slots<L::TE, L::NQ>::MAX_E, "K3's slots take no gate");
-    constexpr size_t smem = SlotSmem<T, F, L::TE, L::NQ>::BYTES;
-    static const cudaError_t attr = allow_smem(svk_slots_kernel<T, F, L::TE, L::NQ>, smem);
-    if (attr != cudaSuccess) return (int)attr;
-    if (E > 0) {
-      svk_slots_kernel<T, F, L::TE, L::NQ>
-          <<<(E + L::TE - 1) / L::TE, dim3(L::TE, F::S), smem, (cudaStream_t)stream>>>(
-              (const T*)u, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t, (T*)out, E,
-              (T)lam, (T)mu);
+    if (slots_at<L>(E)) {
+      constexpr size_t smem = SlotSmem<T, F, L::TE, L::NQ>::BYTES;
+      static const cudaError_t attr = allow_smem(svk_slots_kernel<T, F, L::TE, L::NQ>, smem);
+      if (attr != cudaSuccess) return (int)attr;
+      if (E > 0) {
+        svk_slots_kernel<T, F, L::TE, L::NQ>
+            <<<(E + L::TE - 1) / L::TE, dim3(L::TE, slot_rows<F, L::NQ>()), smem,
+               (cudaStream_t)stream>>>(
+                (const T*)u, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t, (T*)out, E,
+                (T)lam, (T)mu);
+      }
+      return (int)cudaGetLastError();
     }
-  } else {
-    constexpr size_t smem = smem_bytes<T, F, 3, 6>();
-    static const cudaError_t attr = allow_smem(svk_blocks_kernel<T, F>, smem);
-    if (attr != cudaSuccess) return (int)attr;
-    if (E > 0) {
-      svk_blocks_kernel<T, F><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
-          (const T*)u, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t,
-          (T*)out, E, (T)lam, (T)mu);
-    }
+  }
+  constexpr size_t smem = smem_bytes<T, F, 3, 6>();
+  static const cudaError_t attr = allow_smem(svk_blocks_kernel<T, F>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  if (E > 0) {
+    svk_blocks_kernel<T, F><<<n_tiles(E), dim3(EX, F::NG), smem, (cudaStream_t)stream>>>(
+        (const T*)u, (const int*)conn_t, (const T*)gN_t, (const T*)dV_t,
+        (T*)out, E, (T)lam, (T)mu);
   }
   return (int)cudaGetLastError();
 }
@@ -2042,7 +2062,7 @@ int occupancy_node_reduce(int* out) {
 // in layouts K1_TILE, K2_TILE and K5_TILE: tlfea::Groups, or a
 // tlfea::Points<TE, HOLD, MAX_E> (an alias: the argument holds no comma);
 // K3 and K5t in layouts K3_TILE and K5T_TILE: tlfea::Groups, or an alias of
-// a tlfea::Slots<TE, NQ> (K5t's may carry a gate, Slots<TE, NQ, MAX_E>).
+// a tlfea::Slots<TE, NQ>, which may carry a gate, Slots<TE, NQ, MAX_E>.
 #define TLFEA_FAMILY_ENTRY_POINTS(NAME, FAM, SUFFIX, T, K1_TILE, K2_TILE, K5_TILE, K3_TILE, \
                                   K5T_TILE)                                               \
   extern "C" int tlfea_primal_prep_##NAME##_##SUFFIX(                                   \

@@ -679,6 +679,27 @@ using Slots32_5 = tlfea::Slots<32, 5>;
 VARIANTS_BLOCKS(f32, float)
 VARIANTS_BLOCKS(f64, double)
 
+// `python -m tlfea_torch.tools.kernel_variants blocks_beam` (PERF.md,
+// Findings): K3 `svk_blocks[ancf3243]` (S = 8, Q = 12, NG = 4) in the parent
+// and the slot layouts, fem_kernels.cuh tlfea::Slots<TE, NQ>: `slots<TE>_4`
+// (TE 4, 8, 16; three chunks of 4 points, double-buffered, phase A on 4 of
+// the block's 8 slot rows) and `slots<TE>_12` (TE 4, 8; one chunk of all 12
+// points in one buffer, a block of TE x 12 threads, so that phase A takes
+// every point at once and rows 8-11 sit out phase B).
+using Slots4_4 = tlfea::Slots<4, 4>;
+using Slots4_12 = tlfea::Slots<4, 12>;
+using Slots8_12 = tlfea::Slots<8, 12>;
+#define VARIANTS_BLOCKS_BEAM(SUFFIX, T)                              \
+  VARIANT_BLOCKS(ancf3243, B4Mr, parent, tlfea::Groups, SUFFIX, T)  \
+  VARIANT_BLOCKS(ancf3243, B4Mr, slots4_4, Slots4_4, SUFFIX, T)     \
+  VARIANT_BLOCKS(ancf3243, B4Mr, slots8_4, Slots8_4, SUFFIX, T)     \
+  VARIANT_BLOCKS(ancf3243, B4Mr, slots16_4, Slots16_4, SUFFIX, T)   \
+  VARIANT_BLOCKS(ancf3243, B4Mr, slots4_12, Slots4_12, SUFFIX, T)   \
+  VARIANT_BLOCKS(ancf3243, B4Mr, slots8_12, Slots8_12, SUFFIX, T)
+
+VARIANTS_BLOCKS_BEAM(f32, float)
+VARIANTS_BLOCKS_BEAM(f64, double)
+
 // `python -m tlfea_torch.tools.kernel_variants tangent` (PERF.md, Findings):
 // K5t `contrib_tangent` in its forms: `parent` (fem_kernels.cuh
 // contrib_tangent_kernel, the operands loaded where used), `stream` (its
@@ -906,6 +927,25 @@ VARIANTS_TANGENT_SHELL_F32(_mr, tlfea::MrMat)
 VARIANTS_TANGENT_SHELL(, tlfea::SvkMat, f32, float)
 VARIANTS_TANGENT_SHELL(, tlfea::SvkMat, f64, double)
 VARIANTS_TANGENT_SHELL_F32(, tlfea::SvkMat)
+
+// `tangent_beam`: K5t `[ancf3243_mr]` and `[ancf3243]` (SVK) on the beam in
+// the parent and the slot layouts of `blocks_beam` (slots<TE>_4, TE 4, 8, 16;
+// slots<TE>_12, TE 4, 8), float32 and float64.
+#define VARIANTS_TANGENT_BEAM(MAT_TAG, MAT, SUFFIX, T)                                          \
+  VARIANT_TANGENT(ancf3243, B4Mr, MAT_TAG, MAT, SUFFIX, T, parent, false, false, 1,            \
+                  tlfea::Groups)                                                               \
+  VARIANT_TANGENT(ancf3243, B4Mr, MAT_TAG, MAT, SUFFIX, T, slots4_4, false, false, 1, Slots4_4) \
+  VARIANT_TANGENT(ancf3243, B4Mr, MAT_TAG, MAT, SUFFIX, T, slots8_4, false, false, 1, Slots8_4) \
+  VARIANT_TANGENT(ancf3243, B4Mr, MAT_TAG, MAT, SUFFIX, T, slots16_4, false, false, 1,         \
+                  Slots16_4)                                                                   \
+  VARIANT_TANGENT(ancf3243, B4Mr, MAT_TAG, MAT, SUFFIX, T, slots4_12, false, false, 1,         \
+                  Slots4_12)                                                                   \
+  VARIANT_TANGENT(ancf3243, B4Mr, MAT_TAG, MAT, SUFFIX, T, slots8_12, false, false, 1,         \
+                  Slots8_12)
+VARIANTS_TANGENT_BEAM(_mr, tlfea::MrMat, f32, float)
+VARIANTS_TANGENT_BEAM(_mr, tlfea::MrMat, f64, double)
+VARIANTS_TANGENT_BEAM(, tlfea::SvkMat, f32, float)
+VARIANTS_TANGENT_BEAM(, tlfea::SvkMat, f64, double)
 
 // An empty kernel on a grid of `blocks` blocks of `threads` threads with
 // `smem` bytes of dynamic shared memory: the floor of any launch of that

@@ -15,18 +15,18 @@ this, this, parent). Inputs come from a numpy seed, in float32 and float64:
   K5t at the 10k flagship (`[feat10_mr]`), the 72 x 72 shell
   (`[ancf3443_mr]`) and the 64-element beam (`[ancf3243_mr]`), and K2
   again at the bench.py 1k box (864 elements, `[feat10_mr]`) and at the
-  1,024-element beam (`[ancf3243_mr]`), and K5t again at the 1k box, at
-  chip_smoke's strained state (`ELEMENT_CASES`), whose K1 and K5 load the
-  shape gradients and whose K2 and K5t run in the form and layout each
-  instantiation chose (fem_kernels.cuh `Hold`, `hv_tile`'s and
-  `contrib_tangent_kernel`'s STREAM, `Points`);
+  1,024-element beam (`[ancf3243_mr]`), and K5t again at the 1k box and the
+  1,024-element beam, at chip_smoke's strained state (`ELEMENT_CASES`),
+  whose K1 and K5 load the shape gradients and whose K2 and K5t run in the
+  form and layout each instantiation chose (fem_kernels.cuh `Hold`,
+  `hv_tile`'s and `contrib_tangent_kernel`'s STREAM, `Points`, `Slots`);
 - K3 `svk_blocks` and K5t `contrib_tangent` with SVK at the 72 x 72 shell
   (`[ancf3443]`) and at the bench.py 1k box (`[feat10]`, 864 elements; the
   10k entries above hold the flagship), each of which may launch one thread
   an (element, slot), `Slots`;
-- K1 (fe and the prep cache), K2 and K5 with SVK at the 64- and
+- K1 (fe and the prep cache), K2, K3 and K5 with SVK at the 64- and
   1,024-element beams (`[ancf3243]`, whose K1, K2 and K5 may launch one
-  thread a quadrature point);
+  thread a quadrature point, and K3 one thread an (element, slot));
 - K4 at the 100k box (`tools/ablate_hv`'s "100k");
 - the persistent kernel of every (family, material) pair on one inner solve:
   FEAT10 x SVK and MR at the bench.py "1k" box, ANCF3243 x SVK and MR at
@@ -72,9 +72,10 @@ GRID = 6  # index of `grid` in the stats tensor (resident.STAT_FIELDS)
 # K2, K5 and K5t with Mooney-Rivlin at the builders' full sizes; K2 alone at
 # the bench.py 1k box (864 elements, the size of chip_smoke's
 # [composed_1k_mr]) and at the 1,024-element beam, saved as
-# "hv[feat10_mr]_e864" and "hv[ancf3243_mr]_e1024", and K5t at the 1k box;
-# K1, K2 and K5 with SVK at the 64- and 1,024-element beams
-# ("contrib[ancf3243]", "hv[ancf3243]_e1024", ...); K3 and K5t with SVK at
+# "hv[feat10_mr]_e864" and "hv[ancf3243_mr]_e1024", and K5t at the 1k box and
+# the 1,024-element beam; K1, K2, K3 and K5 with SVK at the 64- and
+# 1,024-element beams ("contrib[ancf3243]", "svk_blocks[ancf3243]_e1024",
+# ...); K3 and K5t with SVK at
 # the 72 x 72 shell ("svk_blocks[ancf3443]", "contrib_tangent[ancf3443]")
 # and at the 1k box ("svk_blocks[feat10]_e864", ...).
 MR_KERNELS = ("primal_prep", "hv", "contrib", "contrib_tangent")
@@ -82,9 +83,11 @@ ELEMENT_CASES = (("feat10_mr", "flagship_problem", None, MR_KERNELS),
                  ("ancf3443_mr", "shell_problem", None, MR_KERNELS),
                  ("ancf3243_mr", "ancf_beam_problem", None, MR_KERNELS),
                  ("feat10_mr", "flagship_problem", "RESIDENT_DIMS", ("hv", "contrib_tangent")),
-                 ("ancf3243_mr", "ancf_beam_problem", "BIG_BEAM", ("hv",)),
-                 ("ancf3243", "ancf_beam_problem", None, ("primal_prep", "hv", "contrib")),
-                 ("ancf3243", "ancf_beam_problem", "BIG_BEAM", ("primal_prep", "hv", "contrib")),
+                 ("ancf3243_mr", "ancf_beam_problem", "BIG_BEAM", ("hv", "contrib_tangent")),
+                 ("ancf3243", "ancf_beam_problem", None,
+                  ("primal_prep", "hv", "svk_blocks", "contrib")),
+                 ("ancf3243", "ancf_beam_problem", "BIG_BEAM",
+                  ("primal_prep", "hv", "svk_blocks", "contrib")),
                  ("ancf3443", "shell_problem", None, ("svk_blocks", "contrib_tangent")),
                  ("feat10", "flagship_problem", "RESIDENT_DIMS", ("svk_blocks", "contrib_tangent")))
 

@@ -96,6 +96,13 @@ Parts (all when none is named):
             goes;
   blocks_feat10, tangent_feat10  the FEAT10 rows of `blocks` and
             `tangent` alone;
+  blocks_beam, tangent_beam  K3 `svk_blocks[ancf3243]`, and K5t
+            `contrib_tangent[ancf3243_mr]` (damped) and `[ancf3243]` (SVK),
+            on the cantilevers of `SPLIT_BEAMS` (64 to 32,768 elements) in the
+            parent and in `Slots<TE, 4>` (TE 4, 8, 16: three chunks of 4
+            points, double-buffered) and `Slots<TE, 12>` (TE 4, 8: one chunk
+            of all 12 points, a block of TE x 12 threads), float32 and
+            float64, as `blocks` reports them;
   k4        K4's walk in its forms (one incidence at a time, batches of
             4-32 per (node, channel), a thread per node) at the 10k box, the
             100k box and the shell, each checked bit for bit against the
@@ -676,6 +683,16 @@ TANGENT_CASES = (("feat10_mr", "flagship_problem", "BUNNY_DIMS", TANGENT_FORMS),
 # elements), where fem_ancf3443.cu places its float64 gate.
 TANGENT_GATE_CASES = tuple(("ancf3443", "shell_problem", (n, n), ["parent", "slots8_8"])
                            for n in (84, 96, 108, 120, 132))
+# `blocks_beam` / `tangent_beam`: K3 `[ancf3243]`, K5t `[ancf3243_mr]` (damped,
+# as chip_smoke's Mooney-Rivlin is) and K5t `[ancf3243]` (SVK) on the
+# cantilevers of SPLIT_BEAMS, in the parent and the slot layouts of
+# kernel_variants.cu VARIANTS_BLOCKS_BEAM / VARIANTS_TANGENT_BEAM.
+BEAM_SLOT_FORMS = (["parent"] + [f"slots{te}_4" for te in (4, 8, 16)]
+                   + [f"slots{te}_12" for te in (4, 8)])
+BEAM_BLOCKS_CASES = tuple(("ancf3243", "ancf_beam_problem", (n,), BEAM_SLOT_FORMS)
+                          for n in SPLIT_BEAMS)
+BEAM_TANGENT_CASES = tuple((tag, "ancf_beam_problem", (n,), BEAM_SLOT_FORMS)
+                           for tag in ("ancf3243_mr", "ancf3243") for n in SPLIT_BEAMS)
 
 
 def _ptxas_spills(pattern, key):
@@ -693,9 +710,10 @@ def _ptxas_spills(pattern, key):
 
 
 # The mangled families of the variants' kernels (kernel_variants.cu F10Mr,
-# the shipped FEAT10's; S4Mr, the ANCF3443 family with register partials):
-# their slot counts.
-VARIANT_FAMILIES = {"Li10ELi5ELj1023ELi5ELi0E": 10, "Li16ELi48ELj4369ELi4ELi240E": 16}
+# the shipped FEAT10's; S4Mr, the ANCF3443 family with register partials;
+# B4Mr, the shipped ANCF3243's): their slot counts.
+VARIANT_FAMILIES = {"Li10ELi5ELj1023ELi5ELi0E": 10, "Li16ELi48ELj4369ELi4ELi240E": 16,
+                    "Li8ELi12ELj17ELi4ELi240E": 8}
 
 
 def _blocks_spills():
@@ -738,9 +756,9 @@ def _tangent_spills():
     contrib_tangent_kernel<T, F, M, STREAM> (`parent`, `stream`) and
     contrib_tangent_slots_kernel<T, F, M, TE, NQ> (`slots<TE>_<NQ>`), and
     kernel_variants.cu's contrib_tangent_form_kernel<T, F, M, FUSED, MINB>
-    (`stream_fused`, `stream_lb3`, `stream_fused_lb3`), at the FEAT10 and
-    ANCF3443 families the forms run at (not the NG and REG_BYTES variants
-    of `elements`)."""
+    (`stream_fused`, `stream_lb3`, `stream_fused_lb3`), at the FEAT10,
+    ANCF3443 and ANCF3243 families the forms run at (not the NG and
+    REG_BYTES variants of `elements`)."""
     fams = VARIANT_FAMILIES
     pat = re.compile(r"contrib_tangent_(form_|slots_)?kernelI([fd]).*?FamilyI("
                      + "|".join(fams) + r")E.*?(SvkMat|MrMat)I[fd]EE(?:Lb([01])E|Li(\d+)E)"
@@ -1065,6 +1083,8 @@ PARTS = {"elements": elements, "beams": beams, "hv": hv, "split": split, "blocks
          "tangent": tangent, "tangent_gate": lambda lib: tangent(lib, TANGENT_GATE_CASES),
          "blocks_feat10": lambda lib: blocks(lib, FEAT10_CASES),
          "tangent_feat10": lambda lib: tangent(lib, FEAT10_CASES),
+         "blocks_beam": lambda lib: blocks(lib, BEAM_BLOCKS_CASES),
+         "tangent_beam": lambda lib: tangent(lib, BEAM_TANGENT_CASES),
          "k4": k4, "barriers": barriers, "resident": resident}
 
 
