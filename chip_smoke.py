@@ -129,6 +129,21 @@ non-zero:
    `torch.func.jvp` along 3 directions (bars 1e-12 and 1e-5 relative); each
    call of the linearized function must launch K5t once (its graph holds
    the `tlfea.contrib_tangent` and `tlfea.node_reduce` operators).
+18. dense_pins (after 5): the "1k" problem of 5 pinned by `DensePins` on
+   the same pins, 250 steps through `newton_resident[feat10]` beside the
+   same rollout pinned by `FixedCoefs`: equal Newton and CG counts,
+   positions within 1e-6 of the displacement scale (whether bitwise is
+   printed), the dense duals zero off the pins; then prescribed motion,
+   the pinned face's targets moved down at 0.05 m/s (`with_targets` every
+   step) for 100 steps, through the persistent kernel and through the
+   composed K1-K4 path (the gate patched off): positions within 1e-3 of
+   the displacement scale (the resident float32 bar of 5).
+19. linear_rows (after 8): the 64-element ANCF3243 beam of 8 clamped by
+   `fix_dof` rows (`LinearConstraints`, 12 rows), 20 steps on the composed
+   path (K1, K2, K3 and K4 `[ancf3243]`; linear rows never run resident),
+   twice, bitwise equal (no atomics), against the beam pinned by
+   `FixedCoefs` on the same path: positions within 1e-5 of the
+   displacement scale.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 `{"ok": true, "device": {...}}`.
@@ -164,6 +179,10 @@ CHECK_STEPS = 5  # kernels against twins, from rest
 # counts, Newton 2 / CG 22, and moves v by 1.1e-5..2.2e-5); a kernel that
 # computes a wrong gradient or product moves it by order 1.
 F32_RESIDENT_TOL = 1e-3
+PRESCRIBED_STEPS = 100  # [dense_pins]' prescribed-motion rollout
+PRESCRIBED_SPEED = 0.05  # m/s, the pinned face's prescribed downward velocity there
+DENSE_PINS_TOL = 1e-6  # DensePins against FixedCoefs, of the displacement scale
+LINEAR_ROWS_TOL = 1e-5  # fix_dof rows against FixedCoefs, of the displacement scale
 # Mooney-Rivlin's float32 resolution is coarser: its isochoric terms cancel
 # to O(strain), so at the 1k problem's strains (about 1e-3) and the ANCF
 # beams' first steps the float32 plain version lies 7.5e-3 (1k) and 3.3e-3
@@ -254,12 +273,30 @@ def _solver_params(f_ext):
                         ew_eta_max=0.5)
 
 
-def _pinned_problem(elems_cpu, x0_np, fixed, device, material):
-    """(system, state, f_ext, params) on `device` from a host element batch:
+def _pins(family, fixed, x0):
+    """The coefficients `fixed` held at their positions in x0, as the
+    constraint family named: "fixed" (`FixedCoefs`), "dense" (`DensePins`)
+    or "linear" (`LinearConstraints`, three `fix_dof` rows a coefficient)."""
+    from tlfea_torch.constraints import DensePins, FixedCoefs, LinearConstraintBuilder
+
+    if family == "fixed":
+        return FixedCoefs.from_indices(fixed, x0)
+    if family == "dense":
+        return DensePins.from_indices(fixed, x0)
+    rows = LinearConstraintBuilder()
+    x0_host = x0.cpu()
+    for i in fixed:
+        for d in range(3):
+            rows.fix_dof(int(i), d, float(x0_host[i, d]))
+    return rows.build(dtype=x0.dtype, device=x0.device)
+
+
+def _pinned_problem(elems_cpu, x0_np, fixed, device, material, pins="fixed"):
+    """(system, state, f_ext, params) on `device` from a host element batch,
+    the coefficients `fixed` held by the constraint family `pins` (`_pins`):
     gravity through the lumped mass, summed on the host in a fixed order."""
     import torch
 
-    from tlfea_torch.constraints import FixedCoefs
     from tlfea_torch.elements.assembly import lumped_mass
     from tlfea_torch.solvers import StepState, System
 
@@ -268,7 +305,7 @@ def _pinned_problem(elems_cpu, x0_np, fixed, device, material):
     f_ext[:, 2] = lumped_mass(elems_cpu) * -9.81
     x0 = torch.as_tensor(x0_np, dtype=dtype, device=device)
     system = System(elems=elems_cpu.to(device), material=material,
-                    constraints=FixedCoefs.from_indices(fixed, x0))
+                    constraints=_pins(pins, fixed, x0))
     return system, StepState.rest(system, x0), f_ext.to(device), _solver_params(f_ext)
 
 
@@ -291,9 +328,11 @@ def mooney_rivlin(E=1e7, nu=0.3, damping=1e3):
                         eta_damp=damping, lam_damp=damping)
 
 
-def flagship_problem(device, dtype, dims=(2.0, 0.35, 0.3, 42, 7, 6), material=None):
+def flagship_problem(device, dtype, dims=(2.0, 0.35, 0.3, 42, 7, 6), material=None,
+                     pins="fixed"):
     """The bench.py "10k" problem: (system, state, f_ext, params); damped SVK
-    unless another material is given."""
+    unless another material is given, the x=0 face pinned by the family
+    `pins` names (`_pins`)."""
     from tlfea_torch.elements import feat10
     from tlfea_torch.utils.reorder import apply_node_order, best_order
     from tlfea_torch.utils.tetmesh import box_t10_mesh
@@ -302,7 +341,7 @@ def flagship_problem(device, dtype, dims=(2.0, 0.35, 0.3, 42, 7, 6), material=No
     nodes, conn = apply_node_order(nodes, conn, best_order(nodes, conn))
     elems_cpu = feat10.build(nodes, conn, rho=1000.0, dtype=dtype, device="cpu")
     return _pinned_problem(elems_cpu, nodes, np.nonzero(nodes[:, 0] < 1e-12)[0], device,
-                           material or _svk())
+                           material or _svk(), pins)
 
 
 def bunny_problem(device, dtype):
@@ -353,16 +392,17 @@ def shell_problem(device, dtype, nx=72, ny=72, material=None):
     return _pinned_problem(elems_cpu, coefs, _clamp_rows(edge), device, material or _svk())
 
 
-def ancf_beam_problem(device, dtype, n_elem=64, material=None):
+def ancf_beam_problem(device, dtype, n_elem=64, material=None, pins="fixed"):
     """A cantilever of n_elem ANCF3243 beams (0.05 m each, 0.01 x 0.01 m
-    section), node 0 clamped: (system, state, f_ext, params); damped SVK
-    unless another material is given."""
+    section), node 0 clamped by the family `pins` names (`_pins`): (system,
+    state, f_ext, params); damped SVK unless another material is given."""
     from tlfea_torch.elements import ancf3243
 
     coefs, conn = ancf3243.straight_beam(n_elem, L=0.05, origin=(0.0, 0.0, 0.0))
     elems_cpu = ancf3243.build(coefs, conn, 0.05, 0.01, 0.01, rho=1000.0, dtype=dtype,
                                device="cpu")
-    return _pinned_problem(elems_cpu, coefs, _clamp_rows([0]), device, material or _svk())
+    return _pinned_problem(elems_cpu, coefs, _clamp_rows([0]), device, material or _svk(),
+                           pins)
 
 
 def _device_ms(fn, n):
@@ -1000,6 +1040,159 @@ def resident_phase(tag, device, make_problem, n_steps, composed_tag, jax_counts=
     return record, out["launches"]["newton_resident"], comp_out["launches"]
 
 
+def _counted_rollout(roll, system, state0, f_ext):
+    """One rollout from state0, the launch counts set to 0 just before it
+    and read just after: (state, Newton list, CG list, ms/step, {kernel:
+    launches})."""
+    import torch
+
+    from tlfea_torch.ops import fem_kernels as fk
+
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    s, (nit, cgit) = roll(state0, f_ext)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / len(nit) * 1e3
+    if not bool(torch.isfinite(s.x).all()):
+        raise AssertionError("rollout state is not finite")
+    names = KERNELS + ("newton_resident",)
+    return s, nit, cgit, ms, {k: fk.LAUNCHES[fk.launch_key(k, system.fem)] for k in names}
+
+
+def _rel_disp(x, want, x0):
+    """max |x - want| over the displacement scale max |want - x0|."""
+    return float((x - want).abs().max()) / float((want - x0).abs().max())
+
+
+def dense_pins(device):
+    """[dense_pins] (the module's docstring, 18). Returns the launches of
+    its rollouts, summed by kernel."""
+    import torch
+
+    from tlfea_torch.ops import resident
+    from tlfea_torch.solvers import newton
+
+    tag = "dense_pins"
+    runs = {}
+    for pins in ("fixed", "dense"):
+        system, state0, f_ext, params = flagship_problem(device, torch.float32, RESIDENT_DIMS,
+                                                         pins=pins)
+        if not resident.eligible(system, None):
+            raise AssertionError(f"{tag}: the {pins} pins must pass the resident gate")
+        roll = newton.make_rollout(system, params, RESIDENT_ROLLOUT, precond_refresh=8)
+        runs[pins] = _counted_rollout(roll, system, state0, f_ext)
+        s, nit, cgit, ms, la = runs[pins]
+        log(tag, f"{type(system.constraints).__name__}: {RESIDENT_ROLLOUT} steps {ms:.3f} ms/step, "
+            f"median Newton {np.median(nit):g} / CG {np.median(cgit):g}, launches {la}")
+    (xf, lf), (xd, ld) = ((runs[k][0].x, runs[k][0].lam) for k in ("fixed", "dense"))
+    la = runs["dense"][4]
+    refreshes = -(-RESIDENT_ROLLOUT // 8)
+    want = {"primal_prep": 0, "hv": 0, "svk_blocks": refreshes, "node_reduce": refreshes,
+            "newton_resident": RESIDENT_ROLLOUT}
+    if la != want:
+        raise AssertionError(f"{tag}: launches {la}, expected {want}")
+    pinned = torch.nonzero(system.constraints.mask[:, 0]).squeeze(1)
+    off = torch.ones(len(xd), dtype=torch.bool, device=device)
+    off[pinned] = False
+    rel = _rel_disp(xd, xf, state0.x)
+    lam_rel = float((ld[pinned] - lf).abs().max()) / float(lf.abs().max())
+    log(tag, f"DensePins against FixedCoefs on the same {len(pinned)} pins: Newton and CG lists "
+        f"{'equal' if runs['fixed'][1:3] == runs['dense'][1:3] else 'DIFFER'}; positions "
+        f"{'bitwise equal' if torch.equal(xd, xf) else 'not bitwise equal'}, max |dx| "
+        f"{rel:.3e} of the displacement scale (bar {DENSE_PINS_TOL:g}); duals at the pins "
+        f"{lam_rel:.3e} relative, off the pins max |lam| {float(ld[off].abs().max()):g}")
+    if runs["fixed"][1:3] != runs["dense"][1:3] or not rel < DENSE_PINS_TOL or bool(
+            ld[off].any()):
+        raise AssertionError(f"{tag}: DensePins disagree with FixedCoefs")
+    total = {k: runs["fixed"][4][k] + la[k] for k in la}
+
+    # Prescribed motion: the pinned face's targets moved every step, through
+    # the persistent kernel, then through K1-K4 (the gate patched off).
+    pins0 = system.constraints
+    drop = torch.zeros_like(pins0.target)
+    drop[:, 2] = -PRESCRIBED_SPEED * params.dt
+    moved = {}
+    orig = resident.eligible
+    for path in ("resident", "composed"):
+        if path == "composed":
+            resident.eligible = lambda *a, **k: False
+
+        def roll(st, f, n=PRESCRIBED_STEPS):
+            step, nits, cgs = newton.make_step(system, params), [], []
+            for k in range(1, n + 1):
+                system.constraints = pins0.with_targets(pins0.target + k * drop)
+                st, d = step(st, f)
+                nits.append(d["newton_iters"])
+                cgs.append(d["cg_iters"])
+            return st, (nits, cgs)
+
+        try:
+            moved[path] = _counted_rollout(roll, system, state0, f_ext)
+        finally:
+            resident.eligible = orig
+            system.constraints = pins0
+        s, nit, cgit, ms, la = moved[path]
+        log(tag, f"prescribed motion, {path}: {PRESCRIBED_STEPS} steps {ms:.3f} ms/step, median "
+            f"Newton {np.median(nit):g} / CG {np.median(cgit):g}, launches {la}")
+        total = {k: total[k] + la[k] for k in la}
+    lr, lc = moved["resident"][4], moved["composed"][4]
+    if (lr["newton_resident"] != PRESCRIBED_STEPS or lr["primal_prep"] or lr["hv"]
+            or lc["newton_resident"] or min(lc[k] for k in KERNELS) <= 0):
+        raise AssertionError(f"{tag}: prescribed-motion launches {lr} / {lc}")
+    xr, xc = moved["resident"][0].x, moved["composed"][0].x
+    rel = _rel_disp(xr, xc, state0.x)
+    travel = PRESCRIBED_SPEED * params.dt * PRESCRIBED_STEPS
+    face = float((state0.x[pinned, 2] - xr[pinned, 2]).mean()) / travel
+    log(tag, f"prescribed motion, resident against composed: positions max |dx| {rel:.3e} of the "
+        f"displacement scale (bar {F32_RESIDENT_TOL:g}); Newton lists "
+        f"{'equal' if moved['resident'][1] == moved['composed'][1] else 'differ'}, CG "
+        f"{sum(moved['resident'][2])} against {sum(moved['composed'][2])}; the pinned face "
+        f"moved {face:.4f} of its prescribed {travel:g} m")
+    if not rel < F32_RESIDENT_TOL:
+        raise AssertionError(f"{tag}: resident and composed prescribed motion disagree: {rel:.3e}")
+    return total
+
+
+def linear_rows(device):
+    """[linear_rows] (the module's docstring, 19). Returns the launches of
+    the linear rows' first rollout."""
+    import torch
+
+    from tlfea_torch.ops import resident
+    from tlfea_torch.solvers import newton
+
+    tag = "linear_rows"
+    runs = []
+    orig = resident.eligible
+    for pins in ("linear", "linear", "fixed"):
+        system, state0, f_ext, params = ancf_beam_problem(device, torch.float32, 64, pins=pins)
+        if pins == "linear" and orig(system, None):
+            raise AssertionError(f"{tag}: linear rows passed the resident gate")
+        resident.eligible = lambda *a, **k: False  # FixedCoefs on the composed path too
+        try:
+            roll = newton.make_rollout(system, params, ANCF_BEAM_STEPS, precond_refresh=8)
+            runs.append(_counted_rollout(roll, system, state0, f_ext))
+        finally:
+            resident.eligible = orig
+        s, nit, cgit, ms, la = runs[-1]
+        log(tag, f"{type(system.constraints).__name__} ({system.constraints.n_constraints} rows): "
+            f"{ANCF_BEAM_STEPS} steps {ms:.3f} ms/step, median Newton {np.median(nit):g} / CG "
+            f"{np.median(cgit):g}, launches {la}")
+    la = runs[0][4]
+    if la["newton_resident"] or min(la[k] for k in KERNELS) <= 0:
+        raise AssertionError(f"{tag}: a kernel of the composed path was never launched: {la}")
+    same = torch.equal(runs[0][0].x, runs[1][0].x) and runs[0][1:3] == runs[1][1:3]
+    rel = _rel_disp(runs[0][0].x, runs[2][0].x, state0.x)
+    counts = "equal" if runs[0][1:3] == runs[2][1:3] else "differ"
+    log(tag, f"two runs {'bitwise equal' if same else 'DIFFER'}; against FixedCoefs on the "
+        f"composed path: Newton and CG lists {counts}, positions max |dx| {rel:.3e} of the "
+        f"displacement scale (bar {LINEAR_ROWS_TOL:g}), "
+        f"{'bitwise equal' if torch.equal(runs[0][0].x, runs[2][0].x) else 'not bitwise equal'}")
+    if not same or not rel < LINEAR_ROWS_TOL:
+        raise AssertionError(f"{tag}: linear rows are not repeatable or disagree with FixedCoefs")
+    return la
+
+
 def shell_theory(device, steps=THEORY_STEPS):
     """The float64 cantilever plate of tests/test_shell_validation.py through
     the kernels: returns (tip deflection / plate theory - 1, tip, theory,
@@ -1557,6 +1750,11 @@ def main():
         lambda dt: flagship_problem(device, dt, RESIDENT_DIMS, mooney_rivlin()),
         RESIDENT_ROLLOUT, "composed_1k_mr")
     done("resident_mr")
+    pinned = dense_pins(device)
+    record, res_launches, comp = resident_runs["feat10"]
+    resident_runs["feat10"] = (record, res_launches + pinned["newton_resident"], comp)
+    launches["feat10"] = {k: launches["feat10"][k] + pinned[k] for k in KERNELS}
+    done("dense_pins")
     launches["ancf3443"] = shell(device)
     done("shell")
     launches["ancf3443_mr"] = rollout_phase(
@@ -1592,6 +1790,9 @@ def main():
                                ("ms", "bound_ms", "max_rel_err_f64", "grid")})
                 resident_runs[tag] = (run[0], run[1] + res_launches, run[2])
             done(phase + ("" if n_elem == 64 else f"_{n_elem}"))
+    rows = linear_rows(device)
+    launches["ancf3243"] = {k: launches["ancf3243"][k] + rows[k] for k in KERNELS}
+    done("linear_rows")
 
     # The first-order path: K5 + K4 for every gradient, K5t + K4 for its jvp.
     problem = flagship_problem(device, torch.float32)

@@ -1203,12 +1203,14 @@ def test_beam_tiles_report_the_block_they_launch(cuda_dev, kernel, tag, dtype):
     assert fk.launch_blocks(kernel, system.fem) == -(-65 // te)
 
 
-# K3 `svk_blocks[ancf3243]` (SVK) and K5t `contrib_tangent[ancf3243_mr]`,
-# which the instantiations may launch with one thread an (element, slot)
-# (`fem_kernels.cuh` `Slots`): the beams of BEAM_TILE_SIZES (K5t at the
-# strained state on MR_BEAM_TILE_SIZES, damped and undamped, and at the
-# mirrored beam on all of them), at `_beam_tile_case`'s state (K3 at its u)
-# and a standard normal tangent direction.
+# K3 `svk_blocks[ancf3243]` (SVK), K5t `contrib_tangent[ancf3243_mr]` and
+# K5t `contrib_tangent[ancf3243]` (SVK), which the instantiations may launch
+# with one thread an (element, slot) (`fem_kernels.cuh` `Slots`): the beams
+# of BEAM_TILE_SIZES (the MR K5t at the strained state on
+# MR_BEAM_TILE_SIZES, damped and undamped, and at the mirrored beam on all
+# of them; the SVK K5t on all of them, damped and undamped), at
+# `_beam_tile_case`'s state (K3 at its u) and a standard normal tangent
+# direction.
 # The launch as PERF.md records the choice, by (kernel, tag, dtype): (TE,
 # rows, MAX_E, blocks an SM), TE elements x rows (the 8 slots, or 12 where
 # one chunk holds all 12 points) a block on beams of up to MAX_E elements and
@@ -1216,13 +1218,17 @@ def test_beam_tiles_report_the_block_they_launch(cuda_dev, kernel, tag, dtype):
 BEAM_SLOTS = {("svk_blocks", "ancf3243", torch.float32): (8, 12, 4096, 10),
               ("svk_blocks", "ancf3243", torch.float64): (8, 12, 4096, 5),
               ("contrib_tangent", "ancf3243_mr", torch.float32): (8, 12, 4096, 5),
-              ("contrib_tangent", "ancf3243_mr", torch.float64): (8, 12, 2**31 - 1, 2)}
+              ("contrib_tangent", "ancf3243_mr", torch.float64): (8, 12, 2**31 - 1, 2),
+              ("contrib_tangent", "ancf3243", torch.float32): (8, 12, 4096, 10),
+              ("contrib_tangent", "ancf3243", torch.float64): (8, 12, 2**31 - 1, 5)}
 
 
-def _beam_tangent_case(device, dtype, E, damping, mirrored=False):
-    """(op, packed, dpacked): K5t `[ancf3243_mr]`'s case on an E-element
-    beam, at the strained state or its mirror in x (det F < 0)."""
-    system, packed, _ = _beam_tile_case(device, dtype, E, _mooney_rivlin(damping=damping))
+def _beam_tangent_case(device, dtype, E, damping, mirrored=False, svk=False):
+    """(op, packed, dpacked): K5t `[ancf3243_mr]`'s case (`[ancf3243]`'s
+    with svk) on an E-element beam, at the strained state or its mirror in x
+    (det F < 0)."""
+    material = _svk(damping) if svk else _mooney_rivlin(damping=damping)
+    system, packed, _ = _beam_tile_case(device, dtype, E, material)
     if mirrored:
         packed = packed.clone()
         packed[:, 0] -= 2.0 * system.elems.x_ref[:, 0]  # x -> -x
@@ -1268,6 +1274,24 @@ def test_beam_mr_contrib_tangent_matches_twin_and_repeats(cuda_dev, E, dtype, to
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("damping", [0.0, 1e3], ids=["undamped", "damped"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("E", BEAM_TILE_SIZES)
+def test_beam_svk_contrib_tangent_matches_twin_and_repeats(cuda_dev, E, dtype, tol, damping):
+    """K5t `[ancf3243]` (SVK) against its twin in one launch, damped and
+    undamped; bitwise repeatable."""
+    op, packed, dpacked = _beam_tangent_case(cuda_dev, dtype, E, damping, svk=True)
+    assert (op.tag, op.E) == ("ancf3243", E)
+    fk.reset_launch_counts()
+    got = fk.contrib_tangent(op, packed, dpacked)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["contrib_tangent[ancf3243]"] == 1 and sum(fk.LAUNCHES.values()) == 1
+    want = fk.contrib_tangent_plain(op, packed, dpacked)
+    assert bool(torch.isfinite(got).all()) and _rel(got, want) < tol
+    assert torch.equal(fk.contrib_tangent(op, packed, dpacked), got)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 @pytest.mark.parametrize("E", BEAM_TILE_SIZES)
 def test_beam_mr_contrib_tangent_matches_twin_at_an_inverted_point(cuda_dev, E, dtype, tol):
@@ -1286,10 +1310,11 @@ def test_beam_mr_contrib_tangent_matches_twin_at_an_inverted_point(cuda_dev, E, 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("kernel,tag", [("svk_blocks", "ancf3243"),
-                                        ("contrib_tangent", "ancf3243_mr")])
+                                        ("contrib_tangent", "ancf3243_mr"),
+                                        ("contrib_tangent", "ancf3243")])
 def test_beam_slot_tiles_report_the_block_they_launch(cuda_dev, kernel, tag, dtype):
     """`occupancy` reports the block of the K3 `[ancf3243]` / K5t
-    `[ancf3243_mr]` launch that runs, as BEAM_SLOTS records it, on each side
+    `[ancf3243_mr]` / K5t `[ancf3243]` launch that runs, as BEAM_SLOTS records it, on each side
     of any gate; and `launch_blocks` counts its blocks on the ragged 65
     elements."""
     te, rows, max_e, per_sm = BEAM_SLOTS[(kernel, tag, dtype)]

@@ -7,9 +7,10 @@ copied, not imported: importing any `tlfea.*` module pulls in jax
 (`tlfea/__init__.py:28-52`), and this package never imports jax.
 
 The slices ported so far are the implicit step for FEAT10, ANCF3243 and
-ANCF3443 elements: damped St. Venant-Kirchhoff, pinned coefficients,
-backward Euler as an augmented-Lagrangian minimisation over velocity,
-matrix-free Newton-PCG with a block-Jacobi preconditioner and the frozen
+ANCF3443 elements: damped St. Venant-Kirchhoff and Mooney-Rivlin, pins
+(`FixedCoefs`, `DensePins`) and general linear constraint rows, backward
+Euler as an augmented-Lagrangian minimisation over velocity, matrix-free
+Newton-PCG with a block-Jacobi preconditioner and the frozen
 coarse correction. Its element work runs in hand-written CUDA kernels
 (`tlfea_torch/csrc/`, wrapped by `tlfea_torch.ops.fem_kernels`), each
 beside a plain PyTorch twin. Builders and `interop.from_numpy_system` put

@@ -40,6 +40,22 @@
 // 7.98, float64 9.22 against 12.56) and 32,768 elements. Three chunks of 4
 // points (`Slots<TE, 4>`, phase A on 4 of 8 rows) took 1.02-1.07x the
 // parent's time at 64-2,048 elements in float32 (PERF.md, Findings).
+//
+// K5t `contrib_tangent` launches the same layout (fem_kernels.cuh
+// `contrib_tangent_slots_kernel`, `Slots<8, 12>`: the block copies all 12
+// points into shared memory in one chunk, phase A runs each point's SVK
+// tangent on its own thread where the parent ran three in a row, phase B
+// rows 0-7 add their slot's products): in float32 up to 4,096 elements and
+// the parent tile above, in float64 at every E. On an H100 (NVIDIA H100
+// 80GB HBM3, 700.00 W; `python -m tlfea_torch.tools.kernel_variants
+// tangent_beam_gate`, parent -> Slots<8, 12> in one call, us) float32 6.75
+// -> 4.50 at 64 elements, 6.86 -> 4.69 at 1,024, 6.86 -> 5.20 at 2,048 and
+// 7.10 -> 6.90 at 4,096 (219 registers, 2 blocks an SM -> 64, 10), the
+// parent ahead at 8,192 (9.24 against 10.57), level at 16,384 (19.32 against
+// 19.36) and behind at 32,768 (44.98 against 39.23); float64 12.49 -> 5.46,
+// 13.46 -> 5.64, 13.62 -> 7.10, 15.92 -> 9.38, 32.56 -> 18.19, 58.88 ->
+// 36.87 and 110.13 -> 63.73 at 32,768 (255 registers and 648 B of local
+// memory -> 123 and none). Each bit for bit the parent (PERF.md, Findings).
 
 #include "fem_kernels.cuh"
 
@@ -50,7 +66,9 @@ using K2F32 = tlfea::Direct<8, tlfea::Hold::early, 4096>;
 using K2F64 = tlfea::Points<8, tlfea::Hold::early, 4096>;
 using K5Points = tlfea::Points<8, tlfea::Hold::early, 4096>;
 using K3Slots = tlfea::Slots<8, 12, 4096>;
+using K5tF32 = tlfea::Slots<8, 12, 4096>;
+using K5tF64 = tlfea::Slots<8, 12>;
 TLFEA_FAMILY_ENTRY_POINTS(ancf3243, Ancf3243, f32, float, K1F32, K2F32, K5Points, K3Slots,
-                          tlfea::Groups)
+                          K5tF32)
 TLFEA_FAMILY_ENTRY_POINTS(ancf3243, Ancf3243, f64, double, K1F64, K2F64, K5Points, K3Slots,
-                          tlfea::Groups)
+                          K5tF64)

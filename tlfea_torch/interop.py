@@ -1,7 +1,8 @@
 """Build the port's objects from the JAX package's.
 
 `from_numpy_system` reads the fields of a `tlfea` `ElementBatch`, `SVK` or
-`MooneyRivlin`, `FixedCoefs`, `StepState` and solver parameters (`NewtonParams`,
+`MooneyRivlin`, `FixedCoefs`, `DensePins` or `LinearConstraints`,
+`StepState` and solver parameters (`NewtonParams`,
 `AdamWParams`, `NesterovParams`, `VBDParams`) through `np.asarray` (duck
 typed: any object with those attribute names will do, so this module never
 imports jax or tlfea) and returns the matching `tlfea_torch` objects on the
@@ -16,7 +17,7 @@ from dataclasses import fields, is_dataclass
 import numpy as np
 import torch
 
-from tlfea_torch.constraints import FixedCoefs
+from tlfea_torch.constraints import DensePins, FixedCoefs, LinearConstraints
 from tlfea_torch.elements.assembly import ElementBatch
 from tlfea_torch.materials.mooney_rivlin import MooneyRivlin
 from tlfea_torch.materials.svk import SVK
@@ -34,6 +35,10 @@ _PARAM_KINDS = (("lr", AdamWParams), ("alpha", NesterovParams), ("omega", VBDPar
 # A material's dataclass fields -> the port's material.
 _MATERIAL_KINDS = (({"mu10", "mu01", "kappa", "eta_damp", "lam_damp"}, MooneyRivlin),
                    ({"lam", "mu", "eta_damp", "lam_damp"}, SVK))
+
+# A constraint family's dataclass fields -> the port's family.
+_CONSTRAINT_KINDS = (({"idx", "target"}, FixedCoefs), ({"mask", "target"}, DensePins),
+                     ({"rows", "cols", "vals", "b", "n_rows"}, LinearConstraints))
 
 
 def _scalar(a) -> float:
@@ -53,6 +58,21 @@ def _material(material):
                     f"(fields {sorted(names)}); it has SVK and MooneyRivlin")
 
 
+def _constraints(constraints, t, idx):
+    """The port's FixedCoefs, DensePins or LinearConstraints with the same
+    fields, told apart by the object's dataclass fields (index arrays through
+    idx, floating ones through t, n_rows as an int). Raises on any other
+    constraints object."""
+    names = {f.name for f in fields(constraints)} if is_dataclass(constraints) else set()
+    for keys, cls in _CONSTRAINT_KINDS:
+        if names == keys:
+            conv = {"idx": idx, "rows": idx, "cols": idx, "n_rows": int}
+            return cls(**{k: conv.get(k, t)(getattr(constraints, k)) for k in sorted(keys)})
+    raise TypeError(f"no counterpart in the port for constraints {type(constraints).__name__} "
+                    f"(fields {sorted(names)}); it has FixedCoefs, DensePins and "
+                    f"LinearConstraints")
+
+
 def from_numpy_system(elems, material, constraints=None, state=None, params=None, *,
                       device="cuda", dtype=torch.float64):
     """(System, StepState or None, solver parameters or None) from the JAX
@@ -60,9 +80,10 @@ def from_numpy_system(elems, material, constraints=None, state=None, params=None
     Floating arrays are cast to `dtype`, index arrays to int64; the
     parameters (Newton, AdamW, Nesterov or VBD, told apart by their
     fields) become the port's dataclass of Python numbers, and the material
-    the port's SVK or MooneyRivlin (`_material`). Raises on what the port
-    does not carry: another material, a non-zero `max_dv`, or a batch
-    without x_ref."""
+    the port's SVK or MooneyRivlin (`_material`), the constraints the
+    port's family of the same fields (`_constraints`). Raises on what the
+    port does not carry: another material or constraints object, a non-zero
+    `max_dv`, or a batch without x_ref."""
 
     def t(a):
         return torch.as_tensor(np.array(a), device=device).to(dtype)
@@ -79,9 +100,7 @@ def from_numpy_system(elems, material, constraints=None, state=None, params=None
         trans_mask=None if elems.trans_mask is None else tuple(elems.trans_mask),
     )
     mat = _material(material)
-    cons = None
-    if constraints is not None:
-        cons = FixedCoefs(idx=idx(constraints.idx), target=t(constraints.target))
+    cons = None if constraints is None else _constraints(constraints, t, idx)
     system = System(elems=eb, material=mat, constraints=cons)
 
     st = None

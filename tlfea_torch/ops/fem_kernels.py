@@ -971,11 +971,13 @@ def g_and_hvp(v, u_prev, v_prev, f_ext, dt, op: FemOperator, pin_terms=None,
               plain: bool = False):
     """ALM gradient g(v) (n, 3) and its Hessian-vector operator p -> H p.
 
-    Port of `pallas_banded.g_and_hvp_banded` (:930) with the dense pin terms
-    of `newton._newton_inner` (:183-198): pin_terms = (pin_aff (n, 3),
+    Port of `pallas_banded.g_and_hvp_banded` (:930) with the constraint
+    terms of `newton._newton_inner` (:183-233): pin_terms = (pin_aff (n, 3),
     pin_lin (n, 1)) gives the pin gradient pin_aff + pin_lin * u and the Hv
-    term dt * pin_lin * p, with no scatter of the duals. One K1 + K4 pass
-    per gradient; one K2 + K4 pass per Hv, reading K1's prep cache.
+    term dt * pin_lin * p, with no scatter of the duals; a callable pin_lin
+    (linear rows, `common._pin_terms`) gives pin_aff + pin_lin(u) and dt *
+    pin_lin(p). One K1 + K4 pass per gradient; one K2 + K4 pass per Hv,
+    reading K1's prep cache.
     u = u_prev + dt * v is formed in displacement space (never x_prev +
     dt * v, whose float32 rounding stalls Newton on stiff problems).
     """
@@ -988,12 +990,14 @@ def g_and_hvp(v, u_prev, v_prev, f_ext, dt, op: FemOperator, pin_terms=None,
     pin_lin = None
     if pin_terms is not None:
         pin_aff, pin_lin = pin_terms
-        g = g + pin_aff + pin_lin * u
+        g = g + pin_aff + (pin_lin(u) if callable(pin_lin) else pin_lin * u)
     g = g - f_ext
 
     def hvp(p):
         h = k4(op, k2(op, p.contiguous(), prep, dt))
-        if pin_lin is not None:
+        if callable(pin_lin):
+            h = h + dt * pin_lin(p)
+        elif pin_lin is not None:
             h = h + dt * pin_lin * p
         return h
 

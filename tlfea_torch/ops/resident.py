@@ -33,7 +33,7 @@ from dataclasses import dataclass
 import torch
 from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
-from tlfea_torch.constraints import FixedCoefs
+from tlfea_torch.constraints import DensePins, FixedCoefs
 from tlfea_torch.ops import fem_kernels as fk
 
 __all__ = ["MAX_ELEMS", "STAT_FIELDS", "Plan", "plan", "max_cluster", "eligible", "kernel_args",
@@ -132,8 +132,10 @@ def max_cluster(tag: str, dtype: torch.dtype) -> int:
 
 def eligible(system, coarse) -> bool:
     """The resident gate (`pallas_resident.eligible`, `newton.py:245-259`):
-    at most MAX_ELEMS elements, no coarse correction, no constraints or
-    `FixedCoefs`, and a (family, material) pair with a resident kernel
+    at most MAX_ELEMS elements, no coarse correction, constraints that are
+    none or dense pin fields (`FixedCoefs` or `DensePins`, as JAX's
+    `cons_dense_ok`; `LinearConstraints`, whose Hv term is a callable, stay
+    on the composed path), and a (family, material) pair with a resident kernel
     (`fk.RESIDENT_SOURCES`: FEAT10 and ANCF3243, each with SVK and
     Mooney-Rivlin). ANCF3443 never passes: the JAX gate needs a banded
     handle, and `pallas_banded.build_banded`'s VMEM estimate refuses every
@@ -143,7 +145,7 @@ def eligible(system, coarse) -> bool:
     builds or launches."""
     cons = system.constraints
     return (system.fem.E <= MAX_ELEMS and coarse is None
-            and (cons is None or isinstance(cons, FixedCoefs))
+            and (cons is None or isinstance(cons, (FixedCoefs, DensePins)))
             and (system.fem.family, system.fem.kind) in fk.RESIDENT_SOURCES)
 
 

@@ -168,10 +168,13 @@ def build_coarse_precond(system, x0: torch.Tensor, dt: float, rho: float,
         Ac.index_put_((rows * na + cols,), Ac6.reshape(-1, k, k), accumulate=True)
     Ac = Ac.view(na, na, k, k)
 
-    # Pin penalty dt^2 rho R^T diag(J^T J) R (exact for pins).
+    # Constraint penalty dt^2 rho R^T diag(J^T J) R (exact for pins, the
+    # diagonal of J^T J for linear rows).
     cons = system.constraints
     if cons is not None:
-        d = cons.jtj_diag(n, dtype)[:, None].expand(n, 3)
+        d = cons.jtj_diag(n, dtype)  # (n,) pins, (n, 3) linear rows
+        if d.ndim == 1:
+            d = d[:, None].expand(n, 3)
         Phi_n = _phi(u0)
         pen = torch.einsum("ndf,nd,ndg->nfg", Phi_n, (dt * dt * rho) * d, Phi_n)
         # index_put_ with accumulate sums in sorted-index order on the card

@@ -19,7 +19,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from tlfea_torch.constraints import FixedCoefs
+from tlfea_torch.constraints import DensePins, FixedCoefs, LinearConstraints
 from tlfea_torch.elements.assembly import ElementBatch, node_ref
 from tlfea_torch.materials.mooney_rivlin import MooneyRivlin
 from tlfea_torch.materials.svk import SVK
@@ -27,22 +27,23 @@ from tlfea_torch.ops.fem_kernels import (ElementContrib, FemOperator, element_fn
                                          node_reduce_plain, tangent_blocks_plain, unpack_sym6)
 
 __all__ = [
-    "System", "StepState", "grad_L", "grad_fn", "constraint_values", "precond_blocks",
-    "flat_norm", "suggest_rho", "alm_outer",
+    "System", "StepState", "grad_L", "grad_fn", "eval_constraints", "constraint_values",
+    "precond_blocks", "flat_norm", "suggest_rho", "alm_outer",
 ]
 
 
 @dataclass
 class System:
-    """Static problem definition: elements, material (SVK, or Mooney-Rivlin
-    with FEAT10 elements), constraints, and the element operator `fem` that
-    holds the kernels' tables on the elements' device. plain=True routes the
-    element work through the plain PyTorch twins on any device (the on-card
+    """Static problem definition: elements, material (SVK or Mooney-Rivlin,
+    in every element family), constraints (None, `FixedCoefs`, `DensePins`
+    or `LinearConstraints`), and the element operator `fem` that holds the
+    kernels' tables on the elements' device. plain=True routes the element
+    work through the plain PyTorch twins on any device (the on-card
     reference for the kernels)."""
 
     elems: ElementBatch
     material: SVK | MooneyRivlin
-    constraints: FixedCoefs | None = None
+    constraints: FixedCoefs | DensePins | LinearConstraints | None = None
     plain: bool = False
     fem: FemOperator = field(init=False, repr=False)
 
@@ -62,7 +63,7 @@ class StepState:
 
     x: torch.Tensor  # (n, 3)
     v: torch.Tensor  # (n, 3)
-    lam: torch.Tensor  # (C, 3) duals of the pins
+    lam: torch.Tensor  # duals, shaped like eval_constraints: (C, 3), (n, 3) or (n_rows,)
     u: torch.Tensor  # (n, 3)
     dv: torch.Tensor  # (n, 3)
 
@@ -72,10 +73,16 @@ class StepState:
         if cons is None:
             lam = torch.zeros((0,), dtype=x0.dtype, device=x0.device)
         else:
-            lam = torch.zeros_like(cons.eval_c(x0))
+            lam = torch.zeros_like(eval_constraints(cons, x0))
         x_ref = node_ref(system.elems).to(x0.dtype)
         return StepState(x=x0, v=torch.zeros_like(x0), lam=lam, u=x0 - x_ref,
                          dv=torch.zeros_like(x0))
+
+
+def eval_constraints(cons, x: torch.Tensor) -> torch.Tensor:
+    """c(x): (C, 3) for FixedCoefs, (n, 3) for DensePins, (n_rows,) for
+    LinearConstraints."""
+    return cons.eval_c(x)
 
 
 def constraint_values(cons, x_prev, v, dt, elems, u_prev=None):
@@ -88,23 +95,39 @@ def constraint_values(cons, x_prev, v, dt, elems, u_prev=None):
 
 
 def _pin_terms(system: System, lam: torch.Tensor, dt: float, rho: float, dtype):
-    """Dense pin fields (`newton.py:183-198`), built once per inner solve:
-    the pin forces h (lam + rho c) are pin_aff + pin_lin * u, and their
-    Hessian term is dt * pin_lin * p, so the duals are never scattered
-    inside an inner loop."""
+    """The constraint forces dt J^T (lam + rho c) as (pin_aff, pin_lin),
+    built once per inner solve so that the duals are never scattered inside
+    an inner loop (`newton.py:183-233`): the forces are pin_aff + pin_lin *
+    u and their Hessian term dt * pin_lin * p, with pin_lin (n, 1) for the
+    pins (`FixedCoefs` expanded to dense fields, `DensePins` already dense),
+    or pin_aff + pin_lin(u) and dt * pin_lin(p), with pin_lin(p) = dt rho
+    J^T J p, for `LinearConstraints` (pin_aff = dt J^T (lam + rho c0), c0 =
+    J x_ref - b)."""
     cons = system.constraints
     if cons is None:
         return None
-    if not isinstance(cons, FixedCoefs):
-        raise TypeError(f"unsupported constraints {type(cons).__name__}")
     x_ref = node_ref(system.elems)
     n = x_ref.shape[0]
-    zero3 = torch.zeros((n, 3), dtype=dtype, device=x_ref.device)
-    lam_dense = zero3.index_copy(0, cons.idx, lam.to(dtype))
-    tgt_dense = zero3.index_copy(0, cons.idx, (cons.target - x_ref[cons.idx]).to(dtype))
-    pinmask = torch.zeros((n, 1), dtype=dtype, device=x_ref.device)
-    pinmask[cons.idx] = 1.0
-    return dt * (lam_dense - rho * tgt_dense), dt * rho * pinmask
+    if isinstance(cons, FixedCoefs):
+        zero3 = torch.zeros((n, 3), dtype=dtype, device=x_ref.device)
+        lam_dense = zero3.index_copy(0, cons.idx, lam.to(dtype))
+        tgt_dense = zero3.index_copy(0, cons.idx, (cons.target - x_ref[cons.idx]).to(dtype))
+        pinmask = torch.zeros((n, 1), dtype=dtype, device=x_ref.device)
+        pinmask[cons.idx] = 1.0
+        return dt * (lam_dense - rho * tgt_dense), dt * rho * pinmask
+    if isinstance(cons, DensePins):
+        mask = cons.mask.to(dtype)
+        tgt_u = mask * (cons.target - x_ref).to(dtype)
+        return dt * (mask * lam.to(dtype) - rho * tgt_u), dt * rho * mask
+    if isinstance(cons, LinearConstraints):
+        c0 = (cons._apply_j(x_ref) - cons.b).to(dtype)
+        aff = dt * cons.apply_jt(lam.to(dtype) + rho * c0, n)
+
+        def lin(p):
+            return dt * rho * cons.apply_jt(cons._apply_j(p), n)
+
+        return aff, lin
+    raise TypeError(f"unsupported constraints {type(cons).__name__}")
 
 
 def grad_fn(system: System, x_prev, v_prev, lam, f_ext, dt, rho, u_prev=None):
@@ -113,8 +136,9 @@ def grad_fn(system: System, x_prev, v_prev, lam, f_ext, dt, rho, u_prev=None):
     -f_ext folded once: what an inner loop calls. Per call: the packed
     [u | v | dv/dt], one K5 + K4 pass (`ElementContrib`: the twins on CPU
     tensors or when `system.plain`; on a CUDA tensor the kernels or an
-    error), and three node-wise operations. No atomics: the node sums run
-    in a fixed order and the pins are dense fields."""
+    error), and the constraint terms (`_pin_terms`: node-wise operations
+    for the pins, two fixed-order COO sums for linear rows). No atomics:
+    every sum runs in a fixed order."""
     if u_prev is None:
         u_prev = x_prev - node_ref(system.elems)
     pins = _pin_terms(system, lam, dt, rho, v_prev.dtype)
@@ -125,7 +149,8 @@ def grad_fn(system: System, x_prev, v_prev, lam, f_ext, dt, rho, u_prev=None):
         packed = torch.cat([u, v, (v - v_prev) / dt], dim=1)
         out = ElementContrib.apply(system.fem, packed, system.plain)
         if pins is not None:
-            out = out + pins[1] * u
+            lin = pins[1]
+            out = out + (lin(u) if callable(lin) else lin * u)
         return out + aff
 
     return g
@@ -172,8 +197,11 @@ def precond_blocks(v, x_prev, dt, rho, system: System, u_prev=None) -> torch.Ten
     blocks = blocks + (op.md / dt)[:, None, None] * eye
     cons = system.constraints
     if cons is not None:
-        d = cons.jtj_diag(elems.n_coef, v.dtype)
-        blocks = blocks + (dt * dt * rho) * d[:, None, None] * eye
+        d = cons.jtj_diag(elems.n_coef, v.dtype)  # (n,) pins, (n, 3) linear rows
+        if d.ndim == 1:
+            blocks = blocks + (dt * dt * rho) * d[:, None, None] * eye
+        else:
+            blocks = blocks + torch.diag_embed((dt * dt * rho) * d)
 
     blocks = 0.5 * (blocks + blocks.transpose(-1, -2))
     diag = torch.diagonal(blocks, dim1=-2, dim2=-1)

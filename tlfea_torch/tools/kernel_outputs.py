@@ -24,9 +24,9 @@ this, this, parent). Inputs come from a numpy seed, in float32 and float64:
   (`[ancf3443]`) and at the bench.py 1k box (`[feat10]`, 864 elements; the
   10k entries above hold the flagship), each of which may launch one thread
   an (element, slot), `Slots`;
-- K1 (fe and the prep cache), K2, K3 and K5 with SVK at the 64- and
+- K1 (fe and the prep cache), K2, K3, K5 and K5t with SVK at the 64- and
   1,024-element beams (`[ancf3243]`, whose K1, K2 and K5 may launch one
-  thread a quadrature point, and K3 one thread an (element, slot));
+  thread a quadrature point, and K3 and K5t one thread an (element, slot));
 - K4 at the 100k box (`tools/ablate_hv`'s "100k");
 - the persistent kernel of every (family, material) pair on one inner solve:
   FEAT10 x SVK and MR at the bench.py "1k" box, ANCF3243 x SVK and MR at
@@ -73,7 +73,7 @@ GRID = 6  # index of `grid` in the stats tensor (resident.STAT_FIELDS)
 # the bench.py 1k box (864 elements, the size of chip_smoke's
 # [composed_1k_mr]) and at the 1,024-element beam, saved as
 # "hv[feat10_mr]_e864" and "hv[ancf3243_mr]_e1024", and K5t at the 1k box and
-# the 1,024-element beam; K1, K2, K3 and K5 with SVK at the 64- and
+# the 1,024-element beam; K1, K2, K3, K5 and K5t with SVK at the 64- and
 # 1,024-element beams ("contrib[ancf3243]", "svk_blocks[ancf3243]_e1024",
 # ...); K3 and K5t with SVK at
 # the 72 x 72 shell ("svk_blocks[ancf3443]", "contrib_tangent[ancf3443]")
@@ -85,9 +85,9 @@ ELEMENT_CASES = (("feat10_mr", "flagship_problem", None, MR_KERNELS),
                  ("feat10_mr", "flagship_problem", "RESIDENT_DIMS", ("hv", "contrib_tangent")),
                  ("ancf3243_mr", "ancf_beam_problem", "BIG_BEAM", ("hv", "contrib_tangent")),
                  ("ancf3243", "ancf_beam_problem", None,
-                  ("primal_prep", "hv", "svk_blocks", "contrib")),
+                  ("primal_prep", "hv", "svk_blocks", "contrib", "contrib_tangent")),
                  ("ancf3243", "ancf_beam_problem", "BIG_BEAM",
-                  ("primal_prep", "hv", "svk_blocks", "contrib")),
+                  ("primal_prep", "hv", "svk_blocks", "contrib", "contrib_tangent")),
                  ("ancf3443", "shell_problem", None, ("svk_blocks", "contrib_tangent")),
                  ("feat10", "flagship_problem", "RESIDENT_DIMS", ("svk_blocks", "contrib_tangent")))
 

@@ -103,6 +103,10 @@ Parts (all when none is named):
             points, double-buffered) and `Slots<TE, 12>` (TE 4, 8: one chunk
             of all 12 points, a block of TE x 12 threads), float32 and
             float64, as `blocks` reports them;
+  tangent_beam_gate  K5t `contrib_tangent[ancf3243]` (SVK) in the parent
+            and `slots8_12` on the cantilevers of `GATE_BEAMS` (64 to
+            32,768 elements, 2,048 and 16,384 among them), float32 and
+            float64: where its float32 gate goes;
   k4        K4's walk in its forms (one incidence at a time, batches of
             4-32 per (node, channel), a thread per node) at the 10k box, the
             100k box and the shell, each checked bit for bit against the
@@ -693,6 +697,11 @@ BEAM_BLOCKS_CASES = tuple(("ancf3243", "ancf_beam_problem", (n,), BEAM_SLOT_FORM
                           for n in SPLIT_BEAMS)
 BEAM_TANGENT_CASES = tuple((tag, "ancf_beam_problem", (n,), BEAM_SLOT_FORMS)
                            for tag in ("ancf3243_mr", "ancf3243") for n in SPLIT_BEAMS)
+# `tangent_beam_gate`: K5t `[ancf3243]` (SVK) in the parent and `slots8_12`
+# between the beams where fem_ancf3243.cu places its float32 gate.
+GATE_BEAMS = (64, 1024, 2048, 4096, 8192, 16384, 32768)
+BEAM_GATE_CASES = tuple(("ancf3243", "ancf_beam_problem", (n,), ["parent", "slots8_12"])
+                        for n in GATE_BEAMS)
 
 
 def _ptxas_spills(pattern, key):
@@ -1085,6 +1094,7 @@ PARTS = {"elements": elements, "beams": beams, "hv": hv, "split": split, "blocks
          "tangent_feat10": lambda lib: tangent(lib, FEAT10_CASES),
          "blocks_beam": lambda lib: blocks(lib, BEAM_BLOCKS_CASES),
          "tangent_beam": lambda lib: tangent(lib, BEAM_TANGENT_CASES),
+         "tangent_beam_gate": lambda lib: tangent(lib, BEAM_GATE_CASES),
          "k4": k4, "barriers": barriers, "resident": resident}
 
 
