@@ -20,7 +20,9 @@ non-zero:
    5,184-element ANCF3443 shell plate and of a 64-element ANCF3243 beam
    (Mooney-Rivlin at a strained state, J - 1 within about +-0.4); each timed beside its twin (device time per
    launch from CUDA events, host time per wrapper call), beside its bound
-   (bytes over 3.35 TB/s or flops over 67 TFLOP/s, whichever is larger) and,
+   (bytes over 3.35 TB/s or flops over 67 TFLOP/s, whichever is larger;
+   the float64 K1, K2, K4, K5 and K5t that the accuracy mode launches also
+   timed, beside their bound at 33.5 TFLOP/s) and,
    for the node reduce, beside `Tensor.index_add_`; with each kernel's
    registers and local bytes a thread and blocks an SM (the CUDA runtime),
    and the waves its grid takes over the card's SMs (in the kernels' JSON
@@ -144,6 +146,28 @@ non-zero:
    twice, bitwise equal (no atomics), against the beam pinned by
    `FixedCoefs` on the same path: positions within 1e-5 of the
    displacement scale.
+20. accuracy_mode (after 19): `System.accum_dtype` float64 on float32
+   problems. (a) The stiff beam of `tests/test_f32_stiff.py` (8 x 2 x 2
+   cells, 192 elements, E 7e8, rho_alm 1e11, 40 steps ramped over 30) in
+   the accuracy mode (u in float64; composed K1, K2, K4 in float64, K3
+   float32, never resident), to at most 1e-3 of the load, and in pure
+   float32 (resident), to at most 1e-2; both final residuals and each
+   gradient against the float64 twins at its final state. (b) The 10k
+   flagship at bench.py's 10k_tight tolerance (0.5 % of ||f_ext||), pure
+   float32 then the accuracy mode: ms/step, median Newton and CG,
+   newton_capped_frac, the launches and those of the float64
+   instantiations (none in pure float32, K1, K2 and K4 in the accuracy
+   mode), a [trace] window. (c) `gradient_noise` with and without the
+   accuracy mode on the SVK and MR flagships, and against the float64
+   twins on the same tables cast up; then grad_L and its jvp at 10k in the
+   accuracy mode (float64 K5, K5t, K4).
+21. simulation (after 20): the 1k box of 5 pinned by `DensePins` through
+   `Simulation` + `newton.stepper` under `gravity_force`, 20 steps
+   (resident), bitwise `make_rollout`'s; `save_state` at step 10 and
+   `load_state` into a new Simulation, 10 more steps, bitwise the
+   uninterrupted run; `energy_report` every 5 steps; `set_pinned` releases
+   one pinned node for 5 more steps; a VTU of the final state under `out/`;
+   `StepTimer`'s per-phase ms.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 `{"ok": true, "device": {...}}`.
@@ -200,9 +224,9 @@ TRACE_STEPS = 16  # profiled window
 # `kernels` line, which holds only this run's measurements and bounds.
 CLUSTER_BARRIER_US = {2: 0.392, 8: 0.4195, 16: 0.4561}
 
-# H100 SXM data sheet, at the full 700 W: HBM bytes/s, float32 flop/s
-# outside the tensor cores.
-HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+# H100 SXM data sheet, at the full 700 W: HBM bytes/s, float32 and float64
+# flop/s outside the tensor cores (the kernels use no float64 tensor cores).
+HBM_BPS, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 33.5e12
 # Floating-point operations per quadrature point of each material's algebra
 # in K1/K5 (primal), K2 (hv) and K5t (tangent), an FMA counted as two, a
 # divide or a cube root as one: SVK from csrc/svk.cuh (svk_stress 310,
@@ -250,6 +274,14 @@ CHECK_INNER = 500  # the capped step of kernels against twins (VBD: 20 sweeps)
 JVP_DIRECTIONS = 8
 LIN_DIRECTIONS = 3
 HV_SCALES = ("100k", "10k")  # [hv_phases]: the script's default box, then the flagship's
+STIFF_STEPS, STIFF_RAMP = 40, 30  # [accuracy_mode] (a): tests/test_f32_stiff.py's rollout
+STIFF_BARS = {"accum": 1e-3, "f32": 1e-2}  # its final residuals over ||f_ext||
+TIGHT_TOL = 5e-3  # bench.py's "10k_tight": Newton to 0.5 % of ||f_ext||
+SIM_STEPS, SIM_EXTRA = 20, 5  # [simulation]: steps, then steps after a pin is released
+# The float64 instantiations the accuracy mode runs on a float32 problem:
+# the gradient and its products (K1, K2, K4 on the composed path; K5, K5t,
+# K4 on the first-order one). K3 and the persistent kernel stay float32.
+ACCUM_KERNELS = ("primal_prep", "hv", "node_reduce", "contrib", "contrib_tangent")
 
 
 def log(phase, msg):
@@ -469,8 +501,10 @@ def _pass_work(name, op, C=6):
 
 def _bound(words, flops, itemsize):
     """(ms, "bytes" or "operations"): the larger of words over the HBM rate
-    and flops over the float32 rate, on an H100 at 700 W."""
-    t_bytes, t_ops = words * itemsize / HBM_BPS, flops / F32_FLOPS
+    and flops over the float32 rate (itemsize 4) or the float64 rate
+    (itemsize 8), on an H100 at 700 W."""
+    rate = F64_FLOPS if itemsize == 8 else F32_FLOPS
+    t_bytes, t_ops = words * itemsize / HBM_BPS, flops / rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -509,7 +543,9 @@ def phase_kernels(device, tag, system):
     of `system` (a float64 system on the CPU); K5 against K1's fe (bitwise)
     and K5t + K4 along the Newton chain (dt p, p, p/dt) against K2 + K4
     along p. tag: the kernels' LAUNCHES tag ("feat10", "feat10_mr", ...).
-    Returns {kernel: record fields} for float32."""
+    Returns {kernel: record fields} for float32, with the float64 time and
+    bound (ms_f64, bound_ms_f64, bound_by_f64) of each kernel the accuracy
+    mode launches in float64 (ACCUM_KERNELS)."""
     import torch
 
     from tlfea_torch.ops import fem_kernels as fk
@@ -524,7 +560,7 @@ def phase_kernels(device, tag, system):
     host["packed"][:, :3] *= STRAIN_SCALE.get(tag, 1.0)
     E, S = system.elems.n_elem, system.elems.n_shape
     host["vals"] = rng.normal(size=(S * 6, E))
-    out = {}
+    out, f64_rec = {}, {}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         op = fk.FemOperator(system.elems.to(device, dtype), system.material)
         if op.tag != tag:
@@ -562,11 +598,18 @@ def phase_kernels(device, tag, system):
                                              fk.launch_blocks(name, op, C=6),
                                              None if k4 else op.E)
             log("kernels", f"{name}[{tag}] {str(dtype)[6:]} at E={E}: {occ_text}")
-            if dtype != torch.float32:
-                continue
 
             def k_call(name=name):
                 return getattr(fk, name)(op, *args[name])
+
+            if dtype != torch.float32:
+                if name in ACCUM_KERNELS:  # the accuracy mode's float64 launches
+                    ms64, _ = _device_ms(k_call, 256)
+                    b64, by64 = bound_ms(name, op, itemsize=8)
+                    f64_rec[name] = dict(ms_f64=ms64, bound_ms_f64=b64, bound_by_f64=by64)
+                    log("kernels", f"{name}[{tag}] float64 at E={E}: device {ms64:.4f} ms per "
+                        f"launch (bound {b64:.4f} ms by {by64}, {b64 / ms64:.3f} of it)")
+                continue
 
             def p_call(name=name):
                 return getattr(fk, name + "_plain")(op, *args[name])
@@ -596,6 +639,7 @@ def phase_kernels(device, tag, system):
                              bound_by=b_by, library_ms=lib_ms, **occ)
             if name in extra:
                 out[name].update(extra[name])
+            out[name].update(f64_rec.get(name, {}))
     return out
 
 
@@ -791,11 +835,14 @@ def rollout_phase(tag, device, problem, n_steps, traced=True, coarse=True):
             "state": s}
 
 
-def gradient_noise(tag, device, state, material=None, dims=(2.0, 0.35, 0.3, 42, 7, 6)):
+def gradient_noise(tag, device, state, material=None, dims=(2.0, 0.35, 0.3, 42, 7, 6),
+                   accum=False):
     """The float32 kernels' ALM gradient (K5 + K4, `grad_L` at v = v_prev)
     against the float64 twins' from the same float32 state, over the
     flagship's ||f_ext||: the gradient's rounding noise, beside Newton's
-    tolerance of 2.5e-2 ||f_ext||. Returns ||dg|| / ||f_ext||."""
+    tolerance of 2.5e-2 ||f_ext||. accum: the accuracy mode's gradient
+    (float64 K5 + K4 on the float32 tables cast up, u widened) in place of
+    the float32 kernels'. Returns ||dg|| / ||f_ext||."""
     import torch
 
     from tlfea_torch.solvers.common import grad_L
@@ -804,13 +851,16 @@ def gradient_noise(tag, device, state, material=None, dims=(2.0, 0.35, 0.3, 42, 
     sys64, _, f64, _ = flagship_problem(device, torch.float64, dims, material)
     sys64 = replace(sys64, plain=True)
     x, v, lam, u = (getattr(state, k) for k in ("x", "v", "lam", "u"))
+    if accum:
+        sys32, u = sys32.replace(accum_dtype=torch.float64), u.double()
     g32 = grad_L(v, x, v, lam, f32, prm.dt, prm.rho, sys32, u_prev=u)
     x, v, lam, u = (t.double() for t in (x, v, lam, u))
     g64 = grad_L(v, x, v, lam, f64, prm.dt, prm.rho, sys64, u_prev=u)
     dg = g32.double() - g64
     rel = float(dg.norm() / f64.norm())
     node = float(dg.norm(dim=1).max() / f64.norm(dim=1).max())
-    log(tag, f"float32 kernels' gradient vs the float64 twins' at the last state: ||dg|| / "
+    log(tag, f"{'accuracy-mode' if accum else 'float32'} kernels' gradient vs the float64 "
+        f"twins' at the last state: ||dg|| / "
         f"||f_ext|| = {rel:.3e} (Newton's tolerance 2.5e-2), max over nodes |dg| / max |f_ext| "
         f"= {node:.3e}")
     return rel
@@ -1191,6 +1241,311 @@ def linear_rows(device):
     if not same or not rel < LINEAR_ROWS_TOL:
         raise AssertionError(f"{tag}: linear rows are not repeatable or disagree with FixedCoefs")
     return la
+
+
+def stiff_problem(device, accum):
+    """[accuracy_mode] (a)'s problem, `tests/test_f32_stiff.py:27-62`: box
+    1.0 x 0.2 x 0.15, 8 x 2 x 2 cells (192 FEAT10 elements), SVK at E 7e8,
+    nu 0.3, damping 1e5, x = 0 face pinned, gravity, float32 (the material
+    and solver constants rounded to float32 as the test's are); accum:
+    `System.accum_dtype` float64 with u carried in float64. Returns
+    (system, state, f_ext, params)."""
+    import torch
+
+    from tlfea_torch.constraints import FixedCoefs
+    from tlfea_torch.elements import feat10
+    from tlfea_torch.elements.assembly import lumped_mass
+    from tlfea_torch.materials import SVK, lame_from_E_nu
+    from tlfea_torch.solvers import StepState, System
+    from tlfea_torch.solvers.newton import NewtonParams
+    from tlfea_torch.utils.tetmesh import box_t10_mesh
+
+    def f32(a):
+        return float(np.float32(a))
+
+    nodes, conn = box_t10_mesh(1.0, 0.2, 0.15, 8, 2, 2)
+    lam, mu = lame_from_E_nu(7e8, 0.3)
+    elems_cpu = feat10.build(nodes, conn, rho=1000.0, dtype=torch.float32, device="cpu")
+    f_ext = torch.zeros((len(nodes), 3), dtype=torch.float32)
+    f_ext[:, 2] = lumped_mass(elems_cpu) * np.float32(-9.81)
+    x0 = torch.as_tensor(nodes, dtype=torch.float32, device=device)
+    system = System(elems=elems_cpu.to(device), material=SVK(f32(lam), f32(mu), 1e5, 1e5),
+                    constraints=FixedCoefs.from_indices(np.nonzero(nodes[:, 0] < 1e-12)[0], x0),
+                    accum_dtype=torch.float64 if accum else None)
+    state = StepState.rest(system, x0)
+    if accum:
+        state = state.replace(u=state.u.double())
+    fs = float(f_ext.norm())
+    params = NewtonParams(dt=f32(1e-3), rho=f32(1e11), inner_atol=f32(1e-4 * fs),
+                          inner_rtol=0.0, outer_tol=f32(1e-5 * fs), max_outer=2, max_inner=8,
+                          cg_rtol=f32(1e-4), cg_max_iter=300, ew_eta_max=0.0)
+    return system, state, f_ext.to(device), params
+
+
+def _grad_vs_f64(system, state, f_ext, params):
+    """(||g - g64||, ||g64||) over ||f_ext||: the system's gradient (the
+    kernels: K5 + K4, float64 ones in the accuracy mode) at v = v_prev
+    against the float64 twins' on the same tables cast up and the same
+    state. The accuracy mode's g is a float64 sum cast to float32, so its
+    floor is about float32's eps times ||g64||."""
+    import torch
+
+    from tlfea_torch.constraints import FixedCoefs
+    from tlfea_torch.solvers import System
+    from tlfea_torch.solvers.common import grad_L
+
+    x, v, lam, u = state.x, state.v, state.lam, state.u
+    g = grad_L(v, x, v, lam, f_ext, params.dt, params.rho, system, u_prev=u)
+    cons = system.constraints
+    sys64 = System(elems=system.elems.to(dtype=torch.float64), material=system.material,
+                   constraints=FixedCoefs(cons.idx, cons.target.double()), plain=True)
+    x, v, lam, u, f64 = (t.double() for t in (x, v, lam, u, f_ext))
+    g64 = grad_L(v, x, v, lam, f64, params.dt, params.rho, sys64, u_prev=u)
+    return float((g.double() - g64).norm() / f64.norm()), float(g64.norm() / f64.norm())
+
+
+def _stiff_rollout(device, accum):
+    """(a)'s 40 steps under the load ramped over 30, through `newton.step`:
+    (final ||g|| / ||f_ext||, final state, the gradient against the
+    float64 twins there, launches, float64 launches, seconds)."""
+    import torch
+
+    from tlfea_torch.ops import fem_kernels as fk
+    from tlfea_torch.solvers import newton
+
+    system, state, f_ext, params = stiff_problem(device, accum)
+    fs = float(f_ext.norm())
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    final = float("nan")
+    for k in range(STIFF_STEPS):
+        state, diag = newton.step(system, state, params,
+                                  f_ext * float(np.float32(min(1.0, (k + 1) / STIFF_RAMP))))
+        h = diag["norm_g_history"]
+        h = h[torch.isfinite(h)]
+        if len(h) == 0:
+            raise AssertionError(f"accuracy_mode: the stiff beam diverged at step {k}")
+        final = float(h[-1]) / fs
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    la, la64 = dict(fk.LAUNCHES), dict(fk.LAUNCHES_F64)
+    if not bool(torch.isfinite(state.x).all()):
+        raise AssertionError("accuracy_mode: the stiff beam's state is not finite")
+    return final, state, _grad_vs_f64(system, state, f_ext, params), la, la64, secs
+
+
+def _tight_rollout(device, accum):
+    """(b): the 10k flagship at bench.py's 10k_tight tolerance (0.5 % of
+    ||f_ext||) with its coarse correction, a warm-up and a timed ROLLOUT,
+    the launch counts of the timed one, and a [trace] window."""
+    import torch
+
+    from tlfea_torch.ops import fem_kernels as fk
+    from tlfea_torch.solvers import newton
+    from tlfea_torch.solvers.coarse import build_coarse_precond
+
+    tag = "accuracy_mode"
+    system, state, f_ext, params = flagship_problem(device, torch.float32)
+    params = replace(params, inner_atol=TIGHT_TOL * float(f_ext.norm()))
+    if accum:
+        system = system.replace(accum_dtype=torch.float64)
+        state = state.replace(u=state.u.double())
+    co = build_coarse_precond(system, state.x, params.dt, params.rho, max_agg=512)
+    roll = newton.make_rollout(system, params, ROLLOUT, coarse=co, precond_refresh=8)
+    state, _ = roll(state, f_ext)
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, (nit, cgit) = roll(state, f_ext)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / ROLLOUT * 1e3
+    la = {k: fk.LAUNCHES[fk.launch_key(k, system.fem)] for k in KERNELS}
+    la64 = {k: fk.LAUNCHES_F64[fk.launch_key(k, system.fem)] for k in KERNELS}
+    if not bool(torch.isfinite(state.x).all()):
+        raise AssertionError(f"{tag}: the 10k_tight rollout is not finite")
+    nit, cgit = np.asarray(nit), np.asarray(cgit)
+    mode = "float32 + accum_dtype float64" if accum else "pure float32"
+    log(tag, f"(b) 10k_tight, {mode}: {ms:.3f} ms/step over {ROLLOUT} steps; Newton/step "
+        f"median {np.median(nit):g}, CG/step median {np.median(cgit):g}, newton_capped_frac "
+        f"{float((nit >= params.max_inner).mean()):.3f}; launches {la}, of them float64 {la64}")
+    by_name = _device_profile(lambda: newton.make_rollout(
+        system, params, TRACE_STEPS, coarse=co, precond_refresh=8)(state, f_ext))
+    _log_profile(tag, by_name, TRACE_STEPS, "step", ms)
+    return {"ms": ms, "newton": nit, "cg": cgit, "launches": la, "launches_f64": la64,
+            "state": state, "capped": float((nit >= params.max_inner).mean())}
+
+
+def accuracy_mode(device):
+    """[accuracy_mode] (the module's docstring, 20). Returns the accuracy
+    mode's launches in its 10k_tight rollout, {kernel: (all, float64)}, and
+    in its first-order gradient and jvp, {kernel: float64} (ACCUM_KERNELS;
+    every launch there is float64)."""
+    import torch
+
+    from tlfea_torch.ops import fem_kernels as fk
+    from tlfea_torch.ops import resident
+    from tlfea_torch.solvers import newton
+    from tlfea_torch.solvers.common import grad_L
+
+    tag = "accuracy_mode"
+    # (a) the stiff beam, accuracy mode and pure float32.
+    runs = {}
+    for mode in ("accum", "f32"):
+        final, st, (dg, gn), la, la64, secs = runs[mode] = _stiff_rollout(device, mode == "accum")
+        used = {k: v for k, v in la.items() if v}
+        used64 = {k: v for k, v in la64.items() if v}
+        log(tag, f"(a) stiff beam, {mode}: {STIFF_STEPS} steps in {secs:.2f} s, final ||g|| = "
+            f"{final:.3e} of the load (bar {STIFF_BARS[mode]:g}); gradient at the final state "
+            f"(v = v_prev, ||g64|| {gn:.3e} of the load) against the float64 twins' {dg:.3e} "
+            f"of the load; launches {used}, float64 "
+            f"{used64}; u {str(st.u.dtype)[6:]}, x {str(st.x.dtype)[6:]}")
+    la, la64 = runs["accum"][3], runs["accum"][4]
+    if la["newton_resident[feat10]"] or min(la64[f"{k}[feat10]"] for k in
+                                            ("primal_prep", "hv", "node_reduce")) <= 0:
+        raise AssertionError(f"{tag}: the accuracy mode must run K1, K2, K4 in float64 and "
+                             f"never the persistent kernel: {la64}")
+    if any(runs["f32"][4].values()) or not runs["f32"][3]["newton_resident[feat10]"]:
+        raise AssertionError(f"{tag}: pure float32 must run resident, with no float64 launch")
+    if not (runs["accum"][0] <= STIFF_BARS["accum"] and runs["f32"][0] <= STIFF_BARS["f32"]):
+        raise AssertionError(f"{tag}: final residuals {runs['accum'][0]:.3e} / "
+                             f"{runs['f32'][0]:.3e} over their bars {STIFF_BARS}")
+    system, _, _, _ = stiff_problem(device, True)
+    if resident.eligible(system, None):
+        raise AssertionError(f"{tag}: the resident gate admitted the accuracy mode")
+
+    # (b) the 10k flagship at 10k_tight, pure float32 then the accuracy mode.
+    tight = {mode: _tight_rollout(device, mode == "accum") for mode in ("f32", "accum")}
+    if any(tight["f32"]["launches_f64"].values()):
+        raise AssertionError(f"{tag}: pure float32 launched float64 kernels")
+    if min(tight["accum"]["launches_f64"][k] for k in ("primal_prep", "hv", "node_reduce")) <= 0:
+        raise AssertionError(f"{tag}: the accuracy mode launched no float64 K1, K2 or K4")
+
+    # (c) the gradient's rounding noise beside float32's, SVK at (b)'s final
+    # state and Mooney-Rivlin at the end of a float32 ROLLOUT.
+    mr_problem = flagship_problem(device, torch.float32, material=mooney_rivlin())
+    mr_state, _ = newton.make_rollout(mr_problem[0], mr_problem[3], ROLLOUT)(mr_problem[1],
+                                                                             mr_problem[2])
+    for name, st, (system, _, f_ext, prm) in (
+            ("flagship", tight["f32"]["state"], flagship_problem(device, torch.float32)),
+            ("mr_flagship", mr_state, mr_problem)):
+        mat = system.material
+        gradient_noise(f"{tag}] [{name}", device, st, mat)
+        gradient_noise(f"{tag}] [{name}", device, st, mat, accum=True)
+        same = {mode: _grad_vs_f64(sysm, st.replace(u=st.u.to(udt)), f_ext, prm)
+                for mode, sysm, udt in (
+                    ("float32", system, torch.float32),
+                    ("accum", system.replace(accum_dtype=torch.float64), torch.float64))}
+        log(tag, f"(c) {name}: the gradient against the float64 twins on the same tables cast "
+            f"up (table rounding left out): float32 {same['float32'][0]:.3e}, accuracy mode "
+            f"{same['accum'][0]:.3e} of ||f_ext||, where ||g64|| is {same['accum'][1]:.3e} of "
+            f"it")
+
+    # The first-order path in the accuracy mode: K5 + K4 and the jvp's K5t +
+    # K4 in float64, counted apart.
+    fk.reset_launch_counts()
+    system, state, f_ext, prm = flagship_problem(device, torch.float32)
+    system = system.replace(accum_dtype=torch.float64)
+    u = state.u.double()
+    p = torch.randn_like(state.v, generator=torch.Generator(device=device).manual_seed(SEED))
+    g, jv = torch.func.jvp(lambda v: grad_L(v, state.x, state.v, state.lam, f_ext, prm.dt,
+                                            prm.rho, system, u_prev=u), (state.v,), (p,))
+    torch.cuda.synchronize()
+    first = {k: fk.LAUNCHES_F64[fk.launch_key(k, system.fem)] for k in ACCUM_KERNELS}
+    log(tag, f"grad_L and its jvp in the accuracy mode at 10k: {str(g.dtype)[6:]} / "
+        f"{str(jv.dtype)[6:]} results, float64 launches {first}")
+    if min(first[k] for k in ("contrib", "contrib_tangent", "node_reduce")) <= 0:
+        raise AssertionError(f"{tag}: the first-order path launched no float64 K5 / K5t / K4")
+    la, la64 = tight["accum"]["launches"], tight["accum"]["launches_f64"]
+    return {k: (la[k], la64[k]) for k in KERNELS}, first
+
+
+def simulation_phase(device):
+    """[simulation] (the module's docstring, 21). Returns the launches of
+    its rollouts, summed by kernel (KERNELS and newton_resident)."""
+    import torch
+
+    from tlfea_torch.diagnostics import energy_report
+    from tlfea_torch.ops import fem_kernels as fk
+    from tlfea_torch.ops import resident
+    from tlfea_torch.simulation import Simulation, gravity_force
+    from tlfea_torch.solvers import newton
+    from tlfea_torch.utils import io_vtk
+    from tlfea_torch.utils.profiling import StepTimer
+
+    tag = "simulation"
+    system, state0, _, params = flagship_problem(device, torch.float32, RESIDENT_DIMS,
+                                                 pins="dense")
+    if not resident.eligible(system, None):
+        raise AssertionError(f"{tag}: the DensePins 1k box must pass the resident gate")
+    f_ext = gravity_force(system)
+    timer = StepTimer()
+    names = KERNELS + ("newton_resident",)
+
+    def report(sim, k, diag):
+        if (k + 1) % 5 == 0:
+            rep = {key: val.tolist() for key, val in energy_report(
+                sim.state.x, sim.state.v, sim.system.elems, sim.system.material).items()}
+            log(tag, f"step {sim.step_count}: Newton {diag['newton_iters']}, CG "
+                f"{diag['cg_iters']}; energy_report {rep}")
+
+    def timed(sim, n, cb=None):
+        for k in range(n):
+            with timer.phase("step", block_on=sim.state.x):
+                diag = sim.step()
+            if cb is not None:
+                cb(sim, k, diag)
+
+    fk.reset_launch_counts()
+    sim = Simulation(system, state0, newton.stepper(params), base_f_ext=f_ext)
+    timed(sim, SIM_STEPS, report)
+    la = {k: fk.LAUNCHES[fk.launch_key(k, system.fem)] for k in names}
+    if la["newton_resident"] < SIM_STEPS or la["primal_prep"] or la["hv"]:
+        raise AssertionError(f"{tag}: Simulation + stepper left the resident path: {la}")
+    ref, _ = newton.make_rollout(system, params, SIM_STEPS)(state0, f_ext)
+    same_roll = all(torch.equal(getattr(sim.state, k), getattr(ref, k)) for k in ("x", "v", "u"))
+    log(tag, f"Simulation + stepper against make_rollout over {SIM_STEPS} steps: "
+        f"{'bitwise equal' if same_roll else 'NOT bitwise equal'} (both resident); launches {la}")
+
+    # Checkpoint at step SIM_STEPS / 2, resumed in a new Simulation.
+    half = SIM_STEPS // 2
+    path = os.path.join(ROOT, "out", "simulation_checkpoint.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    first = Simulation(system, state0, newton.stepper(params), base_f_ext=f_ext)
+    timed(first, half)
+    with timer.phase("save_state"):
+        first.save_state(path)
+    resumed = Simulation(system, state0, newton.stepper(params), base_f_ext=f_ext)
+    with timer.phase("load_state", block_on=resumed.state.x):
+        resumed.load_state(path)
+    timed(resumed, SIM_STEPS - half)
+    same_resume = resumed.step_count == SIM_STEPS and all(
+        torch.equal(getattr(resumed.state, k), getattr(sim.state, k))
+        for k in ("x", "v", "lam", "u", "dv"))
+    log(tag, f"save_state at step {half}, load_state, {SIM_STEPS - half} more steps: "
+        f"{'bitwise equal' if same_resume else 'NOT bitwise equal'} to the uninterrupted run")
+    if not (same_roll and same_resume):
+        raise AssertionError(f"{tag}: Simulation is not bitwise make_rollout or its resume")
+
+    # Release one pinned node and step on.
+    pinned = torch.nonzero(sim.system.constraints.mask[:, 0]).squeeze(1)
+    node = int(pinned[len(pinned) // 2])
+    z0 = float(sim.state.x[node, 2])
+    sim.set_pinned([node], False)
+    timed(sim, SIM_EXTRA, report)
+    dz = float(sim.state.x[node, 2]) - z0
+    log(tag, f"node {node} released: {SIM_EXTRA} steps moved it {dz:+.3e} m in z; "
+        f"{int(sim.system.constraints.mask.sum())} of {len(pinned)} pins left")
+    if not bool(torch.isfinite(sim.state.x).all()) or sim.system.constraints.mask[node] != 0:
+        raise AssertionError(f"{tag}: set_pinned failed")
+    vtu = os.path.join(ROOT, "out", "simulation_final.vtu")
+    with timer.phase("write_vtu"):
+        io_vtk.write_vtu_t10(vtu, sim.system.elems.x_ref, sim.system.elems.conn,
+                             displacement=sim.state.u)
+    log(tag, f"wrote {os.path.relpath(vtu, ROOT)} ({os.path.getsize(vtu)} bytes)")
+    for line in timer.report().splitlines():
+        log(tag, "StepTimer " + line)
+    total = {k: fk.LAUNCHES[fk.launch_key(k, system.fem)] for k in names}
+    return total
 
 
 def shell_theory(device, steps=THEORY_STEPS):
@@ -1793,6 +2148,14 @@ def main():
     rows = linear_rows(device)
     launches["ancf3243"] = {k: launches["ancf3243"][k] + rows[k] for k in KERNELS}
     done("linear_rows")
+    accum_newton, accum_first = accuracy_mode(device)
+    launches["feat10"] = {k: launches["feat10"][k] + accum_newton[k][0] for k in KERNELS}
+    done("accuracy_mode")
+    sim = simulation_phase(device)
+    launches["feat10"] = {k: launches["feat10"][k] + sim[k] for k in KERNELS}
+    record, res_launches, comp = resident_runs["feat10"]
+    resident_runs["feat10"] = (record, res_launches + sim["newton_resident"], comp)
+    done("simulation")
 
     # The first-order path: K5 + K4 for every gradient, K5t + K4 for its jvp.
     problem = flagship_problem(device, torch.float32)
@@ -1821,8 +2184,11 @@ def main():
     mr_jvp = jvp_phase("jvp", device, mr_problem, mr_first["state"])
     done("jvp (Mooney-Rivlin)")
 
-    launches["feat10"]["contrib"] = sum(r["launches"]["contrib"] for r in first.values())
-    launches["feat10"]["contrib_tangent"] = jvp_launches["contrib_tangent"] + lin_launches
+    launches["feat10"]["contrib"] = (sum(r["launches"]["contrib"] for r in first.values())
+                                     + accum_first["contrib"])
+    launches["feat10"]["contrib_tangent"] = (jvp_launches["contrib_tangent"] + lin_launches
+                                             + accum_first["contrib_tangent"])
+    launches["feat10"]["node_reduce"] += accum_first["node_reduce"]
     launches["feat10_mr"]["contrib"] = mr_first["launches"]["contrib"]
     launches["feat10_mr"]["contrib_tangent"] = mr_jvp["contrib_tangent"]
     for tag, fl in ancf_first.items():
@@ -1837,6 +2203,12 @@ def main():
         return BODY_REPLACES.get(name) or (NODE_REDUCE_REPLACES if name == "node_reduce"
                                            else REPLACES[tag.removesuffix("_mr")][name])
 
+    # The accuracy mode's float64 launches on the path ([accuracy_mode]):
+    # K1, K2, K4 of the 10k_tight rollout, K5 and K5t of its first-order
+    # gradient and jvp.
+    for name in ACCUM_KERNELS:
+        timings["feat10"][name]["launches_f64"] = (accum_newton.get(name, (0, 0))[1]
+                                                   + accum_first[name])
     entries = [(f"{name}[{tag}]", src(tag, name), replaces(tag, name),
                 launches[tag][name], timings[tag][name])
                for tag in ("feat10", "ancf3443", "ancf3243", "feat10_mr", "ancf3443_mr",
@@ -1858,7 +2230,8 @@ def main():
     keys = ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "regs", "waves", "block", "max_abs_err_f64", "max_rel_err_f64", "per_pass_bound_ms", "barriers",
             "grid", "f32_vs_f64_plain", f"ms_e{BIG_BEAM}", f"bound_ms_e{BIG_BEAM}", f"max_rel_err_f64_e{BIG_BEAM}",
-            f"grid_e{BIG_BEAM}", "ms_10k", "plain_ms_10k", "bound_ms_10k")
+            f"grid_e{BIG_BEAM}", "ms_10k", "plain_ms_10k", "bound_ms_10k", "launches_f64",
+            "ms_f64", "bound_ms_f64", "bound_by_f64")
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": sr, "replaces": rp, "launches": la,
          **{k: (float(f"{r[k]:.4g}") if isinstance(r[k], float) else r[k])

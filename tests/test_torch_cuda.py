@@ -1605,3 +1605,135 @@ def test_feat10_tangent_tiles_report_the_block_they_launch(cuda_dev, kernel, dty
         assert (occ["elements"], occ["threads"], occ["blocks_per_sm"]) == (te, te * 10, per_sm), E
     op = _box_case(cuda_dev, dtype, 33, _svk())[0]
     assert fk.launch_blocks(kernel, op) == -(-33 // te)
+
+
+def _accum_case(device):
+    """The float32 box in the accuracy mode (`System.accum_dtype` float64)
+    at a strained, moving state with u in float64, and a direction."""
+    system, x0, f_ext = _box_system(device, torch.float32)
+    system = system.replace(accum_dtype=torch.float64)
+    gen = torch.Generator(device=device).manual_seed(18)
+    state = StepState.rest(system, x0)
+    u = state.u.double() + 1e-3 * torch.randn(x0.shape, device=device, dtype=torch.float64,
+                                              generator=gen)
+    v, v_prev, p = (torch.randn(x0.shape, device=device, generator=gen) for _ in range(3))
+    return system, state, u, v, v_prev, p, f_ext
+
+
+@pytest.mark.cuda
+def test_accum_g_and_hvp_runs_the_float64_kernels(cuda_dev):
+    """The accuracy mode's g and H p on the card: K1, K2 and K4 in float64
+    (and no other launch), against the plain twins on the same inputs:
+    within 1e-12 before the downcast (float64 v), and float32 results
+    within one float32 rounding of the twins' after it."""
+    from tlfea_torch.solvers.common import _pin_terms
+
+    system, state, u, v, v_prev, p, f_ext = _accum_case(cuda_dev)
+    op = system.grad_op
+    assert op is system.fem_wide and op.gN_t.dtype == torch.float64
+    pins = _pin_terms(system, state.lam, DT, 1e7, torch.float64)
+    fk.reset_launch_counts()
+    g, hvp = fk.g_and_hvp(v, u, v_prev, f_ext, DT, op, pins)
+    h = hvp(p)
+    torch.cuda.synchronize()
+    assert g.dtype == h.dtype == torch.float32
+    assert fk.LAUNCHES_F64 == fk.LAUNCHES
+    assert {k: fk.LAUNCHES_F64[f"{k}[feat10]"] for k in ("primal_prep", "hv", "node_reduce")} \
+        == {"primal_prep": 1, "hv": 1, "node_reduce": 2} and sum(fk.LAUNCHES.values()) == 4
+    g_p, hvp_p = fk.g_and_hvp(v, u, v_prev, f_ext, DT, op, pins, plain=True)
+    assert _rel(g, g_p) < 1e-6 and _rel(h, hvp_p(p)) < 1e-6
+    wide = [t.double() for t in (v, v_prev, p)]
+    g64, hvp64 = fk.g_and_hvp(wide[0], u, wide[1], f_ext, DT, op, pins)
+    g64_p, hvp64_p = fk.g_and_hvp(wide[0], u, wide[1], f_ext, DT, op, pins, plain=True)
+    assert g64.dtype == torch.float64
+    assert _rel(g64, g64_p) < 1e-12 and _rel(hvp64(wide[2]), hvp64_p(wide[2])) < 1e-12
+
+
+@pytest.mark.cuda
+def test_accum_grad_L_runs_float64_k5_and_raises_without_the_library(cuda_dev, monkeypatch):
+    """grad_L and its jvp in the accuracy mode launch K5, K5t and K4 in
+    float64, equal to the twins within one float32 rounding; with the
+    library missing they raise, with no launch and no plain fallback."""
+    from tlfea_torch.solvers.common import grad_L
+
+    system, state, u, v, v_prev, p, f_ext = _accum_case(cuda_dev)
+
+    def g_of(sysx):
+        return lambda vv: grad_L(vv, state.x, v_prev, state.lam, f_ext, DT, 1e7, sysx, u_prev=u)
+
+    fk.reset_launch_counts()
+    g, dg = torch.func.jvp(g_of(system), (v,), (p,))
+    assert {k: fk.LAUNCHES_F64[f"{k}[feat10]"] for k in ("contrib", "contrib_tangent",
+                                                         "node_reduce")} == {
+        "contrib": 1, "contrib_tangent": 1, "node_reduce": 2}
+    assert g.dtype == dg.dtype == torch.float32
+    g_p, dg_p = torch.func.jvp(g_of(replace(system, plain=True)), (v,), (p,))
+    assert _rel(g, g_p) < 1e-6 and _rel(dg, dg_p) < 1e-6
+
+    def missing():
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the FEM kernels need the CUDA toolkit")
+
+    monkeypatch.setattr(fk, "build_kernels", missing)
+    fk.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        g_of(system)(v)
+    assert sum(fk.LAUNCHES.values()) == 0
+
+
+@pytest.mark.cuda
+def test_accum_step_refuses_the_resident_kernel(cuda_dev):
+    """The box passes the resident gate in float32 and not in the accuracy
+    mode, whose step runs the composed path: no persistent launch, float64
+    K1, K2 and K4, u kept in float64 and x in float32."""
+    system, x0, f_ext = _box_system(cuda_dev, torch.float32)
+    assert resident.eligible(system, None)
+    system = system.replace(accum_dtype=torch.float64)
+    assert not resident.eligible(system, None)
+    state = StepState.rest(system, x0)
+    state = state.replace(u=state.u.double())
+    fs = float(f_ext.norm())
+    params = newton.NewtonParams(dt=DT, rho=1e7, inner_atol=1e-3 * fs, max_outer=1, max_inner=4,
+                                 cg_rtol=1e-3, cg_max_iter=50)
+    fk.reset_launch_counts()
+    st, diag = newton.step(system, state, params, f_ext)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["newton_resident[feat10]"] == 0 and diag["newton_iters"] >= 1
+    assert min(fk.LAUNCHES_F64[f"{k}[feat10]"] for k in ("primal_prep", "hv", "node_reduce")) > 0
+    assert st.u.dtype == torch.float64 and st.x.dtype == st.v.dtype == torch.float32
+    assert bool(torch.isfinite(st.x).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["resident", "composed"])
+def test_simulation_resume_is_bitwise(cuda_dev, monkeypatch, tmp_path, path):
+    """Simulation + newton.stepper on the card: six steps, or three, a
+    checkpoint, a new Simulation loaded from it and three more, bitwise
+    equal; both equal to make_rollout's six, bitwise (the same `_step`)."""
+    from tlfea_torch.simulation import Simulation, gravity_force
+
+    system, x0, _ = _box_system(cuda_dev, torch.float32, dims=(1.0, 0.2, 0.2, 6, 1, 1))
+    if path == "composed":
+        monkeypatch.setattr(resident, "eligible", lambda *a, **k: False)
+    f_ext = gravity_force(system)
+    fs = float(f_ext.norm())
+    params = newton.NewtonParams(dt=DT, rho=1e7, inner_atol=2.5e-2 * fs, max_outer=1,
+                                 max_inner=6, cg_rtol=1e-3, cg_max_iter=50)
+    state0 = StepState.rest(system, x0)
+    fk.reset_launch_counts()
+    whole = Simulation(system, state0, newton.stepper(params), base_f_ext=f_ext)
+    whole.run(6)
+    key = "newton_resident[feat10]" if path == "resident" else "primal_prep[feat10]"
+    assert fk.LAUNCHES[key] > 0
+    first = Simulation(system, state0, newton.stepper(params), base_f_ext=f_ext)
+    first.run(3)
+    ckpt = str(tmp_path / "state.npz")
+    first.save_state(ckpt)
+    second = Simulation(system, state0, newton.stepper(params), base_f_ext=f_ext)
+    second.load_state(ckpt)
+    assert second.step_count == 3 and second.state.x.device == x0.device
+    second.run(3)
+    ref, _ = newton.make_rollout(system, params, 6)(state0, f_ext)
+    for k in ("x", "v", "lam", "u", "dv"):
+        assert torch.equal(getattr(second.state, k), getattr(whole.state, k)), k
+    for k in ("x", "v", "u"):
+        assert torch.equal(getattr(ref, k), getattr(whole.state, k)), k

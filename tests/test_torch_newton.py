@@ -169,7 +169,11 @@ def test_import_leaves_jax_out():
             "tlfea_torch.ops.resident, tlfea_torch.solvers.adamw, tlfea_torch.solvers.nesterov, "
             "tlfea_torch.solvers.vbd, tlfea_torch.utils.coloring, "
             "tlfea_torch.materials.mooney_rivlin, tlfea_torch.ops.hv_phases, "
-            "tlfea_torch.tools.ablate_hv; "
+            "tlfea_torch.tools.ablate_hv, tlfea_torch.diagnostics, tlfea_torch.simulation, "
+            "tlfea_torch.elements.assembly, tlfea_torch.utils.tetmesh, "
+            "tlfea_torch.utils.profiling, tlfea_torch.utils.io_vtk, "
+            "tlfea_torch.utils.mesh_manager, tlfea_torch.utils.pressure, "
+            "tlfea_torch.utils.ancf_mesh, tlfea_torch.utils.cli; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tlfea.'))); "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)

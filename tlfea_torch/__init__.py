@@ -11,9 +11,13 @@ ANCF3443 elements: damped St. Venant-Kirchhoff and Mooney-Rivlin, pins
 (`FixedCoefs`, `DensePins`) and general linear constraint rows, backward
 Euler as an augmented-Lagrangian minimisation over velocity, matrix-free
 Newton-PCG with a block-Jacobi preconditioner and the frozen
-coarse correction. Its element work runs in hand-written CUDA kernels
-(`tlfea_torch/csrc/`, wrapped by `tlfea_torch.ops.fem_kernels`), each
-beside a plain PyTorch twin. Builders and `interop.from_numpy_system` put
+coarse correction, the first-order solvers, and the accuracy mode
+(`System.accum_dtype`: float64 kernels under a float32 problem). Its
+element work runs in hand-written CUDA kernels (`tlfea_torch/csrc/`,
+wrapped by `tlfea_torch.ops.fem_kernels`), each beside a plain PyTorch
+twin. Around the solvers: `simulation.Simulation` (stepping, checkpoints,
+re-pinning), `diagnostics`, and the host utilities of `utils` (mesh IO,
+VTK writers, scenes, profiling). Builders and `interop.from_numpy_system` put
 their tensors on the card unless given device="cpu".
 
 Precision: float32 matrix products and convolutions run in full float32.
@@ -30,3 +34,4 @@ _torch.set_float32_matmul_precision("highest")
 __version__ = "0.1.0"
 
 from tlfea_torch import utils, materials, elements, ops, constraints, solvers, interop  # noqa: E402,F401
+from tlfea_torch import diagnostics, simulation  # noqa: E402,F401

@@ -74,10 +74,13 @@ def _constraints(constraints, t, idx):
 
 
 def from_numpy_system(elems, material, constraints=None, state=None, params=None, *,
-                      device="cuda", dtype=torch.float64):
+                      device="cuda", dtype=torch.float64, accum_dtype=None):
     """(System, StepState or None, solver parameters or None) from the JAX
     package's objects, on `device` (pass device="cpu" to stay on the host).
-    Floating arrays are cast to `dtype`, index arrays to int64; the
+    Floating arrays are cast to `dtype`, index arrays to int64, except a
+    float64 `state.u`, which stays float64 (the accuracy mode's wide
+    displacement); accum_dtype, the JAX `System.accum_dtype` ("float64",
+    a torch dtype or None), becomes the port's. The
     parameters (Newton, AdamW, Nesterov or VBD, told apart by their
     fields) become the port's dataclass of Python numbers, and the material
     the port's SVK or MooneyRivlin (`_material`), the constraints the
@@ -85,8 +88,10 @@ def from_numpy_system(elems, material, constraints=None, state=None, params=None
     port does not carry: another material or constraints object, a non-zero
     `max_dv`, or a batch without x_ref."""
 
-    def t(a):
-        return torch.as_tensor(np.array(a), device=device).to(dtype)
+    def t(a, keep_f64=False):
+        a = np.array(a)
+        wide = keep_f64 and a.dtype == np.float64
+        return torch.as_tensor(a, device=device).to(torch.float64 if wide else dtype)
 
     def idx(a):
         return torch.as_tensor(np.array(a, dtype=np.int64), device=device)
@@ -101,14 +106,16 @@ def from_numpy_system(elems, material, constraints=None, state=None, params=None
     )
     mat = _material(material)
     cons = None if constraints is None else _constraints(constraints, t, idx)
-    system = System(elems=eb, material=mat, constraints=cons)
+    if isinstance(accum_dtype, str):
+        accum_dtype = getattr(torch, accum_dtype)
+    system = System(elems=eb, material=mat, constraints=cons, accum_dtype=accum_dtype)
 
     st = None
     if state is not None:
         x = t(state.x)
         st = StepState(
             x=x, v=t(state.v), lam=t(state.lam),
-            u=x - eb.x_ref if state.u is None else t(state.u),
+            u=x - eb.x_ref if state.u is None else t(state.u, keep_f64=True),
             dv=torch.zeros_like(x) if state.dv is None else t(state.dv),
         )
 

@@ -48,6 +48,13 @@ class SVK:
         S = 2.0 * self.mu * E + (self.lam * trE)[..., None, None] * eye
         return S + torch.einsum("...ik,...kj->...ij", Du, S)
 
+    def energy_density(self, F: torch.Tensor) -> torch.Tensor:
+        """W(F) = lam/2 tr(E)^2 + mu E:E, E = (F^T F - I)/2."""
+        eye = torch.eye(3, dtype=F.dtype, device=F.device)
+        E = 0.5 * (torch.einsum("...ki,...kj->...ij", F, F) - eye)
+        trE = E[..., 0, 0] + E[..., 1, 1] + E[..., 2, 2]
+        return 0.5 * self.lam * trE ** 2 + self.mu * (E * E).sum((-2, -1))
+
     def tangent_diag_block(self, F: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         """Closed-form 3x3 block K[d,e] = A[d,J,e,L] h_J h_L for one node.
 

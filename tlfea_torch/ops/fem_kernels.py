@@ -93,7 +93,7 @@ from tlfea_torch.ops.segment import coef_scatter_add
 
 __all__ = [
     "FemOperator", "FAMILIES", "SOURCES", "RESIDENT_SOURCES", "PROFILING_SOURCES", "LAUNCHES",
-    "reset_launch_counts",
+    "LAUNCHES_F64", "reset_launch_counts",
     "build_kernels", "occupancy", "launch_blocks",
     "primal_prep", "primal_prep_plain", "hv", "hv_plain",
     "svk_blocks", "svk_blocks_plain", "tangent_blocks_plain", "node_reduce",
@@ -154,6 +154,9 @@ LAUNCHES = {f"{k}[{fam}]": 0 for fam in FAMILIES.values() for k in KERNEL_NAMES}
 LAUNCHES.update({f"{k}[{_tag(fam, kind)}]": 0 for fam, kind in SOURCES if kind != "svk"
                  for k in MATERIAL_KERNELS[kind]})
 LAUNCHES.update({f"newton_resident[{_tag(fam, kind)}]": 0 for fam, kind in RESIDENT_SOURCES})
+# The launches of the float64 instantiations alone, by the same keys: the
+# accuracy mode (`System.accum_dtype`) runs them under a float32 problem.
+LAUNCHES_F64 = dict.fromkeys(LAUNCHES, 0)
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(os.path.dirname(_CSRC), "_build")
@@ -166,7 +169,7 @@ BUILD_INFO: dict = {}
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = LAUNCHES_F64[k] = 0
 
 
 def _nvcc() -> str:
@@ -302,6 +305,8 @@ def _launch(name: str, tag: str, x: torch.Tensor, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{key} kernel launch failed: CUDA error {err}")
     LAUNCHES[key] += 1
+    if sfx == "f64":
+        LAUNCHES_F64[key] += 1
 
 
 def occupancy(name: str, tag: str, dtype: torch.dtype, launch=None) -> dict:
@@ -980,25 +985,34 @@ def g_and_hvp(v, u_prev, v_prev, f_ext, dt, op: FemOperator, pin_terms=None,
     reading K1's prep cache.
     u = u_prev + dt * v is formed in displacement space (never x_prev +
     dt * v, whose float32 rounding stalls Newton on stiff problems).
+
+    Everything runs in op's dtype, the pin terms too (pass them in it), and
+    g and H p come back in v's: with a float64 op under a float32 v (the
+    accuracy mode, `System.fem_wide`) the packed [u | v | dv/dt], p and
+    f_ext are widened, K1, K2 and K4 run their float64 instantiations, and
+    only the sums are cast down (the XLA path of `common.py:183-201`). u_prev
+    may be float64 under a float32 v: it is cast to op's dtype.
     """
     fns = element_fns(plain)
     k2, k4 = fns["hv"], fns["node_reduce"]
-    u = u_prev + dt * v
-    packed = torch.cat([u, v, (v - v_prev) / dt], dim=1).contiguous()
+    wd = op.gN_t.dtype
+    u = (u_prev + dt * v).to(wd)
+    packed = torch.cat([u, v.to(wd), ((v - v_prev) / dt).to(wd)], dim=1).contiguous()
     fe, prep = fns["primal_prep"](op, packed)
     g = k4(op, fe)
     pin_lin = None
     if pin_terms is not None:
         pin_aff, pin_lin = pin_terms
         g = g + pin_aff + (pin_lin(u) if callable(pin_lin) else pin_lin * u)
-    g = g - f_ext
+    g = (g - f_ext.to(wd)).to(v.dtype)
 
     def hvp(p):
-        h = k4(op, k2(op, p.contiguous(), prep, dt))
+        pw = p.to(wd).contiguous()
+        h = k4(op, k2(op, pw, prep, dt))
         if callable(pin_lin):
-            h = h + dt * pin_lin(p)
+            h = h + dt * pin_lin(pw)
         elif pin_lin is not None:
-            h = h + dt * pin_lin * p
-        return h
+            h = h + dt * pin_lin * pw
+        return h.to(p.dtype)
 
     return g, hvp

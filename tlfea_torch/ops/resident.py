@@ -141,10 +141,11 @@ def eligible(system, coarse) -> bool:
     handle, and `pallas_banded.build_banded`'s VMEM estimate refuses every
     ANCF3443 mesh (the 48-point block's Q*S*3 and prep rows alone exceed
     8 MB at any E), so the JAX package never runs the shell resident
-    either. It depends only on the problem, never on whether the kernel
-    builds or launches."""
+    either. The accuracy mode (`System.accum_dtype`) never passes, as JAX
+    keeps it off the banded path (`newton.py:166-175`). It depends only on
+    the problem, never on whether the kernel builds or launches."""
     cons = system.constraints
-    return (system.fem.E <= MAX_ELEMS and coarse is None
+    return (not system.accum_dtype and system.fem.E <= MAX_ELEMS and coarse is None
             and (cons is None or isinstance(cons, (FixedCoefs, DensePins)))
             and (system.fem.family, system.fem.kind) in fk.RESIDENT_SOURCES)
 

@@ -11,11 +11,20 @@ Newton-PCG evaluates g and its Hessian products through K1-K4
 (`tlfea_torch.ops.fem_kernels.g_and_hvp`); the first-order solvers call
 `grad_L` here, one K5 + K4 pass per gradient, whose `torch.func.jvp` runs
 K5t + K4.
+
+Accuracy mode (`System.accum_dtype=torch.float64` on a float32 problem,
+with StepState.u carried in float64): g and its products run through the
+float64 instantiations of the kernels on the tables cast up
+(`System.fem_wide`), the pin forces and -f_ext are added in float64, and
+only the sums are cast down; the preconditioner, the CG recurrences and the
+duals stay float32 (the JAX package's XLA path, `common.py:183-201`).
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
+from dataclasses import replace as _dc_replace
 
 import torch
 
@@ -39,20 +48,50 @@ class System:
     or `LinearConstraints`), and the element operator `fem` that holds the
     kernels' tables on the elements' device. plain=True routes the element
     work through the plain PyTorch twins on any device (the on-card
-    reference for the kernels)."""
+    reference for the kernels).
+
+    accum_dtype=torch.float64 on a float32 batch is the accuracy mode
+    (`tlfea/solvers/common.py:59-65`): `fem_wide`, a second operator whose
+    tables are fem's cast up, carries the gradient and its products
+    (`grad_op`); fem_wide is None otherwise."""
 
     elems: ElementBatch
     material: SVK | MooneyRivlin
     constraints: FixedCoefs | DensePins | LinearConstraints | None = None
     plain: bool = False
+    accum_dtype: torch.dtype | None = None
     fem: FemOperator = field(init=False, repr=False)
+    fem_wide: FemOperator | None = field(init=False, repr=False)
 
     def __post_init__(self):
+        if self.accum_dtype not in (None, torch.float64):
+            raise ValueError(f"accum_dtype must be None or torch.float64, got {self.accum_dtype}")
         self.fem = FemOperator(self.elems, self.material)
+        self.fem_wide = None
+        if self.accum_dtype is not None and self.elems.grad_N.dtype != self.accum_dtype:
+            self.fem_wide = FemOperator(self.elems.to(dtype=self.accum_dtype), self.material)
 
     @property
     def n_coef(self) -> int:
         return self.elems.n_coef
+
+    @property
+    def grad_op(self) -> FemOperator:
+        """The operator of the gradient and its products: fem_wide in the
+        accuracy mode, else fem."""
+        return self.fem if self.fem_wide is None else self.fem_wide
+
+    def replace(self, **changes) -> "System":
+        """A copy with `changes`. The element operators are rebuilt only
+        when the elements, the material or accum_dtype change; a change of
+        constraints or plain keeps them (what `Simulation` does every
+        step of a prescribed motion)."""
+        if changes.keys() & {"elems", "material", "accum_dtype"}:
+            return _dc_replace(self, **changes)
+        new = copy.copy(self)
+        for k, val in changes.items():
+            setattr(new, k, val)
+        return new
 
 
 @dataclass
@@ -66,6 +105,11 @@ class StepState:
     lam: torch.Tensor  # duals, shaped like eval_constraints: (C, 3), (n, 3) or (n_rows,)
     u: torch.Tensor  # (n, 3)
     dv: torch.Tensor  # (n, 3)
+
+    def replace(self, **changes) -> "StepState":
+        """A copy with `changes` (e.g. u=state.u.double(), the accuracy
+        mode's wide displacement)."""
+        return _dc_replace(self, **changes)
 
     @staticmethod
     def rest(system: System, x0: torch.Tensor) -> "StepState":
@@ -133,7 +177,9 @@ def _pin_terms(system: System, lam: torch.Tensor, dt: float, rho: float, dtype):
 def grad_fn(system: System, x_prev, v_prev, lam, f_ext, dt, rho, u_prev=None):
     """g(v) = grad_L(v, x_prev, v_prev, lam, f_ext, dt, rho, system, u_prev)
     as a function of v alone, with the pin fields (`_pin_terms`) and
-    -f_ext folded once: what an inner loop calls. Per call: the packed
+    -f_ext folded once: what an inner loop calls. In the accuracy mode all
+    of it runs in float64 on `System.fem_wide` (K5 + K4, and K5t + K4 under
+    `torch.func.jvp`) and g is cast down to v's dtype. Per call: the packed
     [u | v | dv/dt], one K5 + K4 pass (`ElementContrib`: the twins on CPU
     tensors or when `system.plain`; on a CUDA tensor the kernels or an
     error), and the constraint terms (`_pin_terms`: node-wise operations
@@ -141,17 +187,19 @@ def grad_fn(system: System, x_prev, v_prev, lam, f_ext, dt, rho, u_prev=None):
     every sum runs in a fixed order."""
     if u_prev is None:
         u_prev = x_prev - node_ref(system.elems)
-    pins = _pin_terms(system, lam, dt, rho, v_prev.dtype)
-    aff = -f_ext if pins is None else pins[0] - f_ext
+    op = system.grad_op
+    wd = op.gN_t.dtype  # float64 in the accuracy mode: the sums, then cast down
+    pins = _pin_terms(system, lam, dt, rho, wd)
+    aff = -f_ext.to(wd) if pins is None else pins[0] - f_ext.to(wd)
 
     def g(v):
-        u = u_prev + dt * v
-        packed = torch.cat([u, v, (v - v_prev) / dt], dim=1)
-        out = ElementContrib.apply(system.fem, packed, system.plain)
+        u = (u_prev + dt * v).to(wd)
+        packed = torch.cat([u, v.to(wd), ((v - v_prev) / dt).to(wd)], dim=1)
+        out = ElementContrib.apply(op, packed, system.plain)
         if pins is not None:
             lin = pins[1]
             out = out + (lin(u) if callable(lin) else lin * u)
-        return out + aff
+        return (out + aff).to(v.dtype)
 
     return g
 

@@ -34,7 +34,7 @@ from tlfea_torch.solvers.common import (
     StepState, System, _pin_terms, constraint_values, flat_norm, precond_blocks,
 )
 
-__all__ = ["NewtonParams", "make_step", "make_rollout", "inner_solve_args"]
+__all__ = ["NewtonParams", "step", "make_step", "stepper", "make_rollout", "inner_solve_args"]
 
 
 @dataclass(frozen=True)
@@ -124,12 +124,13 @@ def _inner_args(v0, x_prev, v_prev, lam, f_ext, params: NewtonParams, system: Sy
                 inv_blocks=None, u_prev=None):
     """The arguments of one inner solve, (v0, u_prev, v_prev, f_ext, params,
     system, inv_blocks, pin_terms), in the order `_composed_inner` and
-    `resident.newton_inner_resident` take them: the dense pin fields, and
-    the block-Jacobi inverse at v0 unless one is passed."""
+    `resident.newton_inner_resident` take them: the dense pin fields (in
+    float64 in the accuracy mode, which never runs resident), and the
+    block-Jacobi inverse at v0 unless one is passed."""
     dt, rho = params.dt, params.rho
     if u_prev is None:
         u_prev = x_prev - node_ref(system.elems)
-    pin_terms = _pin_terms(system, lam, dt, rho, v0.dtype)
+    pin_terms = _pin_terms(system, lam, dt, rho, system.grad_op.gN_t.dtype)
     if inv_blocks is None:
         blocks0 = precond_blocks(v0, x_prev, dt, rho, system, u_prev=u_prev)
         inv_blocks = inv3x3(blocks0, eps=1e-30)
@@ -155,7 +156,7 @@ def _composed_inner(v0, u_prev, v_prev, f_ext, params: NewtonParams, system: Sys
     (v, iters, ||g||, cg_total, hist)."""
 
     def linearize_g(v):
-        return g_and_hvp(v, u_prev, v_prev, f_ext, params.dt, system.fem, pin_terms,
+        return g_and_hvp(v, u_prev, v_prev, f_ext, params.dt, system.grad_op, pin_terms,
                          plain=plain)
 
     def precond(r):
@@ -218,7 +219,9 @@ def _backtrack(linearize_g, v, dv, gn0: float, ls_max: int):
 def _step(system: System, state: StepState, params: NewtonParams, f_ext, coarse=None,
           inv_blocks=None):
     """One backward-Euler step (`newton.py:437-512`): the outer ALM dual
-    loop around `_newton_inner`. Returns (new_state, diagnostics)."""
+    loop around `_newton_inner`. Returns (new_state, diagnostics). u keeps
+    its dtype from step to step (float64 in the accuracy mode) and x is
+    derived from it in the state's dtype."""
     x_prev = state.x
     x_ref = node_ref(system.elems)
     u_prev = state.u
@@ -264,9 +267,25 @@ def _step(system: System, state: StepState, params: NewtonParams, f_ext, coarse=
     return StepState(x=x, v=v, lam=lam, u=u, dv=dv_next), diag
 
 
+def step(system: System, state: StepState, params: NewtonParams, f_ext, coarse=None):
+    """One step (`newton.py:523-544`). The JAX version jits it and re-traces
+    per constraints object on its banded path; here there is nothing to
+    trace, and the step is `make_step`'s."""
+    return _step(system, state, params, f_ext, coarse)
+
+
 def make_step(system: System, params: NewtonParams, coarse=None):
     """step(state, f_ext) -> (state, diag) over a fixed system."""
     return lambda state, f_ext: _step(system, state, params, f_ext, coarse)
+
+
+def stepper(params: NewtonParams, coarse=None):
+    """call(system, state, f_ext) -> (state, diag): the `Simulation`
+    contract (`newton.py:760-796`). The system is an argument, so its
+    constraint targets, pins or material may change between calls; each
+    call takes the resident path when `resident.eligible` holds, as
+    `make_step` does."""
+    return lambda system, state, f_ext: _step(system, state, params, f_ext, coarse)
 
 
 def make_rollout(system: System, params: NewtonParams, n_steps: int, coarse=None,
