@@ -168,6 +168,40 @@ non-zero:
    uninterrupted run; `energy_report` every 5 steps; `set_pinned` releases
    one pinned node for 5 more steps; a VTU of the final state under `out/`;
    `StepTimer`'s per-phase ms.
+22. collision (after 21): the hydroelastic pipeline (`tlfea_torch.collision`)
+   coupled to the float32 FEAT10 Newton step, on `bench.py`'s two
+   collision scenes without their meshes (the reference's sphere and dragon
+   meshes are not in the repository): (a) `collision`, two 0.5 m boxes of 4
+   x 4 x 2 cells (192 T10 each), the upper lifted by its height + 2 mm and
+   falling at 1 m/s, window 256, max_pairs 4,096, dt 5e-4, friction 0.3,
+   the bottom 5 % of the scene pinned (dense broadphase); (b) `dragon`, a
+   0.3 x 0.3 x 0.257 m box of 14 x 14 x 12 cells (14,112 T10, the
+   reference dragon has 14,273) pressed 0.15 H deep by a floor of 6 x 6 x 2
+   cells (432), its top 8 % and the floor's base pinned, window 256,
+   max_pairs 8,192, dt 2e-4 (block broadphase: 6.1 M cross pairs). SVK E
+   1e6, nu 0.3, damping 1e2, `distance_pressure_field(..., 1e6)`,
+   `MeshManager.scene(reorder=True)`, `build_coarse_precond`, bench.py's
+   Newton settings. Protocol of `bench.py:505-628`: 15 / 30 warm steps of
+   `Simulation` + `newton.stepper` (the capacity regrown on overflow), then
+   `make_coupled_rollout(..., precond_refresh=8)` over 40 steps, warm, then
+   timed: ms/step, median Newton and CG, overflow events and the timed
+   flag (must be false), contacts at the end (must be > 0), the device ms
+   of `broadphase_fn`, `narrowphase_fn` and `forces_fn` alone (CUDA events
+   over 30 calls, and the profiler's device time over 3, at the end state),
+   a [trace] of 2 steps, the K1-K4 launches of the timed rollouts (in the
+   kernels' record). Checks: the third law (|sum f| <= 1e-5 max |f|, the
+   float32 forces summed in float64) at both end states; scene (b)'s
+   collision step at its end state in float64 on the card against the
+   port on the CPU (equal masks and patch counts, forces within 1e-10 of
+   max |f|); `tests/test_coupled_rollout.py`'s scene, 5 float32 steps of
+   `make_coupled_rollout` bitwise the `Simulation` loop; the hairpin of
+   `tests/test_self_collision.py` (nx 24, grid broadphase, margin 0.02)
+   with its upper leg pressed 4 cm down, the grid's candidates covering the
+   brute-force AABB pairs less the neighbours, and its float64 step
+   against the CPU as for (b); `NodeSphereDem` (two boxes 0.04 apart) and
+   `GranularDem` (a sphere grid over a plate), one float64 step each
+   against the CPU within 1e-10, the third law for `NodeSphereDem`, and a
+   timed float32 step of each.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 `{"ok": true, "device": {...}}`.
@@ -278,6 +312,16 @@ STIFF_STEPS, STIFF_RAMP = 40, 30  # [accuracy_mode] (a): tests/test_f32_stiff.py
 STIFF_BARS = {"accum": 1e-3, "f32": 1e-2}  # its final residuals over ||f_ext||
 TIGHT_TOL = 5e-3  # bench.py's "10k_tight": Newton to 0.5 % of ||f_ext||
 SIM_STEPS, SIM_EXTRA = 20, 5  # [simulation]: steps, then steps after a pin is released
+# [collision]: bench.py run_collision's protocol (warm-up steps of each
+# scene, the timed rollout, calls per phase timing), the dragon stand-in's
+# box (0.3 x 0.3 x 0.257 m, 14 x 14 x 12 cells: 14,112 T10, near-cubic cells
+# as bench.py's 6 x 6 x 6 fallback has), and the bars.
+COLLISION_WARM = {"collision": 15, "dragon": 30}
+COLLISION_TIMED, COLLISION_CALLS, COLLISION_TRACE = 40, 30, 2
+COLLISION_BUSY_CALLS = 3  # profiled calls a phase (the profiler's own cost grows with events)
+DRAGON_ITEM = (0.3, 0.3, 0.257, 14, 14, 12)
+HAIRPIN_NX = 24  # tests/test_self_collision.py's hairpin: 576 elements
+THIRD_LAW_TOL, CARD_CPU_TOL = 1e-5, 1e-10
 # The float64 instantiations the accuracy mode runs on a float32 problem:
 # the gradient and its products (K1, K2, K4 on the composed path; K5, K5t,
 # K4 on the first-order one). K3 and the persistent kernel stay float32.
@@ -1548,6 +1592,392 @@ def simulation_phase(device):
     return total
 
 
+def collision_problem(kind, device, dtype):
+    """`bench.py:395-500`'s collision scenes without the reference meshes:
+    "collision" (the sphere drop's two boxes) or "dragon" (the item drop,
+    the box DRAGON_ITEM standing in for the dragon). Returns (system, state,
+    f_ext, params, collision, collision params)."""
+    import torch
+
+    from tlfea_torch.collision.hydroelastic import HydroelasticCollision, HydroelasticParams
+    from tlfea_torch.elements import feat10
+    from tlfea_torch.materials import SVK, lame_from_E_nu
+    from tlfea_torch.solvers.newton import NewtonParams
+    from tlfea_torch.utils.mesh_manager import MeshManager
+    from tlfea_torch.utils.pressure import distance_pressure_field
+    from tlfea_torch.utils.tetmesh import box_t10_mesh
+
+    mm = MeshManager()
+    if kind == "collision":
+        n0, c0 = box_t10_mesh(0.5, 0.5, 0.5, 4, 4, 2)
+        a, b = mm.add_mesh(n0, c0, "a"), mm.add_mesh(n0, c0, "b")
+        za = mm.mesh_nodes(a)[:, 2]
+        mm.translate_mesh(b, (0.0, 0.0, za.max() - za.min() + 0.002))
+        meshes, window, max_pairs, dt = (a, b), 256, 4096, 5e-4
+        falling, v_init, rest_nodes = b, -1.0, False
+    else:
+        ni, ci = box_t10_mesh(*DRAGON_ITEM)
+        it = mm.add_mesh(ni, ci, "box_item")
+        inodes = mm.mesh_nodes(it)
+        ext = inodes.max(axis=0) - inodes.min(axis=0)
+        fn, fc = box_t10_mesh(2.5 * ext[0], 2.5 * ext[1], 0.2 * ext[2], 6, 6, 2)
+        floor = mm.add_mesh(fn, fc, "floor")
+        overlap = 0.15 * ext[2]  # the pressed-contact start
+        mm.translate_mesh(floor, (inodes[:, 0].min() - 0.75 * ext[0],
+                                  inodes[:, 1].min() - 0.75 * ext[1],
+                                  inodes[:, 2].min() - 0.2 * ext[2] + overlap))
+        meshes, window, max_pairs, dt = (it, floor), 256, 8192, 2e-4
+        falling, v_init, rest_nodes = it, 0.0, True
+    for mid in meshes:
+        inst = mm.instances[mid]
+        lc = mm.elements[inst.elem_offset: inst.elem_offset + inst.n_elems] - inst.node_offset
+        mm.set_scalar_field(mid, distance_pressure_field(mm.mesh_nodes(mid), lc, 1e6))
+    scene = mm.scene(reorder=True)
+    nodes, conn = scene.nodes, scene.conn
+
+    lam, mu = lame_from_E_nu(1e6, 0.3)
+    zmin = nodes[:, 2].min()
+    zext = nodes[:, 2].max() - zmin
+    fixed = np.nonzero(nodes[:, 2] < zmin + (0.05 * zext if kind == "collision" else 1e-9))[0]
+    if kind == "dragon":
+        item_nodes = scene.mesh_node_ids(meshes[0])
+        iz = nodes[item_nodes, 2]
+        top = item_nodes[iz > iz.max() - 0.08 * (iz.max() - iz.min())]
+        fixed = np.unique(np.concatenate([fixed, top]))
+    elems_cpu = feat10.build(nodes, conn, rho=1000.0, dtype=dtype, device="cpu")
+    system, state, f_ext, _ = _pinned_problem(elems_cpu, nodes, fixed, device,
+                                              SVK(lam, mu, 1e2, 1e2))
+    v0 = torch.zeros_like(state.v)
+    v0[torch.as_tensor(scene.mesh_node_ids(falling), device=device), 2] = v_init
+    state = state.replace(v=v0)
+    f_scale = float(f_ext.norm())
+    params = NewtonParams(dt=dt, rho=1e8, inner_atol=2.5e-2 * f_scale, inner_rtol=0.0,
+                          outer_tol=0.0, max_outer=1, max_inner=6, cg_rtol=1e-3,
+                          cg_max_iter=50, ew_eta_max=0.5)
+    collision = HydroelasticCollision(
+        conn, scene.elem_mesh_ids, scene.pressures.astype(np.float32 if dtype == torch.float32
+                                                          else np.float64),
+        window=window, max_pairs=max_pairs, rest_nodes=nodes if rest_nodes else None,
+        device=device)
+    return system, state, f_ext, params, collision, HydroelasticParams(friction=0.3)
+
+
+def _third_law(tag, f):
+    """|sum f| over max |f|, the forces summed in float64; raises above
+    THIRD_LAW_TOL."""
+    scale = float(f.abs().max())
+    net = float(f.double().sum(0).abs().max()) / scale
+    log(tag, f"third law: |sum f| = {net:.3e} of max |f| = {scale:.4e} N (bar {THIRD_LAW_TOL:g})")
+    if not (scale > 0 and net <= THIRD_LAW_TOL):
+        raise AssertionError(f"{tag}: the contact forces do not balance ({net:.3e})")
+
+
+def _event_ms(fn, n):
+    """(CUDA-event ms per call over n back-to-back calls after a warm-up,
+    the profiler's device-busy ms per call over COLLISION_BUSY_CALLS more)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    busy = sum(t for t, _ in _device_profile(
+        lambda: [fn() for _ in range(COLLISION_BUSY_CALLS)]).values())
+    return start.elapsed_time(end) / n, busy / COLLISION_BUSY_CALLS
+
+
+def _card_vs_cpu(tag, make, x, v, params):
+    """One collision step in float64 on the card and through the port on
+    the CPU, each system from make(device): the same pairs, valid masks,
+    contacts (valid and valid_orientation), vertex counts of the valid
+    patches and overflow, forces within CARD_CPU_TOL of max |f|. Fields of
+    invalid patches are not compared (a pair of one body with parallel
+    pressure gradients fits a plane to rounding noise); how many of them
+    differ is logged. Returns the contacts."""
+    import torch
+
+    t0 = time.perf_counter()
+    card, host = make(x.device), make(torch.device("cpu"))
+    fc, pc, oc = card.step(x.double(), v.double(), params)
+    fh, ph, oh = host.step(x.double().cpu(), v.double().cpu(), params)
+    pc = {k: getattr(pc, k).cpu() for k in ("valid", "valid_orientation", "n_verts", "tetA",
+                                             "tetB")}
+    ph = {k: getattr(ph, k) for k in pc}
+    valid = ph["valid"]
+    same = (all(torch.equal(pc[k], ph[k]) for k in ("valid", "tetA", "tetB"))
+            and torch.equal(pc["valid"] & pc["valid_orientation"],
+                            valid & ph["valid_orientation"])
+            and torch.equal(pc["n_verts"][valid], ph["n_verts"][valid]))
+    loose = {k: int((pc[k] != ph[k])[~valid].sum()) for k in ("valid_orientation", "n_verts")}
+    scale = float(fh.abs().max())
+    err = float((fc.cpu() - fh).abs().max()) / max(scale, 1e-300)
+    n_c = int((pc["valid"] & pc["valid_orientation"]).sum())
+    n_h = int((valid & ph["valid_orientation"]).sum())
+    log(tag, f"float64 step, card against CPU ({time.perf_counter() - t0:.1f} s): pairs, "
+        f"valid masks, contacts and their vertex counts {'equal' if same else 'DIFFER'} "
+        f"({int(valid.sum())} valid of {valid.numel()}; invalid slots whose "
+        f"orientation / vertex count differ: {loose}), contacts {n_c} / {n_h}, overflow "
+        f"{bool(oc)} / {bool(oh)}, forces {err:.3e} of max |f| = {scale:.4e} "
+        f"(bar {CARD_CPU_TOL:g})")
+    if not (same and bool(oc) == bool(oh) and err <= CARD_CPU_TOL):
+        raise AssertionError(f"{tag}: the card's float64 collision step differs from the CPU's")
+    return n_c
+
+
+def collision_scene_phase(kind, device):
+    """One scene of [collision] (the module's docstring, 22): returns its
+    timed rollout's K1-K4 launches and (collision, end state, params)."""
+    import torch
+
+    from tlfea_torch.ops import fem_kernels as fk
+    from tlfea_torch.simulation import Simulation
+    from tlfea_torch.solvers import newton
+    from tlfea_torch.solvers.coarse import build_coarse_precond
+
+    tag = "collision"
+    t0 = time.perf_counter()
+    system, state, f_ext, params, collision, cp = collision_problem(kind, device,
+                                                                    torch.float32)
+    coarse = build_coarse_precond(system, state.x, params.dt, params.rho)
+    n_elem = system.elems.conn.shape[0]
+    log(tag, f"{kind}: {n_elem} elements, {system.n_coef} nodes, broadphase {collision.mode}, "
+        f"{int(collision.pressures.gt(0).sum())} nodes of positive pressure; scene, system and "
+        f"coarse correction built in {time.perf_counter() - t0:.1f} s")
+    sim = Simulation(system, state, newton.stepper(params, coarse=coarse), base_f_ext=f_ext,
+                     collision=collision, collision_params=cp)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # each regrowth warns; counted below
+        for _ in range(COLLISION_WARM[kind]):
+            sim.step()
+    torch.cuda.synchronize()
+    collision = sim.collision
+    caps = {"window": collision.bp.window, "max_pairs": collision.max_pairs}
+    if collision.blk is not None:
+        caps["block_pair_cap"] = collision.blk.block_pair_cap
+    log(tag, f"{kind}: {COLLISION_WARM[kind]} warm Simulation steps in "
+        f"{time.perf_counter() - t0:.2f} s, overflow_events {sim.overflow_events}, "
+        f"capacities then {caps}")
+
+    def force_fn(x, v):
+        f, _, ovf = collision.step(x, v, cp)
+        return f, ovf
+
+    roll = newton.make_coupled_rollout(system, params, COLLISION_TIMED, force_fn,
+                                       coarse=coarse, precond_refresh=8)
+    s, _, _ = roll(sim.state, f_ext)
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    s, (nit, cgit), ovf = roll(s, f_ext)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    la = {k: fk.LAUNCHES[fk.launch_key(k, system.fem)] for k in KERNELS}
+    ms = wall / COLLISION_TIMED * 1e3
+    f, patches, _ = collision.step(s.x, s.v, cp)
+    n_contacts = int(patches.n_contacts)
+    log(tag, f"{kind}: make_coupled_rollout(precond_refresh=8), {COLLISION_TIMED} steps: "
+        f"{ms:.3f} ms/step, Newton median {float(np.median(nit))}, CG median "
+        f"{float(np.median(cgit))}, timed overflow flag {bool(ovf)}, contacts at the end "
+        f"{n_contacts}, launches {la}")
+    if bool(ovf) or not bool(torch.isfinite(s.x).all()) or n_contacts == 0 or not all(la.values()):
+        raise AssertionError(f"{tag}: {kind}'s timed rollout overflowed, diverged, ended "
+                             f"without contact or left a kernel unlaunched")
+    _third_law(tag, f)
+
+    t0 = time.perf_counter()
+    pairs, valid, _ = collision.broadphase_fn(s.x)
+    pat = collision.narrowphase_fn(s.x, pairs, valid)
+    times = {
+        "broadphase_fn": _event_ms(lambda: collision.broadphase_fn(s.x), COLLISION_CALLS),
+        "narrowphase_fn": _event_ms(lambda: collision.narrowphase_fn(s.x, pairs, valid),
+                                    COLLISION_CALLS),
+        "forces_fn": _event_ms(lambda: collision.forces_fn(pat, s.x, s.v, cp), COLLISION_CALLS),
+    }
+    log(tag, f"{kind}: phases at the end state, ms per call over {COLLISION_CALLS} calls "
+        f"(CUDA events) / {COLLISION_BUSY_CALLS} (device busy): " + ", ".join(
+            f"{k} {e:.4f} / {b:.4f}" for k, (e, b) in times.items())
+        + f"; their sum {sum(e for e, _ in times.values()):.4f} of the {ms:.3f} ms step "
+        f"({time.perf_counter() - t0:.1f} s)")
+    short = newton.make_coupled_rollout(system, params, COLLISION_TRACE, force_fn,
+                                        coarse=coarse, precond_refresh=8)
+    short(s, f_ext)
+    _log_profile(f"trace {kind}", _device_profile(lambda: short(s, f_ext)), COLLISION_TRACE,
+                 "step", ms)
+    return la, (collision, s, cp)
+
+
+def collision_phase(device):
+    """[collision] (the module's docstring, 22). Returns the K1-K4 launches
+    of the two timed rollouts, summed by kernel, and the persistent
+    kernel's launches of the coupled-rollout check."""
+    import torch
+
+    from tlfea_torch.collision import dem
+    from tlfea_torch.collision.broadphase import setup_broadphase
+    from tlfea_torch.collision.gridhash import find_pairs_grid, setup_grid
+    from tlfea_torch.collision.hydroelastic import HydroelasticCollision, HydroelasticParams
+    from tlfea_torch.constraints import FixedCoefs
+    from tlfea_torch.elements import feat10
+    from tlfea_torch.materials import SVK, lame_from_E_nu
+    from tlfea_torch.ops import fem_kernels as fk
+    from tlfea_torch.simulation import Simulation, gravity_force
+    from tlfea_torch.solvers import StepState, System, newton
+    from tlfea_torch.utils.mesh_manager import MeshManager
+    from tlfea_torch.utils.pressure import distance_pressure_field
+    from tlfea_torch.utils.tetmesh import box_t10_mesh, hairpin_t10_mesh, surface_triangles_t10
+
+    tag = "collision"
+    launches = {k: 0 for k in KERNELS}
+    for kind in ("collision", "dragon"):
+        la, (collision, s, cp) = collision_scene_phase(kind, device)
+        launches = {k: launches[k] + la[k] for k in KERNELS}
+    args = dict(collision._init_args)
+    args["pressures"] = args["pressures"].astype(np.float64)
+    _card_vs_cpu(tag + " dragon", lambda d: HydroelasticCollision(**dict(args, device=d)),
+                 s.x, s.v, cp)
+
+    # tests/test_coupled_rollout.py's scene: the coupled rollout against the
+    # Simulation loop, float32, bitwise.
+    t0 = time.perf_counter()
+    mm = MeshManager()
+    n1, c1 = box_t10_mesh(0.3, 0.3, 0.12, 2, 2, 2)
+    a, b = mm.add_mesh(n1, c1, "lower"), mm.add_mesh(n1, c1, "upper")
+    mm.translate_mesh(b, (0.02, 0.02, 0.11))
+    for mid in (a, b):
+        inst = mm.instances[mid]
+        lc = mm.elements[inst.elem_offset: inst.elem_offset + inst.n_elems] - inst.node_offset
+        mm.set_scalar_field(mid, distance_pressure_field(mm.mesh_nodes(mid), lc, 5e5))
+    nodes, conn = mm.nodes, mm.elements
+    lam, mu = lame_from_E_nu(5e5, 0.3)
+    x0 = torch.as_tensor(nodes, dtype=torch.float32, device=device)
+    system = System(elems=feat10.build(nodes, conn, rho=1000.0, dtype=torch.float32,
+                                       device=device),
+                    material=SVK(lam, mu, 2e2, 2e2),
+                    constraints=FixedCoefs.from_indices(np.nonzero(nodes[:, 2] < 1e-12)[0], x0))
+    params = newton.NewtonParams(dt=1e-3, rho=1e8, inner_atol=1e-8, max_outer=1, max_inner=8,
+                                 cg_max_iter=100)
+    col = HydroelasticCollision(conn, mm.elem_mesh_ids(), mm.scalar_field().astype(np.float32),
+                                window=64, max_pairs=2048, device=device)
+    cp = HydroelasticParams(friction=0.3)
+    f_base = gravity_force(system)
+    sim = Simulation(system, StepState.rest(system, x0), newton.stepper(params),
+                     base_f_ext=f_base, collision=col, collision_params=cp)
+    fk.reset_launch_counts()
+    for _ in range(CHECK_STEPS):
+        sim.step()
+
+    def force_fn(x, v):
+        f, _, ovf = col.step(x, v, cp)
+        return f, ovf
+
+    s, _, ovf = newton.make_coupled_rollout(system, params, CHECK_STEPS, force_fn)(
+        StepState.rest(system, x0), f_base)
+    resident = fk.LAUNCHES[fk.launch_key("newton_resident", system.fem)]
+    differ = [k for k in ("x", "v", "lam", "u", "dv")
+              if not torch.equal(getattr(s, k), getattr(sim.state, k))]
+    log(tag, f"tests/test_coupled_rollout.py's scene, {CHECK_STEPS} float32 steps "
+        f"({time.perf_counter() - t0:.1f} s): "
+        f"make_coupled_rollout {'bitwise' if not differ else 'NOT bitwise: ' + str(differ)} "
+        f"the Simulation loop ({int(sim.last_patches.n_contacts)} contacts, "
+        f"{resident} newton_resident launches)")
+    if differ or bool(ovf):
+        raise AssertionError(f"{tag}: the coupled rollout is not the Simulation loop")
+
+    # Self-contact: the hairpin with its upper leg pressed 4 cm down.
+    t0 = time.perf_counter()
+    hn, hc = hairpin_t10_mesh(leg=0.4, gap=0.06, nx=HAIRPIN_NX, ny=2, nz=2)
+    xh = hn.copy()
+    xh[(hn[:, 2] > 0.08) & (hn[:, 0] > 0.1), 2] -= 0.04
+    zeros = np.zeros(hc.shape[0], np.int32)
+    margin = 0.02
+    bp = setup_broadphase(hc, zeros, margin=margin, device=device)
+    pairs, valid, ovf = find_pairs_grid(bp, setup_grid(hn, hc, margin=margin, device=device),
+                                        torch.as_tensor(xh, device=device))
+    got = {tuple(sorted(p)) for p in pairs[valid].cpu().tolist()}
+    pts = xh[hc]
+    lo, hi = pts.min(axis=1) - margin, pts.max(axis=1) + margin
+    sets = [set(r) for r in hc]
+    expect = {(i, j) for i in range(len(hc))
+              for j in (i + 1 + np.nonzero(np.all((lo[i] <= hi[i + 1:]) & (hi[i] >= lo[i + 1:]),
+                                                  axis=1))[0]).tolist()
+              if not sets[i] & sets[j]}
+    missed = expect - got
+    log(tag, f"hairpin (nx {HAIRPIN_NX}, {len(hc)} elements), pressed "
+        f"({time.perf_counter() - t0:.1f} s): grid candidates "
+        f"{len(got)}, brute-force AABB pairs less neighbours {len(expect)}, missed "
+        f"{len(missed)}, overflow {bool(ovf)}")
+    if missed or bool(ovf):
+        raise AssertionError(f"{tag}: the grid broadphase missed {len(missed)} pairs")
+    pres = distance_pressure_field(hn, hc, 2e6)
+    n_c = _card_vs_cpu(tag + " hairpin", lambda d: HydroelasticCollision(
+        hc, zeros, pres, enable_self_collision=True, broadphase="grid", rest_nodes=hn,
+        max_pairs=32768, margin=0.0, device=d), torch.as_tensor(xh, device=device),
+        torch.zeros(xh.shape, device=device), HydroelasticParams(damping=2.0, friction=0.3))
+    if n_c == 0:
+        raise AssertionError(f"{tag}: the pressed hairpin made no self-contact")
+
+    # DEM: tests/test_dem.py's scenes.
+    t0 = time.perf_counter()
+    mm = MeshManager()
+    n1, c1 = box_t10_mesh(0.4, 0.4, 0.2, 2, 2, 1)
+    mm.add_mesh(n1, c1, "a")
+    mm.add_mesh(n1, c1, "b")
+    mm.translate_mesh(1, (0.0, 0.0, 0.24))
+    tris = [mm.surface_triangles(mid) for mid in range(2)]
+    xd = torch.as_tensor(mm.nodes, device=device)
+    vd = 0.1 * torch.randn(xd.shape, dtype=torch.float64,
+                           generator=torch.Generator().manual_seed(SEED)).to(device)
+    prm = dem.DemParams(kn=1e5, cn=30.0, mu=0.4)
+    fc, ic, _ = dem.NodeSphereDem(mm.nodes, tris, device=device).step(xd, vd, prm)
+    fh, ih, _ = dem.NodeSphereDem(mm.nodes, tris, device="cpu").step(xd.cpu(), vd.cpu(), prm)
+    err = float((fc.cpu() - fh).abs().max() / fh.abs().max())
+    log(tag, f"NodeSphereDem ({dem.NodeSphereDem(mm.nodes, tris, device='cpu').n_spheres} "
+        f"spheres), float64 step, card against CPU: {err:.3e} of max |f|, contacts "
+        f"{int(ic.n_contacts)} / {int(ih.n_contacts)}")
+    if not (err <= CARD_CPU_TOL and int(ic.n_contacts) == int(ih.n_contacts) > 0):
+        raise AssertionError(f"{tag}: NodeSphereDem differs on the card")
+    _third_law(tag + " NodeSphereDem", fc)
+    nsd = dem.NodeSphereDem(mm.nodes, tris, device=device)
+    x32, v32 = xd.float(), vd.float()
+    e_ms, b_ms = _event_ms(lambda: nsd.step(x32, v32, prm), 10)
+    log(tag, f"NodeSphereDem float32 step: {e_ms:.4f} ms (CUDA events), device busy "
+        f"{b_ms:.4f} ms")
+
+    pn, pc = box_t10_mesh(0.5, 0.5, 0.1, 2, 2, 1)
+    ptris = surface_triangles_t10(pc)
+    gp = dem.DemParams(kn=1e5, cn=10.0, mu=0.3)
+    out = []
+    for d in (device, torch.device("cpu")):
+        g = dem.GranularDem(ptris, n_sub=16, device=d)
+        g.bind_cloud(dem.SphereCloud.grid(center=(0.25, 0.25, 0.12), extent=(0.2, 0.2, 0.0),
+                                          spacing=0.05, radius=0.028, device=d))
+        xp = torch.as_tensor(pn, device=d)
+        out.append(g.step(xp, torch.zeros_like(xp), gp, dt=1e-3))
+    (fg, ig, _), (fgh, igh, _) = out
+    err = max(float((a.cpu() - b).abs().max() / b.abs().max())
+              for a, b in ((fg, fgh), (ig["cloud"].x, igh["cloud"].x),
+                           (ig["cloud"].v, igh["cloud"].v)))
+    log(tag, f"GranularDem ({ig['cloud'].x.shape[0]} spheres, {len(ptris)} triangles, 16 "
+        f"substeps), float64 step, card against CPU: {err:.3e} (bar {CARD_CPU_TOL:g})")
+    if not err <= CARD_CPU_TOL:
+        raise AssertionError(f"{tag}: GranularDem differs on the card")
+    g = dem.GranularDem(ptris, n_sub=16, device=device)
+    g.bind_cloud(dem.SphereCloud.grid(center=(0.25, 0.25, 0.12), extent=(0.2, 0.2, 0.0),
+                                      spacing=0.05, radius=0.028, dtype=torch.float32,
+                                      device=device))
+    xp = torch.as_tensor(pn, dtype=torch.float32, device=device)
+    e_ms, b_ms = _event_ms(lambda: g.step(xp, torch.zeros_like(xp), gp, dt=1e-3), 10)
+    log(tag, f"GranularDem float32 step: {e_ms:.4f} ms (CUDA events), device busy "
+        f"{b_ms:.4f} ms; the DEM checks took {time.perf_counter() - t0:.1f} s")
+    return launches, resident
+
+
 def shell_theory(device, steps=THEORY_STEPS):
     """The float64 cantilever plate of tests/test_shell_validation.py through
     the kernels: returns (tip deflection / plate theory - 1, tip, theory,
@@ -2156,6 +2586,11 @@ def main():
     record, res_launches, comp = resident_runs["feat10"]
     resident_runs["feat10"] = (record, res_launches + sim["newton_resident"], comp)
     done("simulation")
+    col, col_resident = collision_phase(device)
+    launches["feat10"] = {k: launches["feat10"][k] + col[k] for k in KERNELS}
+    record, res_launches, comp = resident_runs["feat10"]
+    resident_runs["feat10"] = (record, res_launches + col_resident, comp)
+    done("collision")
 
     # The first-order path: K5 + K4 for every gradient, K5t + K4 for its jvp.
     problem = flagship_problem(device, torch.float32)

@@ -15,8 +15,11 @@ coarse correction, the first-order solvers, and the accuracy mode
 (`System.accum_dtype`: float64 kernels under a float32 problem). Its
 element work runs in hand-written CUDA kernels (`tlfea_torch/csrc/`,
 wrapped by `tlfea_torch.ops.fem_kernels`), each beside a plain PyTorch
-twin. Around the solvers: `simulation.Simulation` (stepping, checkpoints,
-re-pinning), `diagnostics`, and the host utilities of `utils` (mesh IO,
+twin. Around the solvers: `collision` (the hydroelastic contact pipeline
+and the DEM backends, in plain tensor code: the JAX package has no Pallas
+kernel there), `simulation.Simulation` (stepping, checkpoints, re-pinning,
+collision with capacity regrowth) and `newton.make_coupled_rollout`,
+`diagnostics`, and the host utilities of `utils` (mesh IO,
 VTK writers, scenes, profiling). Builders and `interop.from_numpy_system` put
 their tensors on the card unless given device="cpu".
 
@@ -34,4 +37,4 @@ _torch.set_float32_matmul_precision("highest")
 __version__ = "0.1.0"
 
 from tlfea_torch import utils, materials, elements, ops, constraints, solvers, interop  # noqa: E402,F401
-from tlfea_torch import diagnostics, simulation  # noqa: E402,F401
+from tlfea_torch import collision, diagnostics, simulation  # noqa: E402,F401

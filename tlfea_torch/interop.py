@@ -6,8 +6,10 @@
 `AdamWParams`, `NesterovParams`, `VBDParams`) through `np.asarray` (duck
 typed: any object with those attribute names will do, so this module never
 imports jax or tlfea) and returns the matching `tlfea_torch` objects on the
-given device and dtype. The parity tests use it to run both packages on the
-same problem.
+given device and dtype; `from_numpy_collision` does the same for the
+collision state (`HydroelasticParams`, `DemParams`, `SphereCloud`). The
+collision setups themselves are built in each package from the same NumPy
+arrays. The parity tests use it to run both packages on the same problem.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from dataclasses import fields, is_dataclass
 import numpy as np
 import torch
 
+from tlfea_torch.collision.dem import DemParams, SphereCloud
+from tlfea_torch.collision.hydroelastic import HydroelasticParams
 from tlfea_torch.constraints import DensePins, FixedCoefs, LinearConstraints
 from tlfea_torch.elements.assembly import ElementBatch
 from tlfea_torch.materials.mooney_rivlin import MooneyRivlin
@@ -27,7 +31,7 @@ from tlfea_torch.solvers.nesterov import NesterovParams
 from tlfea_torch.solvers.newton import NewtonParams
 from tlfea_torch.solvers.vbd import VBDParams
 
-__all__ = ["from_numpy_system"]
+__all__ = ["from_numpy_system", "from_numpy_collision"]
 
 # A field only one solver's parameters have -> that solver's parameters.
 _PARAM_KINDS = (("lr", AdamWParams), ("alpha", NesterovParams), ("omega", VBDParams),
@@ -129,3 +133,25 @@ def from_numpy_system(elems, material, constraints=None, state=None, params=None
         prm = cls(**{f.name: int(getattr(params, f.name)) if f.type == "int"
                      else _scalar(getattr(params, f.name)) for f in fields(cls)})
     return system, st, prm
+
+
+# A collision object's dataclass fields -> the port's class, and whether its
+# fields are tensors (else Python floats).
+_COLLISION_KINDS = (({"damping", "friction"}, HydroelasticParams, False),
+                    ({"kn", "cn", "mu", "v_reg"}, DemParams, False),
+                    ({"x", "v", "r", "m"}, SphereCloud, True))
+
+
+def from_numpy_collision(obj, *, device="cuda", dtype=torch.float64):
+    """The port's HydroelasticParams, DemParams (fields as floats) or
+    SphereCloud (tensors in `dtype` on `device`) with the fields of the
+    JAX package's object, told apart by its dataclass fields. Raises on any
+    other object."""
+    names = {f.name for f in fields(obj)} if is_dataclass(obj) else set()
+    for keys, cls, tensors in _COLLISION_KINDS:
+        if names == keys:
+            conv = ((lambda a: torch.as_tensor(np.array(a), device=device).to(dtype))
+                    if tensors else _scalar)
+            return cls(**{k: conv(getattr(obj, k)) for k in sorted(keys)})
+    raise TypeError(f"no counterpart in the port for {type(obj).__name__} (fields "
+                    f"{sorted(names)}); it has HydroelasticParams, DemParams and SphereCloud")

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["cbrt", "det3x3", "inv3x3", "inv_transpose3x3"]
+__all__ = ["cbrt", "det3x3", "solve3x3", "inv3x3", "inv_transpose3x3"]
 
 
 def cbrt(x: torch.Tensor) -> torch.Tensor:
@@ -41,6 +41,17 @@ def _adjugate3x3(a: torch.Tensor) -> torch.Tensor:
     row1 = torch.stack([c01, c11, c21], dim=-1)
     row2 = torch.stack([c02, c12, c22], dim=-1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def solve3x3(a: torch.Tensor, b: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Solve a @ x = b for (..., 3, 3) a and (..., 3) b via the adjugate
+    (`tlfea/ops/linalg.py:42-52`), with the same sign-preserving clamp of
+    |det| to at least eps."""
+    det = det3x3(a)
+    if eps:
+        e = det.new_full((), eps)
+        det = torch.where(det.abs() < eps, torch.where(det >= 0, e, -e), det)
+    return (_adjugate3x3(a) * b[..., None, :]).sum(-1) / det[..., None]
 
 
 def inv3x3(a: torch.Tensor, eps: float = 0.0) -> torch.Tensor:

@@ -3,9 +3,11 @@ external forces, plus checkpoint and resume (port of `tlfea/simulation.py`).
 
 `save_state` writes the JAX package's NumPy `.npz` keys (x, v, lam, u, dv,
 step_count), so a checkpoint written by either package loads in the other.
-The port has no collision module yet: a `collision` object is taken and
-called exactly as the JAX driver calls it (`.step(x, v, params) -> (f_col,
-patches, overflow)`, the overflow flag checked one step late).
+A `collision` object (`tlfea_torch.collision`: `HydroelasticCollision`,
+`NodeSphereDem`, `GranularDem`, `DemMeshCollision`) is called as the JAX
+`Simulation` calls it, `.step(x, v, params) -> (f_col, patches, overflow)`, at
+the start-of-step state; its overflow flag stays on the device and is read
+one step late, and an overflow regrows the capacity (`.grow()`).
 """
 
 from __future__ import annotations

@@ -34,7 +34,8 @@ from tlfea_torch.solvers.common import (
     StepState, System, _pin_terms, constraint_values, flat_norm, precond_blocks,
 )
 
-__all__ = ["NewtonParams", "step", "make_step", "stepper", "make_rollout", "inner_solve_args"]
+__all__ = ["NewtonParams", "step", "make_step", "stepper", "make_rollout",
+           "make_coupled_rollout", "inner_solve_args"]
 
 
 @dataclass(frozen=True)
@@ -300,19 +301,55 @@ def make_rollout(system: System, params: NewtonParams, n_steps: int, coarse=None
     """
     refresh = max(int(precond_refresh), 1)
 
-    def fresh_inv(st: StepState):
-        return inv3x3(precond_blocks(st.v, st.x, params.dt, params.rho, system,
-                                     u_prev=st.u), eps=1e-30)
-
     def roll(state: StepState, f_ext):
         nits, cgits = [], []
         inv_b = None
         for k in range(n_steps):
             if refresh > 1 and k % refresh == 0:
-                inv_b = fresh_inv(state)
+                inv_b = _fresh_inv(system, state, params)
             state, d = _step(system, state, params, f_ext, coarse, inv_blocks=inv_b)
             nits.append(d["newton_iters"])
             cgits.append(d["cg_iters"])
         return state, (nits, cgits)
+
+    return roll
+
+
+def _fresh_inv(system: System, st: StepState, params: NewtonParams) -> torch.Tensor:
+    """The inverted block-Jacobi blocks at a state, for a frozen window."""
+    return inv3x3(precond_blocks(st.v, st.x, params.dt, params.rho, system, u_prev=st.u),
+                  eps=1e-30)
+
+
+def make_coupled_rollout(system: System, params: NewtonParams, n_steps: int, force_fn,
+                         coarse=None, precond_refresh: int = 1):
+    """roll(state, f_base) -> (state, (newton_iters, cg_iters), any_overflow):
+    n_steps of [f_ext = f_base + force_fn(x, v); a backward-Euler step]
+    (`newton.py:696-752`). force_fn(x, v) -> (f_col (n, 3), overflow), e.g.
+    a closure over `HydroelasticCollision.step`, evaluated at the
+    start-of-step state; the overflow flags are OR-ed on the device, with
+    no host read per step, for the caller's capacity check. The counts are
+    int lists, one entry per step.
+
+    precond_refresh=K > 1 freezes the inverted block-Jacobi blocks for K
+    steps, rebuilt at every K-th step, as `make_rollout` does. With K = 1
+    no blocks are built outside the steps: the JAX version builds an
+    initial inverse there that no step reads.
+    """
+    refresh = max(int(precond_refresh), 1)
+
+    def roll(state: StepState, f_base):
+        nits, cgits = [], []
+        inv_b = None
+        ovf = torch.zeros((), dtype=torch.bool, device=state.x.device)
+        for k in range(n_steps):
+            if refresh > 1 and k % refresh == 0:
+                inv_b = _fresh_inv(system, state, params)
+            f_col, o = force_fn(state.x, state.v)
+            state, d = _step(system, state, params, f_base + f_col, coarse, inv_blocks=inv_b)
+            ovf = ovf | torch.as_tensor(o, device=ovf.device)
+            nits.append(d["newton_iters"])
+            cgits.append(d["cg_iters"])
+        return state, (nits, cgits), ovf
 
     return roll
