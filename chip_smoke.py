@@ -10,7 +10,7 @@ printed on its own lines with its seconds; any failure raises and exits
 non-zero:
 
 1. setup: the card's name and power limit (nvidia-smi), the precision
-   pins, and the nvcc build of the FEM kernels from `tlfea_torch/csrc/`
+   pins (TF32 off, bfloat16 products reduced in float32), and the nvcc build of the FEM kernels from `tlfea_torch/csrc/`
    (one nvcc per source, all at once; seconds, registers and spills per
    kernel).
 2. kernels: each kernel of each element family, with SVK and with
@@ -73,8 +73,9 @@ non-zero:
    `[ancf3443_mr]` kernels, the exact Mooney-Rivlin blocks and the coarse
    correction (ANCF3443 never runs resident, in neither package).
 7. shell_theory: the cantilever plate of `tests/test_shell_validation.py`
-   (8 ANCF3443 elements, E 2e10, nu 0) in float64 on the card, 150 steps:
-   tip deflection within 5 % of q L^4 / (8 E I).
+   (8 ANCF3443 elements, E 2e10, nu 0) in float64 on the card, 80 steps
+   (the test's 150 cut; THEORY_STEPS): tip deflection within 5 % of
+   q L^4 / (8 E I).
 8. ancf_beam, ancf_beam_1024: a clamped 64-element ANCF3243 beam under
    gravity (the bench.py solver settings, no coarse correction), 20 steps
    through `newton_resident[ancf3243]` with the checks of 5; then the same
@@ -203,6 +204,37 @@ non-zero:
    against the CPU within 1e-10, the third law for `NodeSphereDem`, and a
    timed float32 step of each.
 
+23. flagship_100k (after 4): bench.py's "100k" scale (FEAT10 box 96 x 16
+   x 11, 101,376 elements, 146,487 nodes, the 10k problem's material,
+   pins and Newton settings, float32) with bench.py's coarse correction
+   above 50,000 nodes (range flag, 1,024 aggregates, bfloat16 apply
+   tables: Agg 299 MB, the inverse Cholesky factor Li): the host setup's
+   seconds, the correction's build seconds and bytes, then the rollout of
+   4 over 30 steps (ms/step, device busy ms/step from the trace, Newton
+   and CG medians, newton_capped_frac, K1-K4 launches, which join the
+   FEAT10 rows of the kernels' record) and kernels vs twins after 5
+   steps. Then the bfloat16 correction against the dense full-precision
+   one on the same aggregates, 5 steps from rest each: in float32 at the
+   rollout's tolerance, CG per step at most 1.3 x + 2 (the displacements'
+   difference printed); in float64 at tests/test_coarse_precond.py's
+   tolerances (Newton to 1e-6 of ||f_ext||, CG to 1e-6), CG likewise and
+   the displacements within 1e-3 of their scale.
+24. coarse_modes (after 22): the 10k flagship for 8 steps from rest with
+   each coarse mode (trans, rigid, affine, rigid with bfloat16 tables):
+   Newton and CG medians, ms/step; one step of the legacy per-solve
+   two-level path (`CoarseSetup`); each mode's float64 apply on the card
+   against the CPU's, within max(1e-12, 8 eps kappa(A_c)) of its scale
+   (bfloat16 3e-2).
+25. native: the port's g++ helper built; its colours and incidence on the
+   10k flagship equal to the NumPy functions'; at 100k the helper timed.
+26. examples: each ported example script's `main()` on the card in
+   float32 (`tlfea_torch.examples`): `beam_sag_feat10` at res 0 with each
+   of the four solvers (2 steps, AdamW 1) and at res 16 (176,868 T10, 248,745
+   nodes, the bfloat16 coarse correction; 5 steps), the two ANCF beam sags
+   and `bunny_deform` with SVK and with Mooney-Rivlin (5 steps each): end
+   figures, finite states on the card; their launches join the kernels'
+   record.
+
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 `{"ok": true, "device": {...}}`.
 """
@@ -223,7 +255,12 @@ SEED = 0
 BEAM_STEPS = 150  # the fixture's length
 ROLLOUT = 60  # bench.py's ROLLOUT["10k"]
 SHELL_ROLLOUT = 40  # bench.py run_ancf_shell's rollout
-THEORY_STEPS = 150  # tests/test_shell_validation.py
+# The plate of tests/test_shell_validation.py (150 steps there): its tip
+# swings about the static deflection and settles to within 2.7 % of plate
+# theory from step 66 on (1.9 % at 80, 0.47 % at 150; float64, the port on
+# the CPU and the card alike); 80 steps keep the 5 % bar with room and take
+# 3/4 of the 150 steps' time (the first steps take the most CG).
+THEORY_STEPS = 80
 ANCF_BEAM_STEPS = 20
 BIG_BEAM = 1024  # the largest ANCF3243 beam of one element block: 32 tiles
 RESIDENT_ROLLOUT = 250  # bench.py's ROLLOUT["1k"]
@@ -312,6 +349,22 @@ STIFF_STEPS, STIFF_RAMP = 40, 30  # [accuracy_mode] (a): tests/test_f32_stiff.py
 STIFF_BARS = {"accum": 1e-3, "f32": 1e-2}  # its final residuals over ||f_ext||
 TIGHT_TOL = 5e-3  # bench.py's "10k_tight": Newton to 0.5 % of ||f_ext||
 SIM_STEPS, SIM_EXTRA = 20, 5  # [simulation]: steps, then steps after a pin is released
+# [flagship_100k]: bench.py's "100k" scale (CONFIGS, 6 * 96 * 16 * 11 =
+# 101,376 elements, 146,487 nodes; ROLLOUT 30 steps) with the coarse
+# correction bench.py builds above 50,000 nodes (bench.py:186-195).
+DIMS_100K = (4.0, 0.7, 0.6, 96, 16, 11)
+ROLLOUT_100K = 30
+COARSE_100K = dict(ranges=True, max_agg=1024, mm_dtype="bfloat16")
+# bfloat16 tables against the dense full-precision correction: CG per step
+# at most 1.3 x + 2 and x within 1e-3 of the displacement scale, the bar of
+# tests/test_coarse_precond.py:191-197 (JAX's own, in float64 at a tight
+# tolerance; see coarse_bf16_check).
+BF16_CG = (1.3, 2)
+BF16_X_TOL = 1e-3
+MODES_STEPS = 8  # [coarse_modes]: steps of each mode on the 10k flagship
+MODES = (("trans", dict(modes="trans")), ("rigid", dict(modes="rigid")),
+         ("affine", dict(modes="affine")), ("rigid_bf16", dict(mm_dtype="bfloat16")))
+BF16_APPLY_TOL = 3e-2  # the bfloat16 apply, card against CPU, of its scale
 # [collision]: bench.py run_collision's protocol (warm-up steps of each
 # scene, the timed rollout, calls per phase timing), the dragon stand-in's
 # box (0.3 x 0.3 x 0.257 m, 14 x 14 x 12 cells: 14,112 T10, near-cubic cells
@@ -781,24 +834,39 @@ def _log_profile(tag, by_name, per, unit, wall_ms):
         f"{wall_ms:.4f} ms/{unit}; {ops:.1f} device operations per {unit}")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         log(tag, f"{t / per:.4f} ms/{unit}, {c / per:.2f} calls/{unit}: {name[:90]}")
+    return busy
 
 
 def trace(roll, state, f_ext, ms_per_step):
     """Where the time goes: a torch.profiler window over TRACE_STEPS of the
     rollout; device busy time per step against the untraced ms/step, and
     the device operations that take the most of it."""
-    _log_profile("trace", _device_profile(lambda: roll(state, f_ext)), TRACE_STEPS, "step",
-                 ms_per_step)
+    return _log_profile("trace", _device_profile(lambda: roll(state, f_ext)), TRACE_STEPS,
+                        "step", ms_per_step)
 
 
-def rollout_phase(tag, device, problem, n_steps, traced=True, coarse=True):
+def _coarse_desc(co, secs):
+    """One line on a built coarse correction: size, form, build time and
+    the bytes of its stored tables (Agg, the solve, u0, agg)."""
+    form = ("bfloat16 tables, inverse Cholesky factor" if co.mm_dtype is not None
+            else "rank-truncated" if co.W is not None else "dense, explicit inverse")
+    nbytes = sum(t.numel() * t.element_size() for t in (co.Agg, co.Ainv, co.Li, co.W, co.u0,
+                                                         co.agg) if t is not None)
+    return (f"coarse: {co.n_agg} aggregates x {co.k_modes} modes (K = {co.n_agg * co.k_modes}; "
+            f"{form}{', range flag' if co.ranges else ''}), built in {secs:.2f} s, apply "
+            f"tables {nbytes / 1e6:.1f} MB (Agg {co.Agg.numel() * co.Agg.element_size() / 1e6:.1f} MB)")
+
+
+def rollout_phase(tag, device, problem, n_steps, traced=True, coarse=True, coarse_kw=None):
     """A problem's rollout through the kernels: warm-up, then a timed run
     whose launch counts are returned (each kernel of the path must have
     launched: K1-K4, or the persistent kernel with K3 and K4 where the
     resident gate holds), a traced window, and CHECK_STEPS from rest through
     the kernels and through the twins, which must agree within 5e-3 of the
-    coordinate scale. coarse=False runs without the coarse correction.
-    Returns {"launches", "ms" (per step), "newton", "cg" (per-step lists)}."""
+    coordinate scale. coarse=False runs without the coarse correction;
+    coarse_kw: the correction's build options (default max_agg 512).
+    Returns {"launches", "ms" (per step), "newton", "cg" (per-step lists),
+    "coarse", "state", "busy_ms" (device busy per step, traced on the card)}."""
     import torch
 
     from tlfea_torch.ops import fem_kernels as fk
@@ -813,10 +881,10 @@ def rollout_phase(tag, device, problem, n_steps, traced=True, coarse=True):
     t0 = time.perf_counter()
     co, desc = None, "no coarse correction"
     if coarse:
-        co = build_coarse_precond(system, state0.x, params.dt, params.rho, max_agg=512)
+        co = build_coarse_precond(system, state0.x, params.dt, params.rho,
+                                  **(coarse_kw or dict(max_agg=512)))
         sync()
-        desc = (f"coarse: {co.n_agg} aggregates x 6 modes, built in "
-                f"{time.perf_counter() - t0:.2f} s")
+        desc = _coarse_desc(co, time.perf_counter() - t0)
     on_resident = resident.eligible(system, co)
     # Mooney-Rivlin has no K3: its blocks are plain tensor code, summed
     # without K4.
@@ -852,9 +920,10 @@ def rollout_phase(tag, device, problem, n_steps, traced=True, coarse=True):
         f"{ {fk.launch_key(k, op): v for k, v in launches.items()} }")
     if min(launches[k] for k in path) <= 0:
         raise AssertionError(f"a kernel of the path was never launched: {launches}")
+    busy = None
     if traced and device.type == "cuda":
-        trace(newton.make_rollout(system, params, TRACE_STEPS, coarse=co, precond_refresh=8),
-              s, f_ext, ms)
+        busy = trace(newton.make_rollout(system, params, TRACE_STEPS, coarse=co,
+                                         precond_refresh=8), s, f_ext, ms)
 
     # The same steps from rest, through the kernels and through the twins.
     finals = {}
@@ -876,7 +945,7 @@ def rollout_phase(tag, device, problem, n_steps, traced=True, coarse=True):
     if not rel_coord < 5e-3:
         raise AssertionError(f"kernel path disagrees with the twin path: {rel_coord:.3e}")
     return {"launches": launches, "ms": ms, "newton": nit, "cg": cgit, "coarse": co,
-            "state": s}
+            "state": s, "busy_ms": busy}
 
 
 def gradient_noise(tag, device, state, material=None, dims=(2.0, 0.35, 0.3, 42, 7, 6),
@@ -2458,6 +2527,252 @@ def linearize_phase(device, problem, state, dims=(2.0, 0.35, 0.3, 42, 7, 6)):
     return lin_launches
 
 
+def _tight_params(f_ext):
+    """tests/test_coarse_precond.py's step tolerances at bench.py's dt and
+    rho: Newton to 1e-6 of ||f_ext||, CG to 1e-6 with fixed forcing."""
+    from tlfea_torch.solvers.newton import NewtonParams
+
+    return NewtonParams(dt=1e-3, rho=1e7, inner_atol=1e-6 * float(f_ext.norm()),
+                        inner_rtol=0.0, outer_tol=0.0, max_outer=1, max_inner=8,
+                        cg_rtol=1e-6, cg_max_iter=400, ew_eta_max=0.0)
+
+
+def coarse_bf16_check(tag, device, problem, co, params, enforce_x):
+    """CHECK_STEPS from rest through the kernels with the bfloat16
+    correction `co` and with the dense full-precision one on the same
+    aggregates (mm_dtype None): CG per step of the first at most BF16_CG of
+    the second's; the positions, through the displacements u (x itself is
+    rounded to the coordinates' scale), within BF16_X_TOL of the
+    displacement scale where enforce_x (else printed). Returns that
+    relative difference."""
+    import torch
+
+    from tlfea_torch.solvers import newton
+    from tlfea_torch.solvers.coarse import build_coarse_precond
+
+    system, state0, f_ext, _ = problem
+    t0 = time.perf_counter()
+    dense = build_coarse_precond(system, state0.x, params.dt, params.rho,
+                                 **{**COARSE_100K, "mm_dtype": None})
+    torch.cuda.synchronize()
+    log(tag, "dense comparator " + _coarse_desc(dense, time.perf_counter() - t0))
+    if not torch.equal(dense.agg, co.agg):
+        raise AssertionError("the dense and bfloat16 corrections differ in their aggregates")
+    runs = {}
+    for name, c in (("bf16", co), ("dense", dense)):
+        t0 = time.perf_counter()
+        sx, (nx, cx) = newton.make_rollout(system, params, CHECK_STEPS, coarse=c,
+                                           precond_refresh=8)(state0, f_ext)
+        torch.cuda.synchronize()
+        log(tag, f"{CHECK_STEPS} steps from rest, {name} coarse ({system.fem.gN_t.dtype}): "
+            f"{(time.perf_counter() - t0) / CHECK_STEPS * 1e3:.3f} ms/step, newton {nx}, cg {cx}")
+        runs[name] = (sx.u, cx)
+    del dense
+    (ub, cb), (ud, cd) = runs["bf16"], runs["dense"]
+    rel = float((ub - ud).abs().max() / (ud - state0.u).abs().max())
+    a, b = BF16_CG
+    log(tag, f"bfloat16 vs dense: x differs by {rel:.3e} of the displacement scale (bar "
+        f"{BF16_X_TOL:g}{'' if enforce_x else ', printed'}); CG per step {cb} vs {cd} (bar "
+        f"{a:g} x + {b})")
+    if any(x > a * y + b for x, y in zip(cb, cd)):
+        raise AssertionError(f"bfloat16 coarse CG {cb} exceeds {a} x {cd} + {b}")
+    if enforce_x and not rel < BF16_X_TOL:
+        raise AssertionError(f"bfloat16 coarse moves x by {rel:.3e} of the displacement scale")
+    return rel
+
+
+def flagship_100k(device):
+    """bench.py's "100k" scale as a rollout through K1-K4 with the bfloat16
+    range-flagged coarse correction (`rollout_phase`: warm-up, 30 timed
+    steps, trace, kernels against twins); then that correction against the
+    dense full-precision one, in float32 at the rollout's tolerance (CG bar)
+    and in float64 at tests/test_coarse_precond.py's (CG and x bars).
+    Returns (the rollout's record, the mesh's connectivity)."""
+    import torch
+
+    t0 = time.perf_counter()
+    problem = flagship_problem(device, torch.float32, DIMS_100K)
+    system = problem[0]
+    log("flagship_100k", f"host setup (box mesh, best_order, feat10.build, the kernels' "
+        f"tables): {time.perf_counter() - t0:.2f} s; {system.elems.n_elem} elements, "
+        f"{system.n_coef} nodes")
+    out = rollout_phase("flagship_100k", device, problem, ROLLOUT_100K, coarse_kw=COARSE_100K)
+    busy = out["busy_ms"]
+    log("flagship_100k", f"{out['ms']:.3f} ms/step, device busy "
+        f"{'not traced' if busy is None else f'{busy:.4f} ms/step'}")
+    coarse_bf16_check("flagship_100k", device, problem, out["coarse"], problem[3], False)
+    conn = system.elems.conn.cpu().numpy()
+    del problem, system
+    out["coarse"] = out["state"] = None
+    t0 = time.perf_counter()
+    p64 = flagship_problem(device, torch.float64, DIMS_100K)
+    co64 = build_coarse_precond_timed("flagship_100k", p64, COARSE_100K)
+    log("flagship_100k", f"float64 problem and coarse in {time.perf_counter() - t0:.2f} s")
+    coarse_bf16_check("flagship_100k", device, p64, co64, _tight_params(p64[2]), True)
+    return out, conn
+
+
+def build_coarse_precond_timed(tag, problem, kw):
+    """build_coarse_precond at a problem's rest state, logged."""
+    import torch
+
+    from tlfea_torch.solvers.coarse import build_coarse_precond
+
+    system, state0, _, params = problem
+    t0 = time.perf_counter()
+    co = build_coarse_precond(system, state0.x, params.dt, params.rho, **kw)
+    if state0.x.is_cuda:
+        torch.cuda.synchronize()
+    log(tag, _coarse_desc(co, time.perf_counter() - t0))
+    return co
+
+
+def coarse_modes(device):
+    """The 10k flagship for MODES_STEPS from rest with each coarse mode
+    (trans, rigid, affine, rigid with bfloat16 tables) through the kernels,
+    and one step of the legacy per-solve two-level path (`CoarseSetup`);
+    then each mode's float64 apply on the card against the CPU's on the
+    same residual: within max(1e-12, 8 eps kappa(A_c)) of its scale (both
+    factorisations are exact to eps kappa), bfloat16 within BF16_APPLY_TOL.
+    Returns the kernels' launches of the rollouts."""
+    import torch
+
+    from tlfea_torch.ops import fem_kernels as fk
+    from tlfea_torch.solvers import newton
+    from tlfea_torch.solvers.coarse import build_aggregates
+
+    problem = flagship_problem(device, torch.float32)
+    system, state0, f_ext, params = problem
+    fk.reset_launch_counts()
+    for name, kw in MODES:
+        co = build_coarse_precond_timed(f"coarse_modes {name}", problem, dict(max_agg=512, **kw))
+        t0 = time.perf_counter()
+        s, (nit, cgit) = newton.make_rollout(system, params, MODES_STEPS, coarse=co,
+                                             precond_refresh=8)(state0, f_ext)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / MODES_STEPS * 1e3
+        if not bool(torch.isfinite(s.x).all()):
+            raise AssertionError(f"coarse mode {name}: the state is not finite")
+        log("coarse_modes", f"{name}: {MODES_STEPS} steps from rest {ms:.3f} ms/step, newton/step "
+            f"median {np.median(nit):g}, cg/step median {np.median(cgit):g} (cg {cgit}), "
+            f"max |u| {float(s.u.abs().max()):.4e}")
+    setup = build_aggregates(state0.x)
+    t0 = time.perf_counter()
+    s, d = newton.make_step(system, params, coarse=setup)(state0, f_ext)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(s.x).all()):
+        raise AssertionError("legacy two-level step: the state is not finite")
+    log("coarse_modes", f"legacy CoarseSetup ({setup.n_agg} aggregates x 3, the Galerkin "
+        f"operator assembled and factored per inner solve): one step from rest "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, newton {d['newton_iters']}, cg "
+        f"{d['cg_iters']}")
+    launches = {k: fk.LAUNCHES[fk.launch_key(k, system.fem)] for k in KERNELS}
+
+    p_cpu = flagship_problem("cpu", torch.float64)
+    p_dev = flagship_problem(device, torch.float64)
+    r = torch.as_tensor(np.random.default_rng(SEED).standard_normal((p_cpu[0].n_coef, 3)))
+    for name, kw in MODES:
+        built = [build_coarse_precond_timed(f"coarse_modes f64 {name} {p[1].x.device.type}", p,
+                                            dict(max_agg=512, **kw)) for p in (p_cpu, p_dev)]
+        z_cpu = built[0].apply(r)
+        z_dev = built[1].apply(r.to(device)).cpu()
+        rel = float((z_dev - z_cpu).abs().max() / z_cpu.abs().max())
+        if built[1].Ainv is None:
+            tol = BF16_APPLY_TOL
+        else:
+            kappa = float(torch.linalg.cond(built[1].Ainv))
+            tol = max(1e-12, 8 * float(np.finfo(np.float64).eps) * kappa)
+        log("coarse_modes", f"float64 apply, {name}: card vs CPU {rel:.3e} of the scale (bar "
+            f"{tol:.3e})")
+        if not rel < tol:
+            raise AssertionError(f"coarse mode {name}: the card's apply is {rel:.3e} off the CPU's")
+    return launches
+
+
+def native_phase(conn_100k):
+    """The native host helpers (`tlfea_torch.native`, g++ from the port's
+    source): built; on the 10k flagship their colours and incidence equal
+    the NumPy functions'; at 100k the native helper timed alone."""
+    import torch
+
+    from tlfea_torch import native
+    from tlfea_torch.utils import coloring
+
+    if not native.available():
+        raise AssertionError(f"the native helper did not build: {native.BUILD_ERROR}")
+    log("native", f"library {os.path.relpath(native.library_path(), ROOT)}")
+    conn = flagship_problem("cpu", torch.float32)[0].elems.conn.numpy()
+    n = int(conn.max()) + 1
+    t0 = time.perf_counter()
+    colors, inc, mask = coloring.colors_and_incidence(conn, n)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    colors_np = coloring.greedy_coloring(coloring.build_adjacency(conn, n))
+    inc_np, mask_np = coloring.build_incidence(conn, n)
+    t_np = time.perf_counter() - t0
+    if not (np.array_equal(colors, colors_np) and np.array_equal(inc, inc_np)
+            and np.array_equal(mask, mask_np)):
+        raise AssertionError("native colouring or incidence differs from the NumPy functions")
+    log("native", f"10k flagship ({conn.shape[0]} elements, {n} nodes): {int(colors.max()) + 1} "
+        f"colours, incidence up to {inc.shape[1]}; native {t_native * 1e3:.1f} ms, NumPy "
+        f"{t_np * 1e3:.1f} ms, equal")
+    n = int(conn_100k.max()) + 1
+    t0 = time.perf_counter()
+    colors, inc, _ = coloring.colors_and_incidence(conn_100k, n)
+    log("native", f"100k ({conn_100k.shape[0]} elements, {n} nodes): {int(colors.max()) + 1} "
+        f"colours, incidence up to {inc.shape[1]}, native {(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+
+# AdamW takes make_solver's 3 x 20,000 iterations a step on this beam (45 s
+# a step on the card): one step of it.
+EXAMPLE_RUNS = (
+    [("beam_sag_feat10", [f"--solver={s}", f"--steps={1 if s == 'adamw' else 2}"])
+     for s in ("newton", "nesterov", "adamw", "vbd")]
+    + [("beam_sag_feat10", ["--res=16", "--steps=5", "--vtk_every=0"]),
+       ("beam_sag_ancf3243", ["--steps=5"]), ("beam_sag_ancf3443", ["--steps=5"]),
+       ("bunny_deform", ["--steps=5"]),
+       ("bunny_deform", ["--steps=5", "--material=mooney_rivlin"])])
+
+
+def examples_phase(device):
+    """Each ported example's main() on `device` (float32, the default) for a
+    few steps: its end figures, finite states on the device. Returns the
+    launches the runs made, {tag: {kernel: n}}."""
+    import importlib
+
+    import torch
+
+    from tlfea_torch.examples import _common
+    from tlfea_torch.ops import fem_kernels as fk
+
+    before = dict(fk.LAUNCHES)
+    for script, argv in EXAMPLE_RUNS:
+        mod = importlib.import_module(f"tlfea_torch.examples.{script}")
+        t0 = time.perf_counter()
+        sim, hist = mod.main(argv + [f"--device={device.type}"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        x = sim.state.x
+        if not (x.device.type == device.type and bool(torch.isfinite(x).all())):
+            raise AssertionError(f"{script} {argv}: the state is not finite on {device}")
+        d = sim.last_diag
+        counts = {k: int(d[k]) for k in ("outer_iters", "newton_iters", "cg_iters",
+                                         "inner_iters", "sweeps") if k in d}
+        big = sim.system.n_coef > _common.BIG
+        log("examples", f"{script} {' '.join(argv)}: {sim.system.elems.n_elem} elements, "
+            f"{sim.system.n_coef} nodes ({sim.system.fem.tag}, {x.dtype}"
+            f"{', bfloat16 coarse' if big and '--solver' not in ' '.join(argv) else ''}), "
+            f"{secs:.2f} s with setup; last {hist[-1]}, last step {counts}, max |u| "
+            f"{float(sim.state.u.abs().max()):.4e}")
+    delta = {}
+    for key, v in fk.LAUNCHES.items():
+        if v - before.get(key, 0) > 0:
+            name, tag = key[:-1].split("[")
+            delta.setdefault(tag, {})[name] = v - before.get(key, 0)
+    log("examples", f"launches: {delta}")
+    return delta
+
+
 def main():
     import torch
 
@@ -2483,12 +2798,16 @@ def main():
     smi = card_line()
     log("setup", f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
+    bf16_red = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     log("setup", f"precision pins: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
-        f"float32_matmul_precision={torch.get_float32_matmul_precision()!r} "
+        f"float32_matmul_precision={torch.get_float32_matmul_precision()!r}, "
+        f"matmul.allow_bf16_reduced_precision_reduction={bf16_red} "
         f"(tlfea_torch {tlfea_torch.__version__})")
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise AssertionError("TF32 is on")
+    if bf16_red:
+        raise AssertionError("bfloat16 products may reduce in bfloat16")
     fk.build_kernels()
     log("setup", f"built {len(fk.BUILD_INFO['sources'])} libraries in "
         f"{fk.BUILD_INFO['seconds']:.1f} s (nvcc, sm_90a, in parallel)")
@@ -2523,6 +2842,9 @@ def main():
 
     launches = {"feat10": flagship(device)}
     done("flagship")
+    out_100k, conn_100k = flagship_100k(device)
+    launches["feat10"] = {k: launches["feat10"][k] + out_100k["launches"][k] for k in KERNELS}
+    done("flagship_100k")
     # The persistent kernel, one record per (family, material); launches
     # from each phase's timed rollout.
     resident_runs = {}
@@ -2591,6 +2913,13 @@ def main():
     record, res_launches, comp = resident_runs["feat10"]
     resident_runs["feat10"] = (record, res_launches + col_resident, comp)
     done("collision")
+    modes = coarse_modes(device)
+    launches["feat10"] = {k: launches["feat10"][k] + modes[k] for k in KERNELS}
+    done("coarse_modes")
+    native_phase(conn_100k)
+    done("native")
+    example_launches = examples_phase(device)
+    done("examples")
 
     # The first-order path: K5 + K4 for every gradient, K5t + K4 for its jvp.
     problem = flagship_problem(device, torch.float32)
@@ -2628,6 +2957,10 @@ def main():
     launches["feat10_mr"]["contrib_tangent"] = mr_jvp["contrib_tangent"]
     for tag, fl in ancf_first.items():
         launches[tag].update({k: fl[k] for k in FIRST_ORDER})
+    for tag, counts in example_launches.items():  # [examples]: every kernel they launched
+        for name, n in counts.items():
+            if name in launches.get(tag, {}):
+                launches[tag][name] += n
 
     def src(tag, name):
         family, kind = (tag[:-3], "mr") if tag.endswith("_mr") else (tag, "svk")

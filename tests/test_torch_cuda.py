@@ -20,6 +20,7 @@ run it as
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import os
 from dataclasses import replace
 from functools import lru_cache
 
@@ -1737,3 +1738,65 @@ def test_simulation_resume_is_bitwise(cuda_dev, monkeypatch, tmp_path, path):
         assert torch.equal(getattr(second.state, k), getattr(whole.state, k)), k
     for k in ("x", "v", "u"):
         assert torch.equal(getattr(ref, k), getattr(whole.state, k)), k
+
+
+def _coarse_box(device, dtype):
+    """A pinned 1 x 0.2 x 0.2 box of 6 x 2 x 2 cells and its rest state."""
+    system, x0, _ = _box_system(device, dtype, dims=(1.0, 0.2, 0.2, 6, 2, 2))
+    return system, x0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("modes", ["trans", "rigid", "affine"])
+def test_coarse_modes_f64_apply_matches_cpu(cuda_dev, modes):
+    """Each mode's float64 apply on the card against the CPU's on the same
+    residual, within max(1e-12, 8 eps kappa(A_c)) of its scale."""
+    from tlfea_torch.solvers.coarse import build_coarse_precond
+
+    built = []
+    for dev in ("cpu", cuda_dev):
+        system, x0 = _coarse_box(dev, torch.float64)
+        built.append(build_coarse_precond(system, x0, DT, 1e7, modes=modes, target_cluster=8))
+    r = torch.as_tensor(np.random.default_rng(1).standard_normal((built[0].u0.shape[0], 3)))
+    z_cpu, z_dev = built[0].apply(r), built[1].apply(r.to(cuda_dev)).cpu()
+    kappa = float(torch.linalg.cond(built[0].Ainv))
+    tol = max(1e-12, 8 * float(np.finfo(np.float64).eps) * kappa)
+    assert float((z_dev - z_cpu).abs().max() / z_cpu.abs().max()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_coarse_bf16_apply_matches_cpu(cuda_dev, dtype):
+    """The bfloat16 factored apply on the card against the CPU's (3e-2 of
+    its scale), with bfloat16 tables and the result in r's dtype."""
+    from tlfea_torch.solvers.coarse import build_coarse_precond
+
+    built = []
+    for dev in ("cpu", cuda_dev):
+        system, x0 = _coarse_box(dev, dtype)
+        built.append(build_coarse_precond(system, x0, DT, 1e7, target_cluster=8,
+                                          mm_dtype="bfloat16", ranges=True))
+    assert built[1].Li.dtype == built[1].Agg.dtype == torch.bfloat16 and built[1].Ainv is None
+    r = torch.as_tensor(np.random.default_rng(2).standard_normal((built[0].u0.shape[0], 3)),
+                        dtype=dtype)
+    z_cpu, z_dev = built[0].apply(r), built[1].apply(r.to(cuda_dev))
+    assert z_dev.dtype == dtype
+    assert float((z_dev.cpu() - z_cpu).abs().max() / z_cpu.abs().max()) < 3e-2
+
+
+@pytest.mark.cuda
+def test_bf16_reduced_precision_reduction_is_off(cuda_dev):
+    """The package pins bfloat16 products to float32 accumulation."""
+    import tlfea_torch  # noqa: F401
+
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False
+
+
+@pytest.mark.cuda
+def test_native_library_is_built(cuda_dev):
+    """The native host helper builds from the port's source where the card is."""
+    from tlfea_torch import native
+
+    assert native.available(), native.BUILD_ERROR
+    assert native.library_path().startswith(os.path.join(os.path.dirname(
+        os.path.abspath(native.__file__)), "_build"))

@@ -26,15 +26,18 @@ their tensors on the card unless given device="cpu".
 Precision: float32 matrix products and convolutions run in full float32.
 TF32 keeps about three decimal digits — the Hopper form of the bf16-pass
 fault recorded in `tlfea/__init__.py:45-52` (1-3 % errors in F and P).
+bfloat16 products (the coarse correction's `mm_dtype="bfloat16"` tables)
+accumulate in float32: cuBLAS may otherwise reduce them in bfloat16.
 """
 
 import torch as _torch
 
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+_torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 _torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
 
 from tlfea_torch import utils, materials, elements, ops, constraints, solvers, interop  # noqa: E402,F401
-from tlfea_torch import collision, diagnostics, simulation  # noqa: E402,F401
+from tlfea_torch import collision, diagnostics, native, simulation  # noqa: E402,F401

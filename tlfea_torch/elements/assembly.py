@@ -28,6 +28,7 @@ __all__ = [
     "viscous_piola",
     "total_piola",
     "internal_force",
+    "alm_residual_contributions",
     "mass_matvec",
     "mass_diag",
     "lumped_mass",
@@ -149,6 +150,19 @@ def internal_force(x: torch.Tensor, v: torch.Tensor | None, elems: ElementBatch,
     P = total_piola(x, v, elems, material)
     fe = torch.einsum("eqij,eqaj,eq->eai", P, elems.grad_N, elems.dV)
     return coef_scatter_add(fe, elems.conn, elems.n_coef)
+
+
+def alm_residual_contributions(u: torch.Tensor, v: torch.Tensor, dv_dt: torch.Tensor,
+                               elems: ElementBatch, material) -> torch.Tensor:
+    """The element contributions of the ALM gradient summed onto the nodes,
+    M dv_dt + f_int(u, v) -> (n_coef, 3) (`assembly.py:205-228`), from
+    node displacements u: K5 `contrib` and K4 `node_reduce` on a
+    `FemOperator` of (elems, material) (their plain twins on CPU tensors)."""
+    from tlfea_torch.ops import fem_kernels as fk
+
+    op = fk.FemOperator(elems, material)
+    packed = torch.cat([u, v, dv_dt], dim=1).to(op.gN_t.dtype).contiguous()
+    return fk.node_reduce(op, fk.contrib(op, packed))
 
 
 def mass_matvec(v: torch.Tensor, elems: ElementBatch) -> torch.Tensor:

@@ -8,7 +8,9 @@ by preconditioned conjugate gradients with exact Hessian-vector products
 from the FEM kernels (`tlfea_torch.ops.fem_kernels.g_and_hvp`: one K1 + K4
 pass per gradient, one K2 + K4 pass per product). The preconditioner is the
 3x3 block-Jacobi inverse (K3 + K4), optionally plus the frozen two-level
-coarse correction (`tlfea_torch.solvers.coarse`). A mesh of at most 1,024
+coarse correction (`tlfea_torch.solvers.coarse`), or the legacy two-level
+form whose coarse operator is assembled at every inner solve (a
+`CoarseSetup`). A mesh of at most 1,024
 elements without the coarse correction runs each inner solve in one
 persistent kernel instead (`tlfea_torch.ops.resident`).
 
@@ -30,6 +32,7 @@ from tlfea_torch.elements.assembly import node_ref
 from tlfea_torch.ops import resident
 from tlfea_torch.ops.fem_kernels import g_and_hvp
 from tlfea_torch.ops.linalg import inv3x3
+from tlfea_torch.solvers.coarse import CoarseSetup, coarse_operator, make_two_level_precond
 from tlfea_torch.solvers.common import (
     StepState, System, _pin_terms, constraint_values, flat_norm, precond_blocks,
 )
@@ -114,10 +117,23 @@ def _newton_inner(v0, x_prev, v_prev, lam, f_ext, params: NewtonParams, system: 
     counts only, never the converged solution. A mesh that passes
     `resident.eligible` runs the whole loop in one kernel launch
     (`tlfea_torch.ops.resident`, the port of `pallas_resident`).
+
+    coarse (`newton.py:303-321`): an object with `apply` (`CoarsePrecond`)
+    adds its frozen correction to the block-Jacobi apply; a `CoarseSetup`
+    takes the legacy two-level preconditioner instead, its Galerkin operator
+    assembled and factored at x_prev + dt v0 and its block-Jacobi solve on
+    fresh blocks at v0.
     """
     args = _inner_args(v0, x_prev, v_prev, lam, f_ext, params, system, inv_blocks, u_prev)
     if resident.eligible(system, coarse):
         return resident.newton_inner_resident(*args)
+    if isinstance(coarse, CoarseSetup):
+        dt, rho = params.dt, params.rho
+        Ac = coarse_operator(x_prev + dt * v0, system.elems, system.material,
+                             system.constraints, coarse, dt, rho)
+        blocks = precond_blocks(v0, x_prev, dt, rho, system, u_prev=args[1])
+        precond = make_two_level_precond(blocks, torch.linalg.cholesky(Ac), coarse)
+        return _composed_inner(*args, plain=system.plain, precond=precond)
     return _composed_inner(*args, coarse, plain=system.plain)
 
 
@@ -150,19 +166,21 @@ def inner_solve_args(system: System, state: StepState, f_ext, params: NewtonPara
 
 
 def _composed_inner(v0, u_prev, v_prev, f_ext, params: NewtonParams, system: System,
-                    inv_blocks, pin_terms, coarse=None, plain=False):
+                    inv_blocks, pin_terms, coarse=None, plain=False, precond=None):
     """The Newton iterations of `_newton_inner` (`newton.py:325-434`) as one
     kernel launch per gradient and per Hv product (the element twins when
-    `plain`), with block-Jacobi (plus `coarse`) preconditioning. Returns
-    (v, iters, ||g||, cg_total, hist)."""
+    `plain`), with block-Jacobi (plus `coarse`) preconditioning, or with
+    `precond` r -> z in its place. Returns (v, iters, ||g||, cg_total, hist)."""
 
     def linearize_g(v):
         return g_and_hvp(v, u_prev, v_prev, f_ext, params.dt, system.grad_op, pin_terms,
                          plain=plain)
 
-    def precond(r):
+    def jacobi(r):
         z = torch.einsum("nij,nj->ni", inv_blocks, r)
         return z if coarse is None else z + coarse.apply(r)
+
+    precond = precond or jacobi
 
     tiny = torch.finfo(v0.dtype).tiny
     emax = max(params.ew_eta_max, params.cg_rtol)

@@ -3,9 +3,9 @@
 Host-side NumPy: the reference's CPU utilities (`lib_utils/cpu_utils.h:18-57`:
 BuildVertexAdjacency, GreedyVertexColoring, ValidateColoring,
 BuildNodeIncidence, BuildColorToNodes) and the padding into static-shape
-arrays. The JAX package's `colors_and_incidence` takes a g++ helper
-(`tlfea/native.py`) when it is built; that helper gives the same first-fit
-colouring as these functions and is not ported (ROADMAP queue 1).
+arrays. `colors_and_incidence` takes the g++ helper `tlfea_torch.native`
+when it is built (about 100x faster at 100k elements), as
+`tlfea/utils/coloring.py:24-42` does; both give the same first-fit colouring.
 """
 
 from __future__ import annotations
@@ -24,10 +24,14 @@ __all__ = [
 
 def colors_and_incidence(conn: np.ndarray, n_coef: int):
     """First-fit colouring and padded incidence lists -> (colors (n_coef,),
-    inc (n_coef, max_inc, 2), inc_mask)."""
-    colors = greedy_coloring(build_adjacency(conn, n_coef))
-    inc, mask = build_incidence(conn, n_coef)
-    return colors, inc, mask
+    inc (n_coef, max_inc, 2), inc_mask): the native helper when it is built,
+    else this module's NumPy functions."""
+    from tlfea_torch import native
+
+    colors = native.greedy_color(conn, n_coef)
+    if colors is None:
+        return greedy_coloring(build_adjacency(conn, n_coef)), *build_incidence(conn, n_coef)
+    return colors, *native.build_incidence(conn, n_coef)
 
 
 def build_adjacency(conn: np.ndarray, n_coef: int) -> list[set[int]]:
