@@ -38,7 +38,9 @@ non-zero:
    x=0 face pinned, float32, tolerance 2.5 % of ||f_ext||, frozen coarse
    correction, block-Jacobi refreshed every 8 steps): a warm-up 60-step
    rollout, then a timed one; ms/step, median Newton and CG counts,
-   newton_capped_frac and the kernels' launch counts in the timed rollout,
+   newton_unconverged_frac (the share of steps whose last iterate failed
+   the inner test, from each step's converged flag) and the kernels' launch
+   counts in the timed rollout,
    which must all be non-zero; a torch.profiler window of 16 more steps
    gives the device busy time per step and the largest device operations
    ([trace] lines). Then 5 steps from rest through the kernels and through
@@ -50,8 +52,9 @@ non-zero:
    elements, the same material and solver settings, no coarse
    correction, 250 steps) through the persistent Newton-PCG kernel
    (`newton_resident[feat10]`): the rollout as in 4, with one kernel launch
-   per inner solve, K1/K2 never launched and K3/K4 only at the
-   preconditioner refreshes; one float64
+   per inner solve, K2 never launched, K1 + K4 once for each step that
+   stopped at the Newton cap (the converged flag's test of its last
+   iterate) and K3/K4 at the preconditioner refreshes; one float64
    inner solve from the 10th step's state, kernel against its plain
    version (the same Newton count, CG within 2, positions within 1e-10
    relative); the same in float32, the rollout's dtype (CG within 2, v
@@ -73,7 +76,7 @@ non-zero:
    `[ancf3443_mr]` kernels, the exact Mooney-Rivlin blocks and the coarse
    correction (ANCF3443 never runs resident, in neither package).
 7. shell_theory: the cantilever plate of `tests/test_shell_validation.py`
-   (8 ANCF3443 elements, E 2e10, nu 0) in float64 on the card, 80 steps
+   (8 ANCF3443 elements, E 2e10, nu 0) in float64 on the card, 66 steps
    (the test's 150 cut; THEORY_STEPS): tip deflection within 5 % of
    q L^4 / (8 E I).
 8. ancf_beam, ancf_beam_1024: a clamped 64-element ANCF3243 beam under
@@ -83,8 +86,9 @@ non-zero:
    ancf_beam_mr, ancf_beam_mr_1024: both in the material of 13, through
    `newton_resident[ancf3243_mr]`.
 9. adamw, nesterov, vbd: the first-order solvers on the 10k flagship with
-   `examples/_common.make_solver`'s parameter sets (rho 1e7): a warm step,
-   then timed steps (ms/step, ms per inner iteration or sweep, outer and
+   `examples/_common.make_solver`'s parameter sets (rho 1e7): a warm step
+   capped at 500 inner iterations (a full AdamW step is 60,000), then timed
+   steps (ms/step, ms per inner iteration or sweep, outer and
    inner counts, launches: K5 and K4 only, plus K3 for VBD's blocks); a
    torch.profiler window of a capped step of 200 inner iterations (device
    busy share); one capped step from rest through the kernels and through
@@ -156,7 +160,7 @@ non-zero:
    gradient against the float64 twins at its final state. (b) The 10k
    flagship at bench.py's 10k_tight tolerance (0.5 % of ||f_ext||), pure
    float32 then the accuracy mode: ms/step, median Newton and CG,
-   newton_capped_frac, the launches and those of the float64
+   newton_unconverged_frac, the launches and those of the float64
    instantiations (none in pure float32, K1, K2 and K4 in the accuracy
    mode), a [trace] window. (c) `gradient_noise` with and without the
    accuracy mode on the SVK and MR flagships, and against the float64
@@ -211,7 +215,7 @@ non-zero:
    tables: Agg 299 MB, the inverse Cholesky factor Li): the host setup's
    seconds, the correction's build seconds and bytes, then the rollout of
    4 over 30 steps (ms/step, device busy ms/step from the trace, Newton
-   and CG medians, newton_capped_frac, K1-K4 launches, which join the
+   and CG medians, newton_unconverged_frac, K1-K4 launches, which join the
    FEAT10 rows of the kernels' record) and kernels vs twins after 5
    steps. Then the bfloat16 correction against the dense full-precision
    one on the same aggregates, 5 steps from rest each: in float32 at the
@@ -228,12 +232,28 @@ non-zero:
 25. native: the port's g++ helper built; its colours and incidence on the
    10k flagship equal to the NumPy functions'; at 100k the helper timed.
 26. examples: each ported example script's `main()` on the card in
-   float32 (`tlfea_torch.examples`): `beam_sag_feat10` at res 0 with each
-   of the four solvers (2 steps, AdamW 1) and at res 16 (176,868 T10, 248,745
+   float32 (`tlfea_torch.examples`): `beam_sag_feat10` at res 0 with Newton,
+   Nesterov and VBD (2 steps each; AdamW's parameter set runs in 9) and at
+   res 16 (176,868 T10, 248,745
    nodes, the bfloat16 coarse correction; 5 steps), the two ANCF beam sags
-   and `bunny_deform` with SVK and with Mooney-Rivlin (5 steps each): end
-   figures, finite states on the card; their launches join the kernels'
-   record.
+   and `bunny_deform` with SVK and with Mooney-Rivlin (5 steps each); the
+   contact scenes on their fallback meshes, in contact within a few steps
+   (`CONTACT_RUNS`: the free bodies overlapping 5 mm at the start, the
+   gripper closing at 4 m/s): `sphere_drop_collision` 40 steps,
+   `item_drop` hydroelastic (block broadphase) 30 and DEM 10,
+   `bubble_gripper` 30 (close / hold / reopen at 4 m/s), and
+   `self_contact_fold` at nx 24 (576 T10, each inner solve in the
+   persistent kernel) 40; the mesh-bound scripts on meshes written to a
+   temporary folder (`MESH_RUNS`): `ancf3243_net` on a 20 x 20 net (840
+   beams, pinned joints and corner `fix_dof` rows), `ancf3443_tire` on a
+   36 x 20 patch (720 shells, welded seams, rim rows) and
+   `feat10_resolution_study` at res 0, 2, 4, 5 steps each: end figures,
+   seconds, last-step counts, finite states on the card; for the contact
+   scenes the contacts of every step (some > 0 by the end) and the third
+   law at every step in contact (|sum f| <= 1e-5 max |f|, summed in
+   float64); then the fold for 2 steps (pressed 0.1 m) in float64 on the
+   card against the CPU, within 1e-9 of the displacement scale. Their
+   launches join the kernels' record.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 `{"ok": true, "device": {...}}`.
@@ -258,9 +278,9 @@ SHELL_ROLLOUT = 40  # bench.py run_ancf_shell's rollout
 # The plate of tests/test_shell_validation.py (150 steps there): its tip
 # swings about the static deflection and settles to within 2.7 % of plate
 # theory from step 66 on (1.9 % at 80, 0.47 % at 150; float64, the port on
-# the CPU and the card alike); 80 steps keep the 5 % bar with room and take
-# 3/4 of the 150 steps' time (the first steps take the most CG).
-THEORY_STEPS = 80
+# the CPU and the card alike); 66 steps keep the 5 % bar with room (80 did
+# until the run outgrew its time: 170 s of a ~1,016 s run on an H100 host).
+THEORY_STEPS = 66
 ANCF_BEAM_STEPS = 20
 BIG_BEAM = 1024  # the largest ANCF3243 beam of one element block: 32 tiles
 RESIDENT_ROLLOUT = 250  # bench.py's ROLLOUT["1k"]
@@ -390,6 +410,12 @@ def card_line():
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[0]
+
+
+def _unconverged(counts) -> float:
+    """The share of a rollout's steps whose last iterate failed the inner
+    test (`newton.RolloutCounts.converged`)."""
+    return 1.0 - float(np.mean(counts.converged))
 
 
 def _solver_params(f_ext):
@@ -903,9 +929,10 @@ def rollout_phase(tag, device, problem, n_steps, traced=True, coarse=True, coars
 
     fk.reset_launch_counts()
     t0 = time.perf_counter()
-    s, (nit, cgit) = roll(s, f_ext)
+    s, counts = roll(s, f_ext)
     sync()
     wall = time.perf_counter() - t0
+    nit, cgit = counts
     names = KERNELS + (("newton_resident",) if (family, op.kind) in fk.RESIDENT_SOURCES else ())
     launches = {k: fk.LAUNCHES[fk.launch_key(k, op)] for k in names}
     if not bool(torch.isfinite(s.x).all()) or s.x.shape != state0.x.shape:
@@ -914,7 +941,7 @@ def rollout_phase(tag, device, problem, n_steps, traced=True, coarse=True, coars
     ms = wall / n_steps * 1e3
     log(tag, f"timed rollout: {n_steps} steps in {wall:.3f} s = {ms:.3f} ms/step; "
         f"newton/step median {np.median(nit):g}, cg/step median {np.median(cgit):g}, "
-        f"newton_capped_frac {float((nit >= params.max_inner).mean()):.3f}, "
+        f"newton_unconverged_frac {_unconverged(counts):.3f}, "
         f"max |u| {float(s.u.abs().max()):.4e}")
     log(tag, f"launches in the timed rollout: "
         f"{ {fk.launch_key(k, op): v for k, v in launches.items()} }")
@@ -945,7 +972,7 @@ def rollout_phase(tag, device, problem, n_steps, traced=True, coarse=True, coars
     if not rel_coord < 5e-3:
         raise AssertionError(f"kernel path disagrees with the twin path: {rel_coord:.3e}")
     return {"launches": launches, "ms": ms, "newton": nit, "cg": cgit, "coarse": co,
-            "state": s, "busy_ms": busy}
+            "state": s, "busy_ms": busy, "capped": int((nit >= params.max_inner).sum())}
 
 
 def gradient_noise(tag, device, state, material=None, dims=(2.0, 0.35, 0.3, 42, 7, 6),
@@ -992,11 +1019,11 @@ def float64_counts(tag, device, material=None, dims=(2.0, 0.35, 0.3, 42, 7, 6)):
     co = build_coarse_precond(system, state.x, params.dt, params.rho, max_agg=512)
     roll = newton.make_rollout(system, params, ROLLOUT, coarse=co, precond_refresh=8)
     state, _ = roll(state, f_ext)
-    _, (nit, cgit) = roll(state, f_ext)
+    _, counts = roll(state, f_ext)
+    nit, cgit = counts
     med = float(np.median(nit)), float(np.median(cgit))
     log(tag, f"float64 kernels over the same steps: newton/step median {med[0]:g}, cg/step "
-        f"median {med[1]:g}, newton_capped_frac "
-        f"{float((np.asarray(nit) >= params.max_inner).mean()):.3f}")
+        f"median {med[1]:g}, newton_unconverged_frac {_unconverged(counts):.3f}")
     return med
 
 
@@ -1067,8 +1094,8 @@ def resident_phase(tag, device, make_problem, n_steps, composed_tag, jax_counts=
     through the composed K1-K4 path for comparison. make_problem(dtype) ->
     (system, state, f_ext, params); jax_counts: the median Newton / CG per
     step the JAX package recorded for it, if any. Checks: one launch per
-    inner solve, K1/K2 never (K3/K4 only at the SVK preconditioner
-    refreshes); one float64 inner solve from the 10th step's state, kernel
+    inner solve, K2 never, K1 + K4 once a step that stopped at the cap
+    (K3/K4 at the SVK preconditioner refreshes); one float64 inner solve from the 10th step's state, kernel
     against its plain version (the same Newton count, CG within 2,
     positions within 1e-10 relative); the same in float32, the rollout's
     dtype (CG within 2, v within F32_RESIDENT_TOL of the solve's update, or
@@ -1089,11 +1116,13 @@ def resident_phase(tag, device, make_problem, n_steps, composed_tag, jax_counts=
                              f"a step")
     out = rollout_phase(tag, device, problem, n_steps, coarse=False)
     refreshes = -(-n_steps // 8) if system.fem.kind == "svk" else 0
-    want = {"primal_prep": 0, "hv": 0, "svk_blocks": refreshes, "node_reduce": refreshes,
-            "newton_resident": n_steps}
+    capped = out["capped"]  # each tests its last iterate: one K1 + K4
+    want = {"primal_prep": capped, "hv": 0, "svk_blocks": refreshes,
+            "node_reduce": refreshes + capped, "newton_resident": n_steps}
     if out["launches"] != want:
         raise AssertionError(f"launches {out['launches']}, expected {want}")
-    log(tag, f"launches as expected: {key} once per inner solve, K1/K2 never, "
+    log(tag, f"launches as expected: {key} once per inner solve, K2 never, K1 at the "
+        f"{capped} steps that stopped at the cap, "
         + (f"K3/K4 at the {refreshes} preconditioner refreshes" if refreshes else
            "K3/K4 never (the Mooney-Rivlin blocks are plain tensor code)")
         + f"; median Newton {np.median(out['newton']):g} / CG {np.median(out['cg']):g} per step"
@@ -1250,8 +1279,9 @@ def dense_pins(device):
     (xf, lf), (xd, ld) = ((runs[k][0].x, runs[k][0].lam) for k in ("fixed", "dense"))
     la = runs["dense"][4]
     refreshes = -(-RESIDENT_ROLLOUT // 8)
-    want = {"primal_prep": 0, "hv": 0, "svk_blocks": refreshes, "node_reduce": refreshes,
-            "newton_resident": RESIDENT_ROLLOUT}
+    capped = int((np.asarray(runs["dense"][1]) >= params.max_inner).sum())
+    want = {"primal_prep": capped, "hv": 0, "svk_blocks": refreshes,
+            "node_reduce": refreshes + capped, "newton_resident": RESIDENT_ROLLOUT}
     if la != want:
         raise AssertionError(f"{tag}: launches {la}, expected {want}")
     pinned = torch.nonzero(system.constraints.mask[:, 0]).squeeze(1)
@@ -1469,9 +1499,10 @@ def _tight_rollout(device, accum):
     torch.cuda.synchronize()
     fk.reset_launch_counts()
     t0 = time.perf_counter()
-    state, (nit, cgit) = roll(state, f_ext)
+    state, counts = roll(state, f_ext)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / ROLLOUT * 1e3
+    nit, cgit = counts
     la = {k: fk.LAUNCHES[fk.launch_key(k, system.fem)] for k in KERNELS}
     la64 = {k: fk.LAUNCHES_F64[fk.launch_key(k, system.fem)] for k in KERNELS}
     if not bool(torch.isfinite(state.x).all()):
@@ -1479,13 +1510,14 @@ def _tight_rollout(device, accum):
     nit, cgit = np.asarray(nit), np.asarray(cgit)
     mode = "float32 + accum_dtype float64" if accum else "pure float32"
     log(tag, f"(b) 10k_tight, {mode}: {ms:.3f} ms/step over {ROLLOUT} steps; Newton/step "
-        f"median {np.median(nit):g}, CG/step median {np.median(cgit):g}, newton_capped_frac "
-        f"{float((nit >= params.max_inner).mean()):.3f}; launches {la}, of them float64 {la64}")
+        f"median {np.median(nit):g}, CG/step median {np.median(cgit):g}, "
+        f"newton_unconverged_frac {_unconverged(counts):.3f} (at the cap "
+        f"{float((nit >= params.max_inner).mean()):.3f}); launches {la}, of them float64 {la64}")
     by_name = _device_profile(lambda: newton.make_rollout(
         system, params, TRACE_STEPS, coarse=co, precond_refresh=8)(state, f_ext))
     _log_profile(tag, by_name, TRACE_STEPS, "step", ms)
     return {"ms": ms, "newton": nit, "cg": cgit, "launches": la, "launches_f64": la64,
-            "state": state, "capped": float((nit >= params.max_inner).mean())}
+            "state": state, "unconverged": _unconverged(counts)}
 
 
 def accuracy_mode(device):
@@ -2122,8 +2154,9 @@ def _capped(name, params, n, structures=None):
 
 
 def first_order_phase(name, device, problem, n_steps, params=None, tag=None):
-    """A first-order solver on the flagship through K5 + K4: a warm step, then
-    n_steps timed ones (their launches: K5 and K4, and for VBD K3 for its
+    """A first-order solver on the flagship through K5 + K4: a warm step
+    capped at CHECK_INNER inner iterations (VBD: gradients), then n_steps
+    timed ones (their launches: K5 and K4, and for VBD K3 for its
     blocks; K1, K2 and K5t never); a torch.profiler window of a capped step
     of TRACE_ITERS inner iterations; and one capped step from rest through
     the kernels and through the twins (equal counts, positions within 5e-3
@@ -2165,10 +2198,10 @@ def first_order_phase(name, device, problem, n_steps, params=None, tag=None):
     log(log_name, f"{params}")
     step = make(system, params)
     t0 = time.perf_counter()
-    s, d = step(state0, f_ext)
+    s, d = make(system, _capped(name, params, CHECK_INNER, structures))(state0, f_ext)
     torch.cuda.synchronize()
-    log(log_name, f"warm step: {time.perf_counter() - t0:.2f} s, outer {d['outer_iters']}, "
-        f"{inner_key} {d[inner_key]}, ||c|| {d['norm_c']:.3e}")
+    log(log_name, f"warm step, capped: {time.perf_counter() - t0:.2f} s, outer "
+        f"{d['outer_iters']}, {inner_key} {d[inner_key]}, ||c|| {d['norm_c']:.3e}")
 
     fk.reset_launch_counts()
     outers, inners = [], []
@@ -2723,31 +2756,151 @@ def native_phase(conn_100k):
         f"colours, incidence up to {inc.shape[1]}, native {(time.perf_counter() - t0) * 1e3:.1f} ms")
 
 
-# AdamW takes make_solver's 3 x 20,000 iterations a step on this beam (45 s
-# a step on the card): one step of it.
+# No AdamW run here: make_solver's 3 x 20,000 iterations a step took 30-44 s
+# on this beam, and [adamw] runs the same parameter set on the flagship.
 EXAMPLE_RUNS = (
-    [("beam_sag_feat10", [f"--solver={s}", f"--steps={1 if s == 'adamw' else 2}"])
-     for s in ("newton", "nesterov", "adamw", "vbd")]
+    [("beam_sag_feat10", [f"--solver={s}", "--steps=2"]) for s in ("newton", "nesterov", "vbd")]
     + [("beam_sag_feat10", ["--res=16", "--steps=5", "--vtk_every=0"]),
        ("beam_sag_ancf3243", ["--steps=5"]), ("beam_sag_ancf3443", ["--steps=5"]),
        ("bunny_deform", ["--steps=5"]),
        ("bunny_deform", ["--steps=5", "--material=mooney_rivlin"])])
+# The contact scenes on their fallback meshes, in contact within a few
+# steps: the free bodies overlapping 5 mm at the start (the scripts' 0.15 m
+# and 0.05 m gaps take hundreds of steps to close, and the shallow
+# penetration a short fall gives makes no patch on the fallback boxes'
+# coarse pressure fields), the gripper closing at 4 m/s (its 0.08 m/s
+# closes 1.2 mm of the 0.02 m gap in 30 steps) with the close / hold /
+# reopen fractions kept (0.4, 0.3), the fold at its default nx 24 over 40
+# steps, so that the whole --press is applied.
+CONTACT_RUNS = (
+    ("sphere_drop_collision", ["--steps=40", "--drop_height=-5e-3", "--vtk_every=0"]),
+    ("item_drop", ["--steps=30", "--drop_height=-5e-3", "--vtk_every=0"]),
+    ("item_drop", ["--steps=10", "--collision=deme", "--drop_height=-5e-3", "--vtk_every=0"]),
+    ("bubble_gripper", ["--steps=30", "--close_speed=4", "--vtk_every=0"]),
+    ("self_contact_fold", ["--steps=40", "--vtk_every=0"]),
+)
+# The mesh-bound scripts on meshes written to a temporary folder ({meshes}):
+# the reference net's 20 x 20 layout (L 0.5), a 36 x 20 shell patch of 5 cm
+# (720 shells, the reference tire's count) welded at two seams, the
+# resolution study's beams at res 0, 2, 4 (36, 972, 4,500 T10).
+MESH_RUNS = (
+    ("ancf3243_net", ["--mesh={meshes}/net.ancf3243mesh", "--steps=5", "--vtk_every=0"]),
+    ("ancf3443_tire", ["--mesh={meshes}/patch.ancf3443mesh", "--steps=5", "--vtk_every=0"]),
+    ("feat10_resolution_study", ["--res=0,2,4", "--steps=5"]),
+)
+NET_LAYOUT = (20, 20, 0.5)
+TIRE_PATCH = dict(nu=36, nv=20, h=0.05, thickness=0.01, seams=(9, 27))
+FOLD_CHECK = ["--steps=2", "--press=0.1", "--vtk_every=0", "--dtype=float64"]
+FOLD_TOL = 1e-9  # the fold's float64 card vs CPU, of the displacement scale
+
+
+def _write_example_meshes(folder):
+    """The mesh-bound runs' meshes under `folder` (tests/mesh_files.py)."""
+    from tests.mesh_files import (write_ancf3243_net, write_ancf3443_patch,
+                                  write_resolution_beams)
+
+    net = write_ancf3243_net(os.path.join(folder, "net.ancf3243mesh"), *NET_LAYOUT)
+    patch = write_ancf3443_patch(os.path.join(folder, "patch.ancf3443mesh"), **TIRE_PATCH)
+    beams = write_resolution_beams(folder, (0, 2, 4))
+    log("examples", f"meshes in a temporary folder: net {net[0]} nodes / {net[1]} beams / "
+        f"{net[2]} pinned joints, patch {patch[0]} nodes / {patch[1]} shells / {patch[2]} "
+        f"welded joints, beams {beams}")
+
+
+def _recording_simulation(record):
+    """`Simulation` whose collision calls append (contacts, the call's
+    forces' third-law ratio |sum f| / max |f|, summed in float64) to
+    `record`, however the script calls them."""
+    from tlfea_torch.simulation import Simulation
+
+    def wrap(collision):
+        step = collision.step
+
+        def recorded(x, v=None, params=None):
+            f, info, overflow = step(x, v, params)
+            scale = float(f.abs().max())
+            net = float(f.double().sum(0).abs().max()) / scale if scale > 0 else 0.0
+            record.append((int(info.n_contacts), net))
+            return f, info, overflow
+
+        collision.step = recorded
+
+    class Recording(Simulation):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            wrap(self.collision)
+
+        def _check_overflow(self):
+            before = self.collision
+            super()._check_overflow()
+            if self.collision is not before:  # regrown after an overflow
+                wrap(self.collision)
+
+    return Recording
+
+
+def _example_line(script, argv, sim, hist, secs):
+    """One run's log line: elements, seconds, last step's counts, end figures."""
+    from tlfea_torch.examples import _common
+
+    x = sim.state.x
+    d = sim.last_diag
+    counts = {k: int(d[k]) for k in ("outer_iters", "newton_iters", "cg_iters", "inner_iters",
+                                     "sweeps") if k in d}
+    if "converged" in d:
+        counts["converged"] = bool(d["converged"])
+    last = hist[-1] if isinstance(hist, list) else {r: h[-1] for r, h in hist.items()}
+    big = sim.system.n_coef > _common.BIG and "--solver" not in " ".join(argv)
+    return (f"{script} {' '.join(argv)}: {sim.system.elems.n_elem} elements, "
+            f"{sim.system.n_coef} nodes ({sim.system.fem.tag}, {x.dtype}"
+            f"{', bfloat16 coarse' if big else ''}), {secs:.2f} s with setup; last {last}, "
+            f"last step {counts}, max |u| {float(sim.state.u.abs().max()):.4e}")
+
+
+def _fold_card_vs_cpu(device):
+    """self_contact_fold for 2 steps in float64 on `device` and on the CPU:
+    positions within FOLD_TOL of the displacement scale."""
+    from tlfea_torch.examples import self_contact_fold
+
+    x = {}
+    for dev in (device.type, "cpu"):
+        sim, _ = self_contact_fold.main(FOLD_CHECK + [f"--device={dev}"])
+        x[dev] = (sim.state.x.cpu(), sim.system.elems.x_ref.cpu(),
+                  int(sim.last_patches.n_contacts))
+    (xc, x0, nc_card), (xh, _, nc_cpu) = x[device.type], x["cpu"]
+    rel = float((xc - xh).abs().max()) / float((xh - x0).abs().max())
+    log("examples", f"self_contact_fold {' '.join(FOLD_CHECK)}: {device.type} against cpu, max "
+        f"|dx| {rel:.3e} of the displacement scale (bar {FOLD_TOL:g}); contacts at the last "
+        f"step {nc_card} / {nc_cpu}")
+    if not (rel <= FOLD_TOL and nc_card == nc_cpu):
+        raise AssertionError(f"self_contact_fold float64 {device.type} vs cpu: {rel:.3e}")
 
 
 def examples_phase(device):
     """Each ported example's main() on `device` (float32, the default) for a
-    few steps: its end figures, finite states on the device. Returns the
-    launches the runs made, {tag: {kernel: n}}."""
+    few steps: its end figures, finite states on the device. The contact
+    scenes: contacts > 0 at some step by the end, the third law at every
+    collision call in contact; the fold in float64 on the card against the
+    CPU. Returns the launches the runs made, {tag: {kernel: n}}."""
     import importlib
+    import tempfile
 
     import torch
 
-    from tlfea_torch.examples import _common
     from tlfea_torch.ops import fem_kernels as fk
 
     before = dict(fk.LAUNCHES)
-    for script, argv in EXAMPLE_RUNS:
+    meshes = tempfile.TemporaryDirectory(prefix="tlfea_meshes_")
+    _write_example_meshes(meshes.name)
+    runs = ([(s, a, False) for s, a in EXAMPLE_RUNS] + [(s, a, True) for s, a in CONTACT_RUNS]
+            + [(s, [v.format(meshes=meshes.name) for v in a], False) for s, a in MESH_RUNS])
+    for script, argv, contact in runs:
         mod = importlib.import_module(f"tlfea_torch.examples.{script}")
+        record = []
+        if contact:
+            mod.Simulation = _recording_simulation(record)
+        if script == "feat10_resolution_study":
+            mod.REF_DATA = meshes.name  # the beams' TLFEA_REF_DATA
         t0 = time.perf_counter()
         sim, hist = mod.main(argv + [f"--device={device.type}"])
         torch.cuda.synchronize()
@@ -2755,21 +2908,24 @@ def examples_phase(device):
         x = sim.state.x
         if not (x.device.type == device.type and bool(torch.isfinite(x).all())):
             raise AssertionError(f"{script} {argv}: the state is not finite on {device}")
-        d = sim.last_diag
-        counts = {k: int(d[k]) for k in ("outer_iters", "newton_iters", "cg_iters",
-                                         "inner_iters", "sweeps") if k in d}
-        big = sim.system.n_coef > _common.BIG
-        log("examples", f"{script} {' '.join(argv)}: {sim.system.elems.n_elem} elements, "
-            f"{sim.system.n_coef} nodes ({sim.system.fem.tag}, {x.dtype}"
-            f"{', bfloat16 coarse' if big and '--solver' not in ' '.join(argv) else ''}), "
-            f"{secs:.2f} s with setup; last {hist[-1]}, last step {counts}, max |u| "
-            f"{float(sim.state.u.abs().max()):.4e}")
+        log("examples", _example_line(script, argv, sim, hist, secs))
+        if contact:
+            n = [c for c, _ in record]
+            worst = max((net for c, net in record if c > 0), default=float("nan"))
+            log("examples", f"{script}: contacts per step {n}; third law over the steps in "
+                f"contact: worst |sum f| = {worst:.3e} of max |f| (bar {THIRD_LAW_TOL:g})")
+            if not max(n) > 0:
+                raise AssertionError(f"{script} {argv}: no contact in {len(n)} steps")
+            if not worst <= THIRD_LAW_TOL:
+                raise AssertionError(f"{script}: the contact forces do not balance ({worst:.3e})")
     delta = {}
     for key, v in fk.LAUNCHES.items():
         if v - before.get(key, 0) > 0:
             name, tag = key[:-1].split("[")
             delta.setdefault(tag, {})[name] = v - before.get(key, 0)
     log("examples", f"launches: {delta}")
+    meshes.cleanup()
+    _fold_card_vs_cpu(device)
     return delta
 
 
@@ -2961,6 +3117,9 @@ def main():
         for name, n in counts.items():
             if name in launches.get(tag, {}):
                 launches[tag][name] += n
+            elif name == "newton_resident":  # the fold's inner solves
+                record, res_launches, comp = resident_runs[tag]
+                resident_runs[tag] = (record, res_launches + n, comp)
 
     def src(tag, name):
         family, kind = (tag[:-3], "mr") if tag.endswith("_mr") else (tag, "svk")

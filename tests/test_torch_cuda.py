@@ -319,6 +319,35 @@ def test_resident_rollout_launches_once_per_inner_solve(cuda_dev):
 
 
 @pytest.mark.cuda
+def test_resident_converged_flag_at_the_cap(cuda_dev):
+    """A float64 resident step converging in n Newton iterations, capped at
+    n: the same bits, converged, the last iterate tested by one K1 + K4
+    launch beside the persistent one; capped at n - 1: unconverged. Uncapped,
+    no K1."""
+    system, x0, f_ext = _box_system(cuda_dev, torch.float64, dims=(1.0, 0.3, 0.3, 8, 2, 2))
+    params = newton.NewtonParams(dt=DT, rho=1e7, inner_atol=1e-9 * float(f_ext.norm()),
+                                 outer_tol=0.0, max_outer=1, max_inner=20, cg_rtol=1e-6,
+                                 cg_max_iter=200, ew_eta_max=0.0)
+    state = StepState.rest(system, x0)
+    assert resident.eligible(system, None)
+    runs = {}
+    for cap in (None, "n", "n-1"):
+        prm = params if cap is None else replace(
+            params, max_inner=runs[None][1]["newton_iters"] - (cap == "n-1"))
+        fk.reset_launch_counts()
+        runs[cap] = newton.step(system, state, prm, f_ext)
+        runs[cap] += ({k: fk.LAUNCHES[f"{k}[feat10]"] for k in
+                       ("primal_prep", "node_reduce", "newton_resident")},)
+    (free, dfree, lfree), (at_n, d_n, l_n), (_, d_s, l_s) = (runs[k] for k in (None, "n", "n-1"))
+    assert dfree["newton_iters"] >= 2 and dfree["converged"] is True
+    assert lfree["primal_prep"] == 0 and lfree["newton_resident"] == 1
+    assert d_n["converged"] is True and torch.equal(at_n.x, free.x)
+    assert l_n["primal_prep"] == 1 and l_n["newton_resident"] == 1
+    assert l_n["node_reduce"] == lfree["node_reduce"] + 1
+    assert d_s["converged"] is False and l_s["primal_prep"] == 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("family", ["feat10", "ancf3243", "ancf3443"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 @pytest.mark.parametrize("kernel", ["contrib", "contrib_tangent"])
@@ -718,8 +747,9 @@ def test_resident_pair_float32_matches_plain_and_repeats(cuda_dev, pair):
 @pytest.mark.parametrize("tag", ["feat10_mr", "ancf3243", "ancf3243_mr"])
 def test_resident_pair_rollout_launches_once_per_inner_solve(cuda_dev, tag):
     """Four float32 steps through the gate: one persistent launch per inner
-    solve, K1 and K2 never; K3 + K4 at the SVK refreshes only (the
-    Mooney-Rivlin blocks are plain tensor code)."""
+    solve, K2 never, K1 + K4 once for each step that stopped at the Newton
+    cap (its converged flag tests the last iterate); K3 + K4 at the SVK
+    refreshes only (the Mooney-Rivlin blocks are plain tensor code)."""
     system, x0, f_ext = (_box_system(cuda_dev, torch.float32, dims=(1.0, 0.3, 0.3, 8, 2, 2),
                                      material=_mooney_rivlin()) if tag == "feat10_mr" else
                          _ancf_system(cuda_dev, torch.float32, "ancf3243", n=(12, 1),
@@ -732,9 +762,10 @@ def test_resident_pair_rollout_launches_once_per_inner_solve(cuda_dev, tag):
         StepState.rest(system, x0), f_ext)
     assert bool(torch.isfinite(state.x).all()) and sum(nit) > 0
     svk = not tag.endswith("_mr")
+    capped = sum(n >= params.max_inner for n in nit)  # one inner solve a step
     got = {k: fk.LAUNCHES[fk.launch_key(k, system.fem)] for k in KERNELS + ["newton_resident"]}
-    assert got == {"primal_prep": 0, "hv": 0, "svk_blocks": 2 * svk, "node_reduce": 2 * svk,
-                   "newton_resident": 4}
+    assert got == {"primal_prep": capped, "hv": 0, "svk_blocks": 2 * svk,
+                   "node_reduce": 2 * svk + capped, "newton_resident": 4}
     assert fk.launch_key("newton_resident", system.fem) == f"newton_resident[{tag}]"
 
 

@@ -15,8 +15,6 @@ bunny, which writes no CSV, through its VTU files at --vtk_every=2).
 """
 
 import importlib
-import os
-import re
 import sys
 from types import SimpleNamespace
 
@@ -25,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.example_parity import jax_examples as _jax_examples
+from tests.example_parity import vtu_arrays as _vtu_arrays
 from tlfea.constraints import FixedCoefs as JFixedCoefs
 from tlfea.elements import feat10 as j_feat10
 from tlfea.materials import SVK as JSVK
@@ -39,18 +39,9 @@ from tlfea_torch.solvers.coarse import CoarsePrecond
 
 torch.set_num_threads(2)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-EXAMPLES = os.path.join(ROOT, "examples")
 SCRIPTS = ("beam_sag_feat10", "beam_sag_ancf3243", "beam_sag_ancf3443", "bunny_deform")
 CAP = 300  # AdamW / Nesterov inner cap in the make_solver comparison
 SWEEPS = 60  # VBD's sweep cap there
-
-
-def _jax_examples():
-    """The JAX scripts' modules (they import `_common` from their folder)."""
-    if EXAMPLES not in sys.path:
-        sys.path.insert(0, EXAMPLES)
-    return importlib.import_module("_common")
 
 
 @pytest.fixture(scope="module")
@@ -137,13 +128,6 @@ def test_auto_coarse_choice(beam, monkeypatch):
     np.testing.assert_allclose(tco.Ainv.numpy(), np.asarray(jco.Ainv), rtol=0,
                                atol=1e-12 * np.abs(np.asarray(jco.Ainv)).max())
     assert tcommon._auto_coarse(SimpleNamespace(material=object(), elems=None), 1e-3, 1e9) is None
-
-
-def _vtu_arrays(path):
-    """{name: values} of a VTU file's Float64 DataArrays."""
-    text = open(path).read()
-    blocks = re.findall(r'type="Float64" Name="(\w+)"[^>]*>\s*(.*?)\s*</DataArray>', text, re.S)
-    return {name: np.array(b.split(), dtype=np.float64) for name, b in blocks}
 
 
 @pytest.mark.parametrize("script", SCRIPTS)

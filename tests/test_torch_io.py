@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.mesh_files import write_tetgen as _write_tetgen
 from tests.test_scene_io import REF
 from tlfea.elements import ancf3243 as j_ancf3243
 from tlfea.elements import ancf3443 as j_ancf3443
@@ -23,22 +24,6 @@ from tlfea_torch.elements import ancf3243, ancf3443
 from tlfea_torch.utils import ancf_mesh, cli, io_vtk, mesh_manager, pressure, tetmesh
 
 torch.set_num_threads(2)
-
-
-def _write_tetgen(path, nodes, conn, base=1):
-    """A T10 mesh as TetGen .node/.ele files (TetGen's midnode order,
-    elements listed in reverse), indices from `base`."""
-    to_tetgen = np.argsort(tetmesh.TETGEN_TO_CANONICAL)
-    with open(f"{path}.node", "w") as f:
-        f.write(f"# nodes\n{len(nodes)} 3 0 0\n")
-        for i, p in enumerate(nodes):
-            f.write(f"{i + base} {float(p[0])!r} {float(p[1])!r} {float(p[2])!r}\n")
-    with open(f"{path}.ele", "w") as f:
-        f.write(f"{len(conn)} 10 0\n")
-        for e in reversed(range(len(conn))):
-            f.write(f"{e + base} " + " ".join(str(int(a) + base) for a in conn[e][to_tetgen])
-                    + "\n")
-    return f"{path}.node", f"{path}.ele"
 
 
 @pytest.mark.parametrize("base", [0, 1])

@@ -19,8 +19,9 @@ twin. Around the solvers: `collision` (the hydroelastic contact pipeline
 and the DEM backends, in plain tensor code: the JAX package has no Pallas
 kernel there), `simulation.Simulation` (stepping, checkpoints, re-pinning,
 collision with capacity regrowth) and `newton.make_coupled_rollout`,
-`diagnostics`, and the host utilities of `utils` (mesh IO,
-VTK writers, scenes, profiling). Builders and `interop.from_numpy_system` put
+`diagnostics`, the host utilities of `utils` (mesh IO, VTK writers,
+scenes, profiling), and every example script of `examples/`
+(`tlfea_torch.examples`). Builders and `interop.from_numpy_system` put
 their tensors on the card unless given device="cpu".
 
 Precision: float32 matrix products and convolutions run in full float32.

@@ -102,11 +102,13 @@ def build(
     conn: np.ndarray,
     rho: float,
     dtype: torch.dtype = torch.float64,
+    mass_rule: str = "exact",
     device="cuda",
 ) -> ElementBatch:
     """The `ElementBatch` of a T10 mesh on `device`, tables in `dtype`, with
-    the SPD (rule="exact") consistent mass. The tables are computed on the
-    host in float64, then cast and moved; pass device="cpu" to keep them
+    the consistent mass of `element_mass`'s `mass_rule` (the SPD "exact" by
+    default; "keast5" as the JAX build takes it). The tables are computed on
+    the host in float64, then cast and moved; pass device="cpu" to keep them
     there."""
     nodes = np.asarray(nodes, dtype=np.float64)
     conn = np.asarray(conn, dtype=np.int32)
@@ -114,7 +116,7 @@ def build(
     if np.any(detJ <= 0):
         n_bad = int(np.sum(np.any(detJ <= 0, axis=1)))
         raise ValueError(f"{n_bad} elements have non-positive Jacobian determinant")
-    me = element_mass(nodes, conn, rho)
+    me = element_mass(nodes, conn, rho, rule=mass_rule)
 
     device = torch.device(device)
 

@@ -37,7 +37,7 @@ from tlfea_torch.solvers.common import (
     StepState, System, _pin_terms, constraint_values, flat_norm, precond_blocks,
 )
 
-__all__ = ["NewtonParams", "step", "make_step", "stepper", "make_rollout",
+__all__ = ["NewtonParams", "RolloutCounts", "step", "make_step", "stepper", "make_rollout",
            "make_coupled_rollout", "inner_solve_args"]
 
 
@@ -195,9 +195,7 @@ def _composed_inner(v0, u_prev, v_prev, f_ext, params: NewtonParams, system: Sys
         if k == 0:
             norm_g0 = norm_g
         hist[k] = norm_g
-        conv = norm_g < params.inner_atol or (
-            params.inner_rtol > 0.0 and norm_g <= params.inner_rtol * norm_g0)
-        if conv:
+        if _inner_test(norm_g, norm_g0, params):
             break
         # Eisenstat-Walker forcing, choice 2; the loose end on the first
         # iteration, which has no history.
@@ -217,6 +215,28 @@ def _composed_inner(v0, u_prev, v_prev, f_ext, params: NewtonParams, system: Sys
         norm_g_prev = norm_g
         k += 1
     return v, k, norm_g, cg_total, hist
+
+
+def _inner_test(norm_g: float, norm_g0: float, params: NewtonParams) -> bool:
+    """The inner loop's convergence test on one ||g||."""
+    return norm_g < params.inner_atol or (
+        params.inner_rtol > 0.0 and norm_g <= params.inner_rtol * norm_g0)
+
+
+def _inner_converged(v, n_it, norm_g, hist, u_prev, v_prev, lam, f_ext, params: NewtonParams,
+                     system: System) -> bool:
+    """Whether an inner solve ended on a converged iterate. The loop tests
+    ||g|| at the top of an iteration, so a solve that stopped at
+    max_inner never tested its last iterate: only there, one more gradient
+    (K1 + K4, or the twins) is evaluated at v. Otherwise the last tested
+    ||g|| decides. Nothing of the solve or its counts changes."""
+    if n_it < params.max_inner:
+        return _inner_test(norm_g, hist[0], params)
+    pin_terms = _pin_terms(system, lam, params.dt, params.rho, system.grad_op.gN_t.dtype)
+    g, _ = g_and_hvp(v, u_prev, v_prev, f_ext, params.dt, system.grad_op, pin_terms,
+                     plain=system.plain)
+    norm_final = float(flat_norm(g))
+    return _inner_test(norm_final, hist[0] if n_it > 0 else norm_final, params)
 
 
 def _backtrack(linearize_g, v, dv, gn0: float, ls_max: int):
@@ -251,14 +271,16 @@ def _step(system: System, state: StepState, params: NewtonParams, f_ext, coarse=
     norm_c = float("inf")
     outers = newton_tot = cg_tot = 0
     hist_all = []
-    ok = False
+    ok = converged = False
     while outers < params.max_outer and (outers == 0 or norm_c >= params.outer_tol):
-        v, n_it, _, cg_it, hist = _newton_inner(
+        v, n_it, norm_g, cg_it, hist = _newton_inner(
             v, x_prev, v_prev, lam, f_ext, params, system, coarse, inv_blocks,
             u_prev=u_prev)
         hist_all.append(hist)
         # A budget exit means v is not this step's backward-Euler solution.
         ok = n_it < params.max_inner
+        converged = _inner_converged(v, n_it, norm_g, hist, u_prev, v_prev, lam, f_ext, params,
+                                     system)
         v_prev = v
         if cons is not None:
             c = constraint_values(cons, x_prev, v, params.dt, system.elems, u_prev=u_prev)
@@ -282,6 +304,9 @@ def _step(system: System, state: StepState, params: NewtonParams, f_ext, coarse=
         "cg_iters": cg_tot,
         "norm_c": norm_c,
         "norm_g_history": torch.tensor(hist_all, dtype=torch.float64).reshape(-1),
+        # The last inner solve's final iterate passed the inner test (the
+        # warm start reads `ok`, a step that stopped short of max_inner).
+        "converged": converged,
     }
     return StepState(x=x, v=v, lam=lam, u=u, dv=dv_next), diag
 
@@ -307,11 +332,23 @@ def stepper(params: NewtonParams, coarse=None):
     return lambda system, state, f_ext: _step(system, state, params, f_ext, coarse)
 
 
+class RolloutCounts(tuple):
+    """A rollout's per-step counts, the pair (newton_iters, cg_iters) of int
+    lists, with `converged`, each step's diag["converged"] (bool list)."""
+
+    converged: list
+
+    def __new__(cls, newton_iters, cg_iters, converged):
+        self = super().__new__(cls, (newton_iters, cg_iters))
+        self.converged = converged
+        return self
+
+
 def make_rollout(system: System, params: NewtonParams, n_steps: int, coarse=None,
                  precond_refresh: int = 1):
     """roll(state, f_ext) -> (state, (newton_iters, cg_iters)) chaining
     n_steps steps (`newton.py:620-693`); the counts are int lists, one entry
-    per step.
+    per step, in a `RolloutCounts` whose `converged` lists each step's flag.
 
     precond_refresh=K > 1 freezes the inverted block-Jacobi preconditioner
     for K consecutive steps, rebuilt from the state at every K-th step;
@@ -320,7 +357,7 @@ def make_rollout(system: System, params: NewtonParams, n_steps: int, coarse=None
     refresh = max(int(precond_refresh), 1)
 
     def roll(state: StepState, f_ext):
-        nits, cgits = [], []
+        nits, cgits, conv = [], [], []
         inv_b = None
         for k in range(n_steps):
             if refresh > 1 and k % refresh == 0:
@@ -328,7 +365,8 @@ def make_rollout(system: System, params: NewtonParams, n_steps: int, coarse=None
             state, d = _step(system, state, params, f_ext, coarse, inv_blocks=inv_b)
             nits.append(d["newton_iters"])
             cgits.append(d["cg_iters"])
-        return state, (nits, cgits)
+            conv.append(d["converged"])
+        return state, RolloutCounts(nits, cgits, conv)
 
     return roll
 
@@ -347,7 +385,7 @@ def make_coupled_rollout(system: System, params: NewtonParams, n_steps: int, for
     a closure over `HydroelasticCollision.step`, evaluated at the
     start-of-step state; the overflow flags are OR-ed on the device, with
     no host read per step, for the caller's capacity check. The counts are
-    int lists, one entry per step.
+    int lists, one entry per step, in a `RolloutCounts` as `make_rollout`'s.
 
     precond_refresh=K > 1 freezes the inverted block-Jacobi blocks for K
     steps, rebuilt at every K-th step, as `make_rollout` does. With K = 1
@@ -357,7 +395,7 @@ def make_coupled_rollout(system: System, params: NewtonParams, n_steps: int, for
     refresh = max(int(precond_refresh), 1)
 
     def roll(state: StepState, f_base):
-        nits, cgits = [], []
+        nits, cgits, conv = [], [], []
         inv_b = None
         ovf = torch.zeros((), dtype=torch.bool, device=state.x.device)
         for k in range(n_steps):
@@ -368,6 +406,7 @@ def make_coupled_rollout(system: System, params: NewtonParams, n_steps: int, for
             ovf = ovf | torch.as_tensor(o, device=ovf.device)
             nits.append(d["newton_iters"])
             cgits.append(d["cg_iters"])
-        return state, (nits, cgits), ovf
+            conv.append(d["converged"])
+        return state, RolloutCounts(nits, cgits, conv), ovf
 
     return roll

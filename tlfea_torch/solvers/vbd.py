@@ -60,8 +60,9 @@ class VBDStructures:
     n_colors: int
 
 
-def prepare(system: System, group_size: int = 4) -> VBDStructures:
-    """Greedy first-fit colouring packed into conflict-free groups (`vbd.py:84`)."""
+def prepare(system: System, group_size: int = 4, dtype=None) -> VBDStructures:
+    """Greedy first-fit colouring packed into conflict-free groups (`vbd.py:84`).
+    `dtype` is accepted and unused, as in the JAX signature."""
     conn = system.elems.conn.cpu().numpy()
     colors, _, _ = colors_and_incidence(conn, system.elems.n_coef)
     nodes, mask = pad_colors(colors, group_size)
